@@ -1,0 +1,72 @@
+"""Shared CLI plumbing: common flags, seeding, device selection.
+
+Counterpart of ``ssl_cr_histo_tpu/cli/common.py:81-151``, with these
+differences:
+  * no ``--photometric``: the device decides (the CUDA kernel on a GPU, the
+    plain PyTorch chain on the CPU);
+  * ``--device`` (default ``cuda``): a missing GPU is an error, never a
+    silent run on the CPU; the CPU tests pass ``--device cpu``;
+  * ``--aug_mode exact``, ``--reference_exact`` and ``--remat`` exit with a
+    "not yet ported" error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import random
+
+import numpy as np
+import torch
+
+
+def add_common_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--model", default="resnet18", choices=["resnet18", "resnet50"])
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--save_dir", default="./runs")
+    parser.add_argument("--print_freq", type=int, default=100)
+    parser.add_argument("--bf16", action="store_true", default=True,
+                        help="bfloat16 autocast around backbone and heads (params and "
+                             "loss stay float32)")
+    parser.add_argument("--no-bf16", dest="bf16", action="store_false")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device; 'cuda' fails when no GPU is present")
+    parser.add_argument("--aug_mode", default="fused", choices=["fused", "exact"],
+                        help="fused = single-warp policy; exact is not ported yet")
+    parser.add_argument("--image_size", type=int, default=0,
+                        help="override the input resolution (0 = default)")
+    parser.add_argument("--remat", action="store_true", help="not ported yet")
+    parser.add_argument("--reference_exact", action="store_true", help="not ported yet")
+
+
+def reject_unported(args, stage_flags: dict) -> None:
+    """Exit with a clear error for each flag this port does not carry yet.
+    ``stage_flags`` maps a flag's dest to its human name."""
+    flags = {"remat": "--remat", "reference_exact": "--reference_exact", **stage_flags}
+    for dest, name in flags.items():
+        if getattr(args, dest, False):
+            raise SystemExit(f"{name} is not yet ported to the PyTorch package (see ROADMAP.md)")
+    if args.aug_mode == "exact":
+        raise SystemExit("--aug_mode exact is not yet ported to the PyTorch package (see ROADMAP.md)")
+
+
+def resolve_device(args) -> torch.device:
+    """The run's device.  Raises SystemExit when CUDA is asked for and
+    missing.  TF32 is switched off for matmuls and cuDNN convolutions alike
+    (cuDNN's default is on): float32 math stays float32, and bf16 is opted
+    into with --bf16 alone."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: CUDA is not available on this machine")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def seed_everything(seed: int, device: torch.device) -> torch.Generator:
+    """Seed Python, numpy and torch's global generator (model init), and
+    return the run's generator on ``device`` (augmentation and ordering
+    draws)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return torch.Generator(device=device).manual_seed(seed)

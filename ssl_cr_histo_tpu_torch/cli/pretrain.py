@@ -1,0 +1,189 @@
+"""RSP self-supervised pretraining on a GPU.
+
+Counterpart of ``ssl_cr_histo_tpu/cli/pretrain.py:124-363`` for the v1
+variant.  Config of record (reference pretrain_BreastPathQ.py:151-196,
+:245-247): ResNet18, batch 64 triplets of 256x256 tiles, fused v1
+augmentation with the photometric kernel, joint encode, bf16 autocast,
+SGD-Nesterov lr 0.01 wd 1e-4, Lookahead(5, 0.5) stepped per epoch.
+
+    python -m ssl_cr_histo_tpu_torch.cli.pretrain --train_image_pth SLIDES/ --save_dir RUN/
+
+Writes ``train_results.csv``, ``best.pth`` and ``ckpt_<epoch>.pth`` (the
+reference's torch checkpoint layout, see ``train.checkpoint``) under
+``--save_dir``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import os
+import time
+
+import numpy as np
+import torch
+
+from ssl_cr_histo_tpu_torch.cli.common import add_common_args, reject_unported, resolve_device, seed_everything
+from ssl_cr_histo_tpu_torch.data import ReaderCache, RSPTripletSampler, TripletIndex
+from ssl_cr_histo_tpu_torch.data.pipeline import pad_batches, to_device
+from ssl_cr_histo_tpu_torch.parallel import steps as S
+from ssl_cr_histo_tpu_torch.train.checkpoint import save_checkpoint
+from ssl_cr_histo_tpu_torch.train.init import init_triplet_state
+from ssl_cr_histo_tpu_torch.train.loop import BestTracker, CsvLogger, lookahead_epoch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser("RSP pretraining (PyTorch / CUDA)")
+    p.add_argument("--train_image_pth", required=True, help="directory of WSIs (.tif/.svs/.npy)")
+    p.add_argument("--variant", default="v1", choices=["v1", "v2"], help="v2 is not ported yet")
+    p.add_argument("--tile_h", type=int, default=256)
+    p.add_argument("--tile_w", type=int, default=256)
+    p.add_argument("--tile_stride", type=int, default=128,
+                   help="128 BreastPathQ / 512 Camelyon16 (BASELINE.md)")
+    p.add_argument("--batch_size", type=int, default=64)
+    p.add_argument("--num_epoch", type=int, default=250)
+    p.add_argument("--lr", type=float, default=0.01)
+    p.add_argument("--weight_decay", type=float, default=1e-4)
+    p.add_argument("--la_steps", type=int, default=5)
+    p.add_argument("--la_alpha", type=float, default=0.5)
+    p.add_argument("--save_freq", type=int, default=10)
+    p.add_argument("--best_gate_epoch", type=int, default=0,
+                   help="only save best-val after this epoch (80 for Camelyon16)")
+    p.add_argument("--validation_size", type=int, default=3000,
+                   help="triplets held out for validation (3000 BPQ / 10000 Cam16)")
+    p.add_argument("--validation_fraction", type=float, default=0.0,
+                   help=">0 holds out a seeded fraction instead of a fixed count")
+    p.add_argument("--lwst_level_idx", type=int, default=1,
+                   help="thumbnail level for foreground stats, counted from the bottom "
+                        "of the pyramid (1 BreastPathQ / 5 Camelyon16)")
+    p.add_argument("--no_augment", action="store_true", help="train on raw tiles (ablation)")
+    p.add_argument("--expand_orderings", action="store_true", help="not ported yet")
+    p.add_argument("--cache_tiles", action="store_true", help="not ported yet")
+    p.add_argument("--read_workers", type=int, default=0, help="triplet-read threads per batch")
+    p.add_argument("--index_cache_dir", default="auto",
+                   help="persistent slide-index cache ('auto' = <train_image_pth>/.rsp_index; "
+                        "'' disables)")
+    p.add_argument("--index_workers", type=int, default=0)
+    p.add_argument("--resume", default="", help="not ported yet")
+    p.add_argument("--steps_per_epoch", type=int, default=0,
+                   help="0 = full pass over the sampled index")
+    p.add_argument("--joint_encode", action="store_true", default=True,
+                   help="one backbone pass over the 3 views (BN statistics pooled "
+                        "across them); on by default")
+    p.add_argument("--no_joint_encode", dest="joint_encode", action="store_false")
+    p.add_argument("--tsne", action="store_true", help="not ported yet")
+    add_common_args(p)
+    return p.parse_args(argv)
+
+
+def split_validation(indices, args):
+    """Hold out whole triplet positions for validation, seeded
+    (``cli/pretrain.py:157-179``)."""
+    rng = np.random.default_rng(args.seed)
+    flat = [(i, j) for i, idx in enumerate(indices) for j in range(len(idx.coords))]
+    order = rng.permutation(len(flat))
+    if args.validation_fraction > 0:
+        n_val = int(len(flat) * args.validation_fraction)
+    else:
+        n_val = min(args.validation_size, len(flat) // 5)
+    if n_val == 0:
+        print("WARNING: validation holdout is empty (too few triplet positions); "
+              "val metrics will read 0.0")
+    val_set = set(order[:n_val].tolist())
+    flat_pos = {t: k for k, t in enumerate(flat)}
+    train, val = [], []
+    for slide_i, idx in enumerate(indices):
+        rows = np.array([flat_pos[(slide_i, j)] in val_set for j in range(len(idx.coords))], bool)
+        train.append(TripletIndex(idx.slide_path, idx.coords[~rows]))
+        if rows.any():
+            val.append(TripletIndex(idx.slide_path, idx.coords[rows]))
+    return train, val
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    reject_unported(args, {"tsne": "--tsne", "expand_orderings": "--expand_orderings",
+                           "cache_tiles": "--cache_tiles", "resume": "--resume"})
+    if args.variant != "v1":
+        raise SystemExit("--variant v2 is not yet ported to the PyTorch package (see ROADMAP.md)")
+    if args.image_size:
+        args.tile_h = args.tile_w = args.image_size
+    if args.tile_h != args.tile_w:
+        raise SystemExit("non-square tiles are not supported (tile_h != tile_w)")
+    device = resolve_device(args)
+    gen = seed_everything(args.seed, device)
+
+    sampler = RSPTripletSampler(tile=args.tile_h, stride=args.tile_stride, geometry=args.variant,
+                                lwst_level_idx=args.lwst_level_idx)
+    print(f"==> indexing WSIs under {args.train_image_pth} ...")
+    indices = sampler.index_directory(args.train_image_pth, cache_dir=args.index_cache_dir or None,
+                                      n_workers=args.index_workers)
+    n_total = sum(len(i.coords) for i in indices)
+    if n_total == 0:
+        raise SystemExit("no foreground tiles found")
+    print(f"==> {n_total} triplet positions across {len(indices)} slides")
+    train_indices, val_positions = split_validation(indices, args)
+
+    state = init_triplet_state(args.model, device, lr=args.lr, weight_decay=args.weight_decay)
+    step_kwargs = dict(augment=None if args.no_augment else args.variant,
+                       joint_encode=args.joint_encode, bf16=args.bf16)
+
+    os.makedirs(args.save_dir, exist_ok=True)
+    log = CsvLogger(os.path.join(args.save_dir, "train_results.csv"),
+                    "epoch, train_loss, train_acc, val_loss, val_acc")
+    best = BestTracker(args.save_dir, mode="min", gate_epoch=args.best_gate_epoch)
+
+    readers = ReaderCache(capacity=64)
+    for epoch in range(1, args.num_epoch + 1):
+        t0 = time.time()
+        # sums stay on the device; reading them synchronises, so only the
+        # progress prints and the epoch's end do
+        loss_sum = torch.zeros((), device=device)
+        acc_sum = torch.zeros((), device=device)
+        seen = 0
+        batches = sampler.iter_batches(train_indices, args.batch_size, seed=args.seed + epoch,
+                                       readers=readers, read_workers=args.read_workers)
+        if args.steps_per_epoch:
+            batches = itertools.islice(batches, args.steps_per_epoch)
+        for bi, tiles_np in enumerate(batches):
+            tiles = to_device(tiles_np, device)
+            m = S.pretrain_step(state, tiles, gen, **step_kwargs)
+            n = tiles.shape[0]
+            loss_sum += m["loss"] * n
+            acc_sum += m["acc"] * n
+            seen += n
+            if (bi + 1) % args.print_freq == 0:
+                print(f"Train: [{epoch}][{bi + 1}] loss {float(m['loss']):.3f} "
+                      f"({float(loss_sum) / seen:.3f}) acc {float(acc_sum) / seen:.3f}")
+        train_loss = float(loss_sum) / max(seen, 1)
+        train_acc = float(acc_sum) / max(seen, 1)
+        print(f"Epoch time: {time.time() - t0:.2f} s.")
+
+        # validation: every held-out triplet under all 6 orderings; the last
+        # partial batch is zero-padded with a validity mask
+        sums = {k: torch.zeros((), device=device) for k in ("loss_sum", "correct", "count")}
+        vb = sampler.iter_batches(val_positions, args.batch_size, seed=0, drop_last=False,
+                                  readers=readers, read_workers=args.read_workers)
+        for tiles_np, valid in pad_batches(vb, args.batch_size):
+            out = S.pretrain_eval_step(state, to_device(tiles_np, device),
+                                       to_device(valid, device), bf16=args.bf16)
+            for k in sums:
+                sums[k] += out[k]
+        count = float(sums["count"])
+        val_loss = float(sums["loss_sum"]) / count if count else 0.0
+        val_acc = float(sums["correct"]) / count if count else 0.0
+
+        log.append(epoch, train_loss, train_acc, val_loss, val_acc)
+        state = lookahead_epoch(state, args.la_steps, args.la_alpha)
+        meta = {"epoch": epoch, "args": vars(args), "train_loss": train_loss, "val_loss": val_loss}
+        if best.update(val_loss, epoch, state, meta):
+            print(f"==> new best val loss {val_loss:.4f}")
+        if args.save_freq and epoch % args.save_freq == 0:
+            meta["best_val"] = best.best_value
+            save_checkpoint(os.path.join(args.save_dir, f"ckpt_{epoch}.pth"), state, meta)
+    readers.close()
+    print("done.")
+
+
+if __name__ == "__main__":
+    main()

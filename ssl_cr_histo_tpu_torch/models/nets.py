@@ -1,0 +1,78 @@
+"""The triplet (RSP) network and its pretraining classifier head.
+
+Counterpart of ``ssl_cr_histo_tpu/models/nets.py:27-113``, with the
+reference's module names so that state_dicts carry its keys: the backbone
+under ``model.*``, the pairwise MLP under ``fc.0`` / ``fc.2``, the classifier
+under ``classifier.0`` / ``classifier.2``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ssl_cr_histo_tpu_torch.models.resnet import make_backbone
+
+_FC_DIMS = {"resnet18": (1024, 512, 256), "resnet50": (4096, 1024, 512)}
+
+
+def feature_dim(model_name: str) -> int:
+    """Final triplet feature dimension (3 * fc_out): 768 for resnet18."""
+    return 3 * _FC_DIMS[model_name][2]
+
+
+def _pair_fc(model_name: str) -> nn.Sequential:
+    """Shared MLP applied to pairwise-concatenated embeddings."""
+    d_in, d_hidden, d_out = _FC_DIMS[model_name]
+    return nn.Sequential(nn.Linear(d_in, d_hidden), nn.ReLU(inplace=True), nn.Linear(d_hidden, d_out))
+
+
+class TripletNet(nn.Module):
+    """Backbone + pairwise-concat head.
+
+    ``forward(i1, i2, i3)``   -> (B, 3*fc_out), one backbone pass per view
+    ``encode_single(i)``       -> the same layout from one image
+    ``forward_joint(tiles)``   -> the same, one backbone pass over B*3 views
+    """
+
+    def __init__(self, model_name: str = "resnet18"):
+        super().__init__()
+        self.model_name = model_name
+        self.model = make_backbone(model_name)
+        self.fc = _pair_fc(model_name)
+
+    def pair_features(self, e1, e2, e3):
+        """Pairwise head over three (B, D) view embeddings -> (B, 3*fc_out)."""
+        f12 = self.fc(torch.cat([e1, e2], -1))
+        f23 = self.fc(torch.cat([e2, e3], -1))
+        f13 = self.fc(torch.cat([e1, e3], -1))
+        return torch.cat([f12, f23, f13], -1)
+
+    def forward(self, i1, i2, i3):
+        return self.pair_features(self.model(i1), self.model(i2), self.model(i3))
+
+    def encode_single(self, i):
+        e = self.model(i)
+        f = self.fc(torch.cat([e, e], -1))
+        return torch.cat([f, f, f], -1)
+
+    def forward_joint(self, tiles):
+        """tiles: (B, 3, C, H, W).  One batched backbone pass over the three
+        views, so BatchNorm's batch statistics are pooled across them (the
+        reference takes them per view; eval mode is identical)
+        (``nets.py:80-95``)."""
+        b = tiles.shape[0]
+        e = self.model(tiles.reshape(b * 3, *tiles.shape[2:])).reshape(b, 3, -1)
+        return self.pair_features(e[:, 0], e[:, 1], e[:, 2])
+
+
+class Classifier(nn.Module):
+    """Pretraining classifier head: in -> 128 -> num_classes."""
+
+    def __init__(self, in_features: int, num_classes: int):
+        super().__init__()
+        self.classifier = nn.Sequential(
+            nn.Linear(in_features, 128), nn.ReLU(inplace=True), nn.Linear(128, num_classes))
+
+    def forward(self, x):
+        return self.classifier(x)
