@@ -3,7 +3,8 @@ plain C interface and load it with ``ctypes``.
 
 The library is built at first use into ``build/torch_kernels/`` at the root of
 the checkout (listed in ``.gitignore``), in a directory keyed by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one is
+source, of every header of this directory that it includes, and of the
+flags, so an edited source or header is rebuilt and an unchanged one is
 reused.  No PyTorch headers are included, so a build takes seconds.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -38,10 +40,30 @@ def nvcc_path() -> str:
                        "the CUDA kernels cannot be built on this machine")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list:
+    """``<name>.cu`` and, transitively, every file of this directory it
+    includes with ``#include "..."``, in first-seen order."""
+    seen, todo = [], [f"{name}.cu"]
+    while todo:
+        rel = todo.pop(0)
+        if rel in seen:
+            continue
+        seen.append(rel)
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())
+                     if os.path.exists(os.path.join(CSRC, m.decode()))]
+    return seen
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_ROOT, f"{name}-{digest}", f"lib{name}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for rel in sources(name):
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            h.update(rel.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_ROOT, f"{name}-{h.hexdigest()[:16]}", f"lib{name}.so")
 
 
 def build(name: str) -> str:

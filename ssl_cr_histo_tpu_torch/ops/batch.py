@@ -1,8 +1,9 @@
 """Batched augmentation entry points on the device.
 
 Counterpart of ``ssl_cr_histo_tpu/ops/batch.py``.  Only the main path of
-RSP pretraining is ported: the v1 pool in fused mode, with the photometric
-chain in the hand-written kernel.  The other policies raise
+RSP pretraining is ported: the v1 pool in fused mode, which on the card is
+one hand-written kernel from the uint8 triplets to the normalized planar
+batch (``ops/rsp_augment_kernel.py``).  The other policies raise
 ``NotImplementedError`` (see ROADMAP.md, Queue 1).
 """
 
@@ -14,6 +15,7 @@ import torch
 
 from ssl_cr_histo_tpu_torch.ops import fused
 from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
+from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
 
 # The reference scales by /255 only (ToTensor): mean 0, std 1.
 DEFAULT_MEAN = (0.0, 0.0, 0.0)
@@ -22,11 +24,6 @@ DEFAULT_STD = (1.0, 1.0, 1.0)
 
 def to_float(img_u8: torch.Tensor) -> torch.Tensor:
     return img_u8.to(torch.float32) / 255.0
-
-
-def _clip01(img: torch.Tensor) -> torch.Tensor:
-    """Final [0, 1] clamp of an augmented batch (``batch.py:32-37``)."""
-    return torch.clamp(img, 0.0, 1.0)
 
 
 def draw_rsp_v1(gen: torch.Generator, n: int, size: int) -> dict:
@@ -41,26 +38,33 @@ def draw_rsp_v1(gen: torch.Generator, n: int, size: int) -> dict:
 
 
 def augment_rsp_batch_v1(gen: torch.Generator, triplets_u8: torch.Tensor, mode: str = "fused",
-                         draws: Optional[dict] = None) -> torch.Tensor:
-    """v1 RSP pretraining augmentation (``batch.py:40-74``, fused mode with
-    the photometric kernel).
+                         draws: Optional[dict] = None, mean=DEFAULT_MEAN, std=DEFAULT_STD,
+                         out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """v1 RSP pretraining augmentation, clipped and normalized
+    (``batch.py:40-74``, fused mode with the photometric kernel, then
+    ``normalize_batch``).
 
     triplets_u8: (B, 3, H, W, 3) uint8, the sampler's layout.  Returns
-    (B, 3, 3, H, W) float32 in [0, 1], channel-planar: the kernel's layout
-    and the backbone's NCHW.  ``draws`` (see ``draw_rsp_v1``) injects the
-    warp matrices, photometric params and noise; they are drawn from
-    ``gen`` when None.
+    (B, 3, 3, H, W) ``(clip(aug(x)) - mean) / std`` in ``out_dtype``,
+    channel-planar: the backbone's NCHW.  ``draws`` (see ``draw_rsp_v1``)
+    injects the warp matrices, photometric params and noise; they are drawn
+    from ``gen`` when None, and the Philox seeds always are.  CUDA tensors
+    run the fused kernel, CPU tensors its plain version.
     """
     if mode != "fused":
         raise NotImplementedError(
             f"aug_mode {mode!r} is not ported yet (ROADMAP.md Queue 1: v2/exact augmentation)")
-    b, t, h, w, _ = triplets_u8.shape
-    imgs = to_float(triplets_u8.reshape(b * t, h, w, 3).permute(0, 3, 1, 2)).contiguous()
+    b, t, h, _, _ = triplets_u8.shape
     if draws is None:
         draws = draw_rsp_v1(gen, b * t, h)
-    warped = fused.pretrain_geo_warp_planar(imgs, draws["geo"])
-    out = PK.pretrain_photometric(warped, gen, noise=draws["noise"], params=draws["params"])
-    return _clip01(out).reshape(b, t, 3, h, w)
+    seeds = PK.draw_seeds(gen, b * t)
+    if triplets_u8.is_cuda:
+        fn = RK.rsp_augment_cuda
+    elif triplets_u8.device.type == "cpu":
+        fn = RK.rsp_augment_plain
+    else:
+        raise ValueError(f"no v1 augmentation for device {triplets_u8.device}")
+    return fn(triplets_u8, draws["geo"], draws["params"], seeds, draws["noise"], mean, std, out_dtype)
 
 
 def normalize_batch(imgs: torch.Tensor, mean=DEFAULT_MEAN, std=DEFAULT_STD,

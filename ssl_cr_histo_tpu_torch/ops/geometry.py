@@ -119,6 +119,41 @@ def _resample_pass(img: torch.Tensor, pos: torch.Tensor, dim: int, pad_mode: str
     return out
 
 
+def warp_pass_coefficients(inv_mats: torch.Tensor, size: int) -> torch.Tensor:
+    """The two-pass warp's per-tile plan for (N, 3, 3) inverse maps of
+    size x size tiles (``geometry.py:358-378``): (N, 8) float32 rows
+    ``[ap, bp, cp, d, e, f, rot_dominant, swap]``.
+
+    Pass 1 samples ``tmp[y, o] = img'[y, ap*o + bp*y + cp]``, pass 2
+    ``out'[o, x] = tmp[d*x + e*o + f, x]``, where ``img'`` is the tile after
+    the lattice fix-ups (rotated by 90 degrees where ``rot_dominant``, then
+    transposed where ``swap``) and ``out = out'.T`` where ``swap``.  Both
+    ``warp_affine_planar`` and the fused augmentation kernel read this
+    table, so they sample at bit-identical positions."""
+    dev = inv_mats.device
+    m = inv_mats.float()
+    sel = lambda mask, a, b: torch.where(mask.view(-1, 1, 1), a, b)
+
+    # Fix-up 1: pre-rotate the lattice by 90 degrees where the map is
+    # dominated by its off-diagonal terms.
+    rot_dominant = m[:, 0, 0].abs() + m[:, 1, 1].abs() < m[:, 0, 1].abs() + m[:, 1, 0].abs()
+    m = sel(rot_dominant, _f32(_rot90_matrix(size, size), dev) @ m, m)
+
+    # Fix-up 2: transpose so that the horizontal-first pass is well
+    # conditioned.
+    swap = m[:, 0, 0].abs() > m[:, 1, 1].abs()
+    sw = _f32(_SWAP_XY, dev)
+    m = sel(swap, sw @ m @ sw, m)
+
+    a, b, c = m[:, 0, 0], m[:, 0, 1], m[:, 0, 2]
+    d, e, f = m[:, 1, 0], m[:, 1, 1], m[:, 1, 2]
+    e_safe = torch.where(e.abs() < 1e-6, torch.where(e < 0, -1e-6, 1e-6), e)
+    ap = a - b * d / e_safe
+    bp = b / e_safe
+    cp = c - b * f / e_safe
+    return torch.stack([ap, bp, cp, d, e, f, rot_dominant.float(), swap.float()], 1)
+
+
 def warp_affine_planar(imgs: torch.Tensor, inv_mats: torch.Tensor, pad_mode: str = "constant") -> torch.Tensor:
     """Affine warp of square channel-planar tiles, one matrix per tile.
 
@@ -131,36 +166,15 @@ def warp_affine_planar(imgs: torch.Tensor, inv_mats: torch.Tensor, pad_mode: str
         raise ValueError("warp_affine_planar requires square images")
     dev = imgs.device
     img = imgs.float()
-    m = inv_mats.float()
-    sel = lambda mask, a, b: torch.where(mask.view(-1, *([1] * (a.dim() - 1))), a, b)
-
-    # Fix-up 1: pre-rotate the lattice by 90 degrees where the map is
-    # dominated by its off-diagonal terms.
-    rot_dominant = m[:, 0, 0].abs() + m[:, 1, 1].abs() < m[:, 0, 1].abs() + m[:, 1, 0].abs()
-    img = sel(rot_dominant, torch.rot90(img, 1, dims=(2, 3)), img)
-    m = sel(rot_dominant, _f32(_rot90_matrix(h, w), dev) @ m, m)
-
-    # Fix-up 2: transpose so that the horizontal-first pass is well
-    # conditioned.
-    swap = m[:, 0, 0].abs() > m[:, 1, 1].abs()
+    coef = warp_pass_coefficients(inv_mats, h)
+    sel = lambda mask, a, b: torch.where(mask.view(-1, 1, 1, 1), a, b)
+    swap = coef[:, 7] > 0.5
+    img = sel(coef[:, 6] > 0.5, torch.rot90(img, 1, dims=(2, 3)), img)
     img = sel(swap, img.transpose(2, 3), img)
-    sw = _f32(_SWAP_XY, dev)
-    m = sel(swap, sw @ m @ sw, m)
 
-    col = lambda t: t.view(n, 1, 1)
-    a, b, c_ = col(m[:, 0, 0]), col(m[:, 0, 1]), col(m[:, 0, 2])
-    d, e, f = col(m[:, 1, 0]), col(m[:, 1, 1]), col(m[:, 1, 2])
-    e_safe = torch.where(e.abs() < 1e-6, torch.where(e < 0, -1e-6, 1e-6), e)
-
+    ap, bp, cp, d, e, f = (coef[:, j].view(n, 1, 1) for j in range(6))
     ys = torch.arange(h, dtype=torch.float32, device=dev).view(1, h, 1)
     xs = torch.arange(w, dtype=torch.float32, device=dev).view(1, 1, w)
-
-    # Pass 1 (horizontal): tmp[y, o] = img[y, ap*o + bp*y + cp]
-    ap = a - b * d / e_safe
-    bp = b / e_safe
-    cp = c_ - b * f / e_safe
     tmp = _resample_pass(img, ap * xs + bp * ys + cp, 3, pad_mode)
-
-    # Pass 2 (vertical): out[o, x] = tmp[d*x + e*o + f, x]
     out = _resample_pass(tmp, d * xs + e * ys + f, 2, pad_mode)
     return sel(swap, out.transpose(2, 3), out).contiguous()

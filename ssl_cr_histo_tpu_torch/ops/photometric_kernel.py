@@ -14,9 +14,10 @@ in ``csrc/photometric_chain.cu`` or raises.  It never falls back from the
 kernel to the plain chain.
 
 Noise: the Pallas kernel draws from the TPU core's own generator, which no
-other device reproduces.  The port's kernel draws from a counter-based
-Philox4x32-10 keyed on a per-tile seed, with the counter (x, y, channel,
-tile), and ``philox_normal`` computes the same numbers in plain PyTorch, so
+other device reproduces.  The port's kernels draw from a counter-based
+Philox4x32-10 keyed on a per-tile seed, one call per pixel with the counter
+(x, y, tile, 0) giving all three channels, and ``philox_normal`` computes
+the same numbers in plain PyTorch, so
 the kernel's random mode is checkable element for element.  Passing
 ``noise`` explicitly (the Pallas package's ``_kernel_noise_input`` mode)
 ties kernel, plain chain and the JAX package together on the same inputs.
@@ -117,18 +118,25 @@ def _uniform_open(bits: torch.Tensor) -> torch.Tensor:
 
 
 def philox_normal(seeds: torch.Tensor, shape) -> torch.Tensor:
-    """The kernel's per-pixel N(0, 1) noise for (N, C, H, W) tiles: Philox
-    keyed on (seed[n], 0) at counter (x, y, c, n), Box-Muller on its first
-    two words."""
+    """The kernels' per-pixel N(0, 1) noise for (N, 3, H, W) tiles: one
+    Philox call per pixel, keyed on (seed[n], 0) at counter (x, y, n, 0).
+    Box-Muller on words 0-1 gives channels 0 (cos) and 1 (sin), on words 2-3
+    channel 2 (cos), as ``csrc/photometric_common.cuh`` computes them."""
     n, c, h, w = shape
+    if c != 3:
+        raise ValueError(f"philox_normal draws 3 channels, got shape {tuple(shape)}")
     dev = seeds.device
     ar = lambda k: torch.arange(k, dtype=torch.int64, device=dev)
-    ctr = (ar(w).view(1, 1, 1, w), ar(h).view(1, 1, h, 1),
-           ar(c).view(1, c, 1, 1), ar(n).view(n, 1, 1, 1))
-    key = (seeds.to(torch.int64).view(n, 1, 1, 1) & _MASK, torch.zeros((), dtype=torch.int64, device=dev))
-    b0, b1, _, _ = philox4x32(ctr, key)
-    u1, u2 = _uniform_open(b0), _uniform_open(b1)
-    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(6.283185307179586 * u2)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    ctr = (ar(w).view(1, 1, w), ar(h).view(1, h, 1), ar(n).view(n, 1, 1), zero)
+    key = (seeds.to(torch.int64).view(n, 1, 1) & _MASK, zero)
+    b0, b1, b2, b3 = philox4x32(ctr, key)
+    two_pi = 6.283185307179586
+    r01 = torch.sqrt(-2.0 * torch.log(_uniform_open(b0)))
+    r2 = torch.sqrt(-2.0 * torch.log(_uniform_open(b2)))
+    t01 = two_pi * _uniform_open(b1)
+    return torch.stack([r01 * torch.cos(t01), r01 * torch.sin(t01),
+                        r2 * torch.cos(two_pi * _uniform_open(b3))], 1)
 
 
 # ---------------------------------------------------------------------------

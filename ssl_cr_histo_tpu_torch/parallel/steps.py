@@ -2,8 +2,8 @@
 
 Counterpart of ``ssl_cr_histo_tpu/parallel/steps.py:37-315``.  One train
 step: permute each uint8 triplet by its ordering label, augment on the
-device (one composed warp per tile, then the photometric kernel), clip and
-normalize, one backbone pass over the B*3 views, pairwise FC, the 6-way
+device (one kernel: composed warp, photometric chain, clip, normalize, cast
+to the compute type), one backbone pass over the B*3 views, pairwise FC, the 6-way
 classifier, cross-entropy, and an SGD-Nesterov step.  PyTorch runs eagerly,
 so there is no jit and no multi-step scan; the step updates ``state`` in
 place.
@@ -62,7 +62,8 @@ def pretrain_step(
     labels: (B,) ordering indices; sampled from ``generator`` when None (one
     ordering per triplet per step, ``steps.py:121-123``).  draws: injected
     augmentation draws (``ops.batch.draw_rsp_v1``'s dict) for tests.
-    bf16: autocast the backbone and heads to bfloat16; the loss is float32.
+    bf16: the augmentation writes bfloat16 and the backbone and heads run
+    under bfloat16 autocast; the loss is float32.
     Returns {'loss', 'acc'} as device tensors (reading them synchronises).
     """
     model, clf = state.model, state.classifier
@@ -76,13 +77,14 @@ def pretrain_step(
     # commutes with v1's per-tile augmentation draws
     tiles_u8 = permute_triplets(tiles_u8, labels)
     if augment == "v1":
-        tiles = aug_batch.augment_rsp_batch_v1(generator, tiles_u8, draws=draws)
+        tiles = aug_batch.augment_rsp_batch_v1(
+            generator, tiles_u8, draws=draws, out_dtype=torch.bfloat16 if bf16 else torch.float32)
     elif augment is None:
-        tiles = aug_batch.to_float(tiles_u8).permute(0, 1, 4, 2, 3)
+        tiles = aug_batch.normalize_batch(aug_batch.to_float(tiles_u8).permute(0, 1, 4, 2, 3),
+                                          channel_axis=2)
     else:
         raise NotImplementedError(
             f"augment {augment!r} is not ported yet (ROADMAP.md Queue 1: v2 augmentation)")
-    tiles = aug_batch.normalize_batch(tiles, channel_axis=2)
 
     with _autocast(tiles.device, bf16):
         if joint_encode:

@@ -342,8 +342,9 @@ def test_cli_rejects_unported_flags(tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import without jax,
-    flax, optax or chex.  A subprocess: this test process has jax loaded
-    (tests/conftest.py)."""
+    flax, optax or chex, and without any module of the JAX package
+    (``ssl_cr_histo_tpu``, even its numpy-only ones).  A subprocess: this
+    test process has jax loaded (tests/conftest.py)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ssl_cr_histo_tpu_torch as P\n"
@@ -352,6 +353,8 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'chex'))\n"
         "assert not bad, bad\n"
+        "jax_pkg = sorted(k for k in sys.modules if k.split('.')[0] == 'ssl_cr_histo_tpu')\n"
+        "assert not jax_pkg, jax_pkg\n"
         "print('ok', len([k for k in sys.modules if k.startswith('ssl_cr_histo_tpu_torch')]))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -1,0 +1,236 @@
+"""The port's fused v1 augmentation (``ops/rsp_augment_kernel.py``) on the
+CPU: its plain version against the JAX package's augmentation composition,
+the bf16 output, the Philox noise layout the kernels share, the CPU dispatch
+of ``augment_rsp_batch_v1``, and the kernel build's source hash.
+
+The CUDA kernel against this plain version is tests/test_torch_cuda_kernels.py
+(GPU only) and chip_smoke.py.
+"""
+
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from ssl_cr_histo_tpu.ops import batch as JB
+from ssl_cr_histo_tpu.ops import geometry as JG
+from ssl_cr_histo_tpu.ops import pallas_photometric as PP
+from ssl_cr_histo_tpu_torch.csrc import build
+from ssl_cr_histo_tpu_torch.ops import batch as TB
+from ssl_cr_histo_tpu_torch.ops import geometry as TG
+from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
+from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+
+GATES = (3, 5, 10, 13)  # hsv, noise, blur, brightness/contrast
+MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+
+
+def _matrices(s):
+    """Two tiles per triplet position: identity, hflip, rotations on both
+    sides of 90 degrees, zooms, and anisotropic maps that take the warp's
+    transpose fix-up with and without its 90-degree fix-up."""
+    hflip = np.array([[-1, 0, s - 1], [0, 1, 0], [0, 0, 1]], np.float32)
+    mats = [np.eye(3, dtype=np.float32), hflip]
+    mats += [np.asarray(JG.rotation_matrix(jnp.float32(d), s, s)) for d in (30.0, -45.0, 89.0, -91.0)]
+    mats += [np.asarray(JG.scale_matrix(jnp.float32(v), s, s)) for v in (0.6, 1.4)]
+    mats.append(np.array([[1.4, 0.2, -3.0], [0.1, 0.7, 2.0], [0, 0, 1]], np.float32))
+    mats.append(np.array([[0.1, 0.6, 2.0], [1.4, 0.2, -1.0], [0, 0, 1]], np.float32))
+    mats += [np.asarray(JG.rotation_matrix(jnp.float32(d), s, s)) for d in (120.0, 10.0)]
+    return np.stack(mats).astype(np.float32)
+
+
+def _params(rng, n):
+    """Params with draw_params' law, then per tile: all gates off, all on,
+    each gate alone, the blur alone at k = 3, 5, 7, and drawn gates."""
+    p = np.zeros((n, PK.N_PARAMS), np.float32)
+    p[:, 0] = rng.uniform(-0.1, 0.1, n)
+    p[:, 1] = rng.uniform(-1, 1, n)
+    p[:, 2] = rng.uniform(-20, 20, n)
+    p[:, 4] = rng.uniform(0, 0.1, n)
+    p[:, 6:9] = rng.normal(size=(n, 3)) * rng.uniform(-0.035, 0.035, (n, 3))
+    p[:, 9] = 3.0 + 2.0 * rng.integers(0, 3, n)
+    p[:, 11] = rng.uniform(-0.2, 0.2, n)
+    p[:, 12] = rng.uniform(-0.2, 0.2, n)
+    p[:, list(GATES)] = rng.integers(0, 2, (n, len(GATES)))
+    rows = [(), GATES] + [(g,) for g in GATES] + [(10,)] * 3
+    for i, on in enumerate(rows):
+        p[i, list(GATES)] = 0.0
+        p[i, list(on)] = 1.0
+    p[len(rows) - 3:len(rows), 9] = (3.0, 5.0, 7.0)
+    return p
+
+
+def _inputs(s, seed=0):
+    mats = _matrices(s)
+    n = len(mats)  # 12 tiles = 4 triplets
+    rng = np.random.default_rng(seed)
+    return {
+        "tiles": rng.integers(0, 256, (n // 3, 3, s, s, 3), dtype=np.uint8),
+        "mats": mats,
+        "params": _params(rng, n),
+        "noise": rng.normal(size=(n, 3, s, s)).astype(np.float32),
+    }
+
+
+def _jax_composition(d, mean, std):
+    """The JAX package's fused + Pallas augmentation on the same inputs:
+    to_float -> vmapped warp_affine_mxu_planar (reflect101) -> interpret-mode
+    Pallas chain with host noise -> _clip01 -> normalize_batch."""
+    b, t, s = d["tiles"].shape[:3]
+    imgs = JB.to_float(jnp.asarray(d["tiles"].reshape(b * t, s, s, 3).transpose(0, 3, 1, 2)))
+    warped = jax.vmap(lambda im, m: JG.warp_affine_mxu_planar(im, m, pad_mode="reflect101"))(
+        imgs, jnp.asarray(d["mats"]))
+    out = JB._clip01(PP.pretrain_photometric_pallas(
+        warped, jax.random.PRNGKey(0), interpret=True, noise=jnp.asarray(d["noise"]),
+        params=jnp.asarray(d["params"]), planar_io=True))
+    return np.asarray(JB.normalize_batch(out.reshape(b, t, 3, s, s), mean, std, channel_axis=2))
+
+
+def _plain(d, mean, std, out_dtype=torch.float32, noise=True):
+    n = len(d["mats"])
+    return RK.rsp_augment_plain(
+        torch.from_numpy(d["tiles"]), torch.from_numpy(d["mats"]), torch.from_numpy(d["params"]),
+        torch.arange(n, dtype=torch.int32), torch.from_numpy(d["noise"]) if noise else None,
+        mean, std, out_dtype)
+
+
+def test_matrix_set_takes_both_fixups():
+    """The matrices above drive the warp's 90-degree and transpose fix-ups,
+    alone and together."""
+    for s in (32, 37):
+        coef = TG.warp_pass_coefficients(torch.from_numpy(_matrices(s)), s).numpy()
+        rot, swap = coef[:, 6] > 0.5, coef[:, 7] > 0.5
+        assert rot.any() and (~rot).any() and swap.any() and (~swap).any()
+        assert (rot & swap).any() and (~rot & swap).any()
+
+
+@pytest.mark.parametrize("s", [32, 37])
+@pytest.mark.parametrize("norm", ["identity", "imagenet"])
+def test_plain_matches_jax_composition(s, norm):
+    """rsp_augment_plain against the JAX composition, float32, atol 1e-5.
+    Why 1e-5: the warps form the same two nonzero hat weights but the JAX
+    one sums them in an einsum (another order than the port's two products
+    and an add, about 1 ulp of [0, 1] values), and the chains differ by
+    libm/XLA ulps in log/exp/division; test_torch_photometric and
+    test_torch_geometry hold each half to 1e-5 on its own.  With the
+    ImageNet std (~0.22) the normalize scales that by at most 4.5, so the
+    bound there is 4.5e-5."""
+    mean, std = ((0.0,) * 3, (1.0,) * 3) if norm == "identity" else (MEAN, STD)
+    d = _inputs(s)
+    got = _plain(d, mean, std)
+    assert got.shape == (4, 3, 3, s, s) and got.dtype == torch.float32
+    want = _jax_composition(d, mean, std)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 / min(std))
+
+
+def test_bf16_output_is_the_float32_output_rounded():
+    """out_dtype bf16 is the float32 result cast to bf16 (round to nearest
+    even), bit for bit, in both noise modes."""
+    d = _inputs(37, seed=1)
+    for noise in (True, False):
+        f32 = _plain(d, MEAN, STD, torch.float32, noise)
+        bf16 = _plain(d, MEAN, STD, torch.bfloat16, noise)
+        assert bf16.dtype == torch.bfloat16
+        assert torch.equal(bf16, f32.to(torch.bfloat16))
+
+
+def test_philox_mode_uses_the_shared_noise():
+    """With noise None the plain version draws philox_normal(seeds): the
+    same result as passing that noise explicitly (exact)."""
+    d = _inputs(32, seed=2)
+    n = len(d["mats"])
+    seeds = torch.arange(n, dtype=torch.int32)
+    got = _plain(d, MEAN, STD, noise=False)
+    d["noise"] = PK.philox_normal(seeds, (n, 3, 32, 32)).numpy()
+    assert torch.equal(got, _plain(d, MEAN, STD))
+
+
+def test_philox_normal_layout():
+    """One Philox call per pixel at counter (x, y, n, 0), key (seed, 0):
+    channels 0 and 1 are the cos and sin of words 0-1's Box-Muller pair,
+    channel 2 the cos of words 2-3's.  Checked at one pixel against
+    philox4x32 (itself checked against Random123's known answers in
+    test_torch_photometric.py), exact."""
+    seeds = torch.tensor([11, 987654321], dtype=torch.int32)
+    z = PK.philox_normal(seeds, (2, 3, 5, 7))
+    t = lambda v: torch.tensor([v], dtype=torch.int64)
+    n, y, x = 1, 3, 6
+    words = PK.philox4x32([t(x), t(y), t(n), t(0)], [t(987654321), t(0)])
+    u = [PK._uniform_open(wd) for wd in words]
+    r01, r2 = torch.sqrt(-2.0 * torch.log(u[0])), torch.sqrt(-2.0 * torch.log(u[2]))
+    want = [r01 * torch.cos(6.283185307179586 * u[1]), r01 * torch.sin(6.283185307179586 * u[1]),
+            r2 * torch.cos(6.283185307179586 * u[3])]
+    for c in range(3):
+        assert z[n, c, y, x].item() == want[c].item()
+    with pytest.raises(ValueError):
+        PK.philox_normal(seeds, (2, 4, 5, 7))
+
+
+def test_philox_channels_are_independent_normals():
+    """The three channels are N(0, 1) and uncorrelated with each other
+    (n = 2 * 96 * 128 = 24576 per channel: mean within 0.03, std within 3%,
+    correlations within 0.03, about 4.7 standard errors)."""
+    z = PK.philox_normal(torch.tensor([5, 6], dtype=torch.int32), (2, 3, 96, 128))
+    planes = z.permute(1, 0, 2, 3).reshape(3, -1).double()
+    for c in range(3):
+        assert abs(planes[c].mean().item()) < 0.03 and abs(planes[c].std().item() - 1.0) < 0.03
+    corr = torch.corrcoef(planes)
+    assert (corr - torch.eye(3, dtype=torch.float64)).abs().max().item() < 0.03
+
+
+def test_augment_on_cpu_never_touches_the_kernel_library(monkeypatch):
+    """A CPU batch runs the plain version: the kernel library is never
+    loaded and the launch counter does not move.  The result equals
+    rsp_augment_plain on the same draws and the seeds drawn after them."""
+
+    def refuse(*_):
+        raise AssertionError("the kernel library was loaded for a CPU tensor")
+
+    monkeypatch.setattr(build, "load_library", refuse)
+    monkeypatch.setattr(RK, "_library", refuse)
+    d = _inputs(32, seed=3)
+    tiles = torch.from_numpy(d["tiles"])
+    before = RK.launches
+    got = TB.augment_rsp_batch_v1(torch.Generator().manual_seed(4), tiles, mean=MEAN, std=STD,
+                                  out_dtype=torch.bfloat16)
+    assert RK.launches == before
+    g = torch.Generator().manual_seed(4)
+    draws = TB.draw_rsp_v1(g, 12, 32)
+    seeds = PK.draw_seeds(g, 12)
+    want = RK.rsp_augment_plain(tiles, draws["geo"], draws["params"], seeds, None, MEAN, STD,
+                                torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+def test_kernel_wrapper_rejects_cpu_tensors():
+    d = _inputs(32)
+    n = len(d["mats"])
+    with pytest.raises(ValueError, match="CUDA"):
+        RK.rsp_augment_cuda(torch.from_numpy(d["tiles"]), torch.from_numpy(d["mats"]),
+                            torch.from_numpy(d["params"]), torch.zeros(n, dtype=torch.int32), None,
+                            MEAN, STD)
+
+
+def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
+    """The build key covers the .cu file and the headers of csrc/ it
+    includes: editing photometric_common.cuh changes both kernels' library
+    paths, editing one .cu only its own."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc, ignore=shutil.ignore_patterns("*.py", "__pycache__"))
+    monkeypatch.setattr(build, "CSRC", str(csrc))
+    assert build.sources("rsp_augment") == ["rsp_augment.cu", "photometric_common.cuh"]
+    assert build.sources("photometric_chain") == ["photometric_chain.cu", "photometric_common.cuh"]
+    before = {k: build.library_path(k) for k in ("rsp_augment", "photometric_chain")}
+    with open(os.path.join(csrc, "photometric_common.cuh"), "a") as f:
+        f.write("\n// edited\n")
+    mid = {k: build.library_path(k) for k in before}
+    assert all(mid[k] != before[k] for k in before)
+    with open(os.path.join(csrc, "rsp_augment.cu"), "a") as f:
+        f.write("\n// edited\n")
+    assert build.library_path("rsp_augment") != mid["rsp_augment"]
+    assert build.library_path("photometric_chain") == mid["photometric_chain"]
