@@ -10,16 +10,19 @@ step and the kernels.
 Phases (any failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit); no CUDA -> exit 1
   2. build both kernels from csrc/ with nvcc, in parallel, and print each
-     build's -Xptxas -v report (registers, shared memory, spills)
+     build's -Xptxas -v report (registers, shared memory, spills); a kernel
+     that spills fails the run
   3. the photometric chain kernel vs its plain version, host-noise mode, at
      (192, 3, 256, 256) and at an odd shape (4, 3, 37, 37): max abs err
      <= 1e-4; Philox mode: deterministic, seed-sensitive, equal to the
      plain Philox chain (<= 1e-4), and N(0, sigma) noise by moments
   4. the fused augmentation kernel vs its plain version at the main path's
      (64, 3, 256, 256, 3) and at (2, 3, 37, 37, 3), params drawn, all gates
-     on and all gates off, host noise and Philox: float32 out within 1e-4,
-     bf16 out within one bf16 ulp of the plain float32 result (or 1e-4
-     where an ulp is smaller)
+     on and all gates off, host noise and Philox, with and without a
+     triplet ordering: finite, float32 out within 1e-4, bf16 out within one
+     bf16 ulp of the plain float32 result (or 1e-4 where an ulp is
+     smaller); the warp plan the kernel computes (``plan_out``) equal to
+     ``warp_pass_coefficients`` on the card and on the CPU
   5. main path: a small float32 step on the card must agree with the same
      step on the CPU (plain versions); then ``ssl_cr_histo_tpu_torch.cli.
      pretrain.main`` on two synthetic slides at resnet18 / batch 64 / 256^2 /
@@ -30,13 +33,16 @@ Phases (any failure exits non-zero and prints no result line):
   6. timing with CUDA events, in turns (old, fused, fused, old): the bf16
      step with the fused kernel against the step with the unfused composition
      (plain warp + chain kernel + clip + normalize), the fused kernel
-     against that composition alone, the plain versions, the chain kernel
+     against that composition alone, the plain versions; the fused kernel's
+     time (torch.profiler) in both noise modes and by gate, beside its
+     wrapper called back to back; the chain kernel in both noise modes
   7. the kernels line, then ``{"ok": true, "device": {...}}`` as the last line
 
 Imports nothing of JAX and nothing of the JAX package.  Tolerance 1e-4
 (phases 3-4) on outputs in [0, 1]: the kernels and PyTorch's CUDA ops
-differ by a few ulp in logf/expf/division (no fast math) and in FMA
-contraction.
+differ by a few ulp in log/exp/division (the special-function forms of
+csrc/photometric_common.cuh, whose header states their error budget) and in
+FMA contraction.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -68,11 +75,14 @@ FP32_OPS_PER_S = 67e12
 # multiply, division, comparison, min/max, floor, fmod, sqrt, log, exp, sin
 # and cos counts one, and so does each integer multiply, xor and add of
 # Philox (a wide multiply counts two).  Gated stages count only on tiles
-# whose gate is on; the blur counts 2k + 2 per channel (two passes of k
-# taps, two divisions).  Halo recompute is not counted: the bound is the
-# least work the function needs.
+# whose gate is on.  The bound is the least work the function needs: the
+# two-pass warp samples pass 1 once per intermediate pixel and pass 2 once
+# per output pixel; the blur's two passes slide their box sums (add the
+# entering value, subtract the leaving one, scale by 1/k: 6 per channel,
+# whatever k is); halo recompute is not counted.
 PIXEL_OPS = {
-    "warp": 105,      # 3 folded positions with their taps' hat weights (26 each), 27 mul/add
+    "warp": 70,       # 2 folded positions with their taps' hat weights (26 each), 18 mul/add
+    "blur": 18,       # 2 sliding passes, 3 channels
     "hsv": 45,        # rgb2hsv, the three shifts, hsv2rgb
     "philox": 126,    # 10 rounds (4 + 4 xor + 2 key adds), 4 uniforms, Box-Muller
     "noise": 12,      # x + n * sigma, clipped, 3 channels
@@ -159,7 +169,7 @@ def chain_ops(params, pixels: int, philox: bool) -> float:
     on = lambda j: (p[:, j] > 0.5).double()
     noise = PIXEL_OPS["noise"] + (PIXEL_OPS["philox"] if philox else 0)
     per_pixel = (PIXEL_OPS["hsv"] * on(3) + noise * on(5) + PIXEL_OPS["hed"]
-                 + 3 * (2 * p[:, 9] + 2) * on(10) + PIXEL_OPS["bc"] * on(13))
+                 + PIXEL_OPS["blur"] * on(10) + PIXEL_OPS["bc"] * on(13))
     return float(per_pixel.sum()) * pixels
 
 
@@ -245,8 +255,12 @@ def phase_kernel_vs_plain(PK, torch, dev) -> float:
 
 
 def phase_fused_vs_plain(RK, PK, fused, torch, dev) -> float:
-    """Phase 4: the fused kernel against rsp_augment_plain.  Returns the
-    largest float32 error seen (outputs in [0, 1]: mean 0, std 1)."""
+    """Phase 4: the fused kernel against rsp_augment_plain, with and without
+    an ordering, and its in-kernel warp plan against warp_pass_coefficients.
+    Returns the largest float32 error seen (outputs in [0, 1]: mean 0, std
+    1)."""
+    from ssl_cr_histo_tpu_torch.ops import geometry
+
     gen = torch.Generator(device=dev).manual_seed(2)
     worst = 0.0
     gates = [3, 5, 10, 13]
@@ -262,18 +276,25 @@ def phase_fused_vs_plain(RK, PK, fused, torch, dev) -> float:
         drawn = PK.draw_params(gen, n)
         all_on, all_off = drawn.clone(), drawn.clone()
         all_on[:, gates], all_off[:, gates] = 1.0, 0.0
-        cases = [(p, nz, IDENTITY) for p in ("drawn params", "all gates on", "all gates off")
-                 for nz in ("host noise", "philox")] + [("drawn params", "philox", IMAGENET)]
-        for plabel, nlabel, norm in cases:
+        # an ordering per triplet that uses every one of the six
+        order = torch.randperm(max(b, 6), generator=gen, device=dev)[:b].remainder(6).to(torch.int32)
+        cases = [(p, nz, IDENTITY, None) for p in ("drawn params", "all gates on", "all gates off")
+                 for nz in ("host noise", "philox")] + [("drawn params", "philox", IMAGENET, None)]
+        cases += [("drawn params", nz, IDENTITY, order) for nz in ("host noise", "philox")]
+        cases += [("all gates on", "philox", IMAGENET, order)]
+        for plabel, nlabel, norm, o in cases:
             params = {"drawn params": drawn, "all gates on": all_on, "all gates off": all_off}[plabel]
             args = (tiles, mats, params, seeds, noise if nlabel == "host noise" else None, *norm)
-            want = RK.rsp_augment_plain(*args, torch.float32)
-            got = RK.rsp_augment_cuda(*args, torch.float32)
-            got16 = RK.rsp_augment_cuda(*args, torch.bfloat16)
+            want = RK.rsp_augment_plain(*args, torch.float32, order=o)
+            got = RK.rsp_augment_cuda(*args, torch.float32, order=o)
+            got16 = RK.rsp_augment_cuda(*args, torch.bfloat16, order=o)
             torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(got16).all()),
+                  f"fused {plabel}, {nlabel}: non-finite output")
             tol = TOL / min(norm[1])
             err = (got - want).abs().max().item()
-            label = f"{plabel}, {nlabel}" + (", ImageNet mean/std" if norm is IMAGENET else "")
+            label = (f"{plabel}, {nlabel}" + (", ImageNet mean/std" if norm is IMAGENET else "")
+                     + (", ordered" if o is not None else ""))
             check(math.isfinite(err) and err <= tol, f"fused {label} {tuple(tiles.shape)}: f32 max abs err {err} > {tol}")
             want16 = want.to(torch.bfloat16)
             err16 = (got16.float() - want16.float()).abs()
@@ -285,6 +306,21 @@ def phase_fused_vs_plain(RK, PK, fused, torch, dev) -> float:
             print(f"  fused {label} {tuple(tiles.shape)}: f32 max abs err {err:.3e}; bf16 max abs err "
                   f"{err16.max().item():.3e}, at most {ratio:.2f} of max(1 ulp, {tol:.1e}); bf16 equal to "
                   f"the plain cast {(err16 == 0).double().mean().item() * 100:.3f}%", flush=True)
+
+        # the plan the kernel computed for each tile, against warp_pass_coefficients
+        # on the card and on the CPU: equal values, and bitwise equal rows counted
+        plan = torch.full((n, RK.PLAN_WIDTH), float("nan"), device=dev)
+        RK.rsp_augment_cuda(tiles, mats, drawn, seeds, None, *IDENTITY, torch.bfloat16, order=order,
+                            plan_out=plan)
+        torch.cuda.synchronize()
+        for where, want in (("card", geometry.warp_pass_coefficients(mats, s)),
+                            ("CPU", geometry.warp_pass_coefficients(mats.cpu(), s).to(dev))):
+            check(torch.equal(plan, want), f"in-kernel warp plan differs from warp_pass_coefficients on the "
+                                           f"{where} at {s}^2: {(plan != want).sum().item()} entries")
+            bitwise = (plan.view(torch.int32) == want.view(torch.int32)).all(1).sum().item()
+            print(f"  in-kernel warp plan ({n} tiles at {s}^2, incl. both fix-ups: rot {int(plan[:, 6].sum())}, "
+                  f"swap {int(plan[:, 7].sum())}) equals warp_pass_coefficients on the {where}; "
+                  f"{bitwise}/{n} rows bitwise", flush=True)
     return worst
 
 
@@ -340,15 +376,19 @@ def write_slides(root: str) -> str:
 
 
 def old_augment(gen, triplets_u8, mode="fused", draws=None, mean=IDENTITY[0], std=IDENTITY[1],
-                out_dtype=None):
+                out_dtype=None, order=None):
     """The unfused composition of the augmentation, kept here to time the step
-    against: uint8 -> float32 planar copy, the plain two-pass warp, the chain
-    kernel, clip, normalize; float32 out (autocast casts it for conv1)."""
+    against: the uint8 triplet permutation (a gather), uint8 -> float32
+    planar copy, the plain two-pass warp, the chain kernel, clip, normalize;
+    float32 out (autocast casts it for conv1)."""
     import torch
     from ssl_cr_histo_tpu_torch.ops import batch as TB
     from ssl_cr_histo_tpu_torch.ops import fused
     from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
+    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
 
+    if order is not None:
+        triplets_u8 = RK.permute_triplets(triplets_u8, order)
     b, t, h, w, _ = triplets_u8.shape
     imgs = TB.to_float(triplets_u8.reshape(b * t, h, w, 3).permute(0, 3, 1, 2)).contiguous()
     if draws is None:
@@ -402,6 +442,33 @@ def phase_timing(torch, dev, tiles, card) -> dict:
           f"{step_ms['fused']:.3f} vs {step_ms['old']:.3f} ms/step = "
           f"{64 * 3 / step_ms['fused'] * 1e3:.1f} vs {64 * 3 / step_ms['old'] * 1e3:.1f} patches/s [{card}]",
           flush=True)
+
+    # one step's path: the fused kernel with the labels as its ordering, and
+    # neither the uint8 permutation gather nor the PyTorch warp plan
+    from ssl_cr_histo_tpu_torch.ops import geometry
+
+    calls = {"permute_triplets": 0, "warp_pass_coefficients": 0}
+    # every module's name for each function, each call counted
+    names = [(S, "permute_triplets"), (RK, "permute_triplets"), (geometry, "warp_pass_coefficients")]
+    real = [getattr(mod, name) for mod, name in names]
+
+    def counted(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    for (mod, name), fn in zip(names, real):
+        setattr(mod, name, counted(name, fn))
+    launched = RK.launches
+    try:
+        S.pretrain_step(state, tiles, gen, bf16=True)
+    finally:
+        for (mod, name), fn in zip(names, real):
+            setattr(mod, name, fn)
+    launched = RK.launches - launched
+    print(f"phase 6: one bf16 step: fused kernel launches {launched}, calls {calls}", flush=True)
+    check(launched == 1 and not any(calls.values()), f"the step's path: {launched} fused launches, {calls}")
     del state
 
     # the augmentation alone at the main path's shape, Philox noise, bf16 out
@@ -420,15 +487,28 @@ def phase_timing(torch, dev, tiles, card) -> dict:
     fused_f32 = cuda_ms(lambda: RK.rsp_augment_cuda(*args, torch.float32), 50)
     kernel = profiled_kernel_ms(fns["fused"], "rsp_augment_kernel", 50)
     aug_ms = {k: min(v) for k, v in aug.items()}
-    bytes_ = tiles.numel() + n * 3 * s * s * 2 + n * (PK.N_PARAMS + 8 + 1) * 4
+    # bytes: uint8 tiles in, bf16 out, the (n, 3, 3) maps, params and seeds
+    bytes_ = tiles.numel() + n * 3 * s * s * 2 + n * (PK.N_PARAMS + 9 + 1) * 4
     b_ms, b_by = bound_ms(bytes_, fused_ops(params, s * s, philox=True))
     print(f"phase 6: fused kernel ({b}, 3, {s}, {s}, 3) Philox bf16 out: kernel {kernel * 1e3:.1f} us "
-          f"(profiler), wrapper {aug_ms['fused'] * 1e3:.1f} us (runs {aug['fused'][0] * 1e3:.1f}, "
-          f"{aug['fused'][1] * 1e3:.1f}), f32 out wrapper {fused_f32 * 1e3:.1f} us; unfused composition "
-          f"{aug_ms['old'] * 1e3:.1f} us (runs {aug['old'][0] * 1e3:.1f}, {aug['old'][1] * 1e3:.1f}); "
-          f"plain version {aug_ms['plain'] * 1e3:.1f} us; bound {b_ms * 1e3:.1f} us by {b_by} "
-          f"({bytes_ / 1e6:.1f} MB) [{card}]", flush=True)
+          f"(profiler), {b_ms / kernel * 100:.1f}% of its bound; wrapper called back to back "
+          f"{aug_ms['fused'] * 1e3:.1f} us = {aug_ms['fused'] / kernel:.2f}x the kernel (runs "
+          f"{aug['fused'][0] * 1e3:.1f}, {aug['fused'][1] * 1e3:.1f}), f32 out wrapper {fused_f32 * 1e3:.1f} us; "
+          f"unfused composition {aug_ms['old'] * 1e3:.1f} us (runs {aug['old'][0] * 1e3:.1f}, "
+          f"{aug['old'][1] * 1e3:.1f}); plain version {aug_ms['plain'] * 1e3:.1f} us; bound {b_ms * 1e3:.1f} us "
+          f"by {b_by} ({bytes_ / 1e6:.1f} MB) [{card}]", flush=True)
     out = {"rsp_augment": {"ms": kernel, "plain_ms": aug_ms["plain"], "bound_ms": b_ms, "bound_by": b_by}}
+
+    # host-noise mode: the same work with the noise read, not drawn
+    noise = torch.randn((n, 3, s, s), generator=gen, device=dev)
+    ni_args = (tiles, mats, params, seeds, noise, *IDENTITY, torch.bfloat16)
+    ni_kernel = profiled_kernel_ms(lambda: RK.rsp_augment_cuda(*ni_args), "rsp_augment_kernel", 50)
+    ni_plain = cuda_ms(lambda: RK.rsp_augment_plain(*ni_args), 3)
+    ni_bytes = bytes_ + noise.numel() * 4
+    ni_ms, ni_by = bound_ms(ni_bytes, fused_ops(params, s * s, philox=False))
+    print(f"phase 6: fused kernel host-noise mode: kernel {ni_kernel * 1e3:.1f} us (profiler), plain "
+          f"{ni_plain * 1e3:.1f} us; bound {ni_ms * 1e3:.1f} us by {ni_by} ({ni_bytes / 1e6:.1f} MB), "
+          f"{ni_ms / ni_kernel * 100:.1f}% of it [{card}]", flush=True)
 
     # where the fused kernel's time goes: each gate alone on every tile (blur
     # at k = 7), and the warp's gathers (identity maps read the source in
@@ -462,10 +542,14 @@ def phase_timing(torch, dev, tiles, card) -> dict:
     kernel = profiled_kernel_ms(fns["kernel"], "photometric_chain_kernel", 50)
     bytes_ = 2 * imgs.numel() * 4 + n * (PK.N_PARAMS + 1) * 4
     c_ms, c_by = bound_ms(bytes_, chain_ops(params, s * s, philox=True))
+    ni_kernel = profiled_kernel_ms(fns["kernel_ni"], "photometric_chain_kernel", 50)
+    ni_ms, ni_by = bound_ms(bytes_ + noise.numel() * 4, chain_ops(params, s * s, philox=False))
     print(f"phase 6: photometric chain {shape}: kernel {kernel * 1e3:.1f} us (profiler), "
           f"{ms['kernel'] * 1e3:.1f} us (CUDA events), plain {ms['plain'] * 1e3:.1f} us (Philox mode, "
-          f"plain includes its noise); host-noise mode: kernel {ms['kernel_ni'] * 1e3:.1f} us, plain "
-          f"{ms['plain_ni'] * 1e3:.1f} us; bound {c_ms * 1e3:.1f} us by {c_by} [{card}]", flush=True)
+          f"plain includes its noise), bound {c_ms * 1e3:.1f} us by {c_by}, {c_ms / kernel * 100:.1f}% of it; "
+          f"host-noise mode: kernel {ni_kernel * 1e3:.1f} us (profiler), {ms['kernel_ni'] * 1e3:.1f} us "
+          f"(CUDA events), plain {ms['plain_ni'] * 1e3:.1f} us, bound {ni_ms * 1e3:.1f} us by {ni_by}, "
+          f"{ni_ms / ni_kernel * 100:.1f}% of it [{card}]", flush=True)
     warp_ms = cuda_ms(lambda: fused.pretrain_geo_warp_planar(imgs, mats), iters=5)
     print(f"phase 6: plain warp {shape}: {warp_ms * 1e3:.1f} us [{card}]", flush=True)
     out["photometric_chain"] = {"ms": kernel, "plain_ms": ms["plain"], "bound_ms": c_ms, "bound_by": c_by}
@@ -498,6 +582,9 @@ def phase_profile(torch, dev, tiles, out_dir: str, card: str) -> None:
             S.pretrain_step(state, tiles, gen, bf16=True)
         torch.cuda.synchronize()
     device_ms = sum(e.self_device_time_total for e in device_events(prof)) / 1e3
+    gathers = [f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms" for e in device_events(prof)
+               if "gather" in e.key.lower()]
+    print(f"profile: device kernels named gather in 3 steps: {gathers or 'none'}", flush=True)
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "step_profile.txt"), "w") as f:
@@ -540,7 +627,12 @@ def main() -> int:
         build.load_library(name)
     print(f"phase 2: built {', '.join(KERNELS)} in {time.time() - t0:.2f} s", flush=True)
     for name in KERNELS:
-        print(build.build_log(name).rstrip(), flush=True)
+        log = build.build_log(name)
+        print(log.rstrip(), flush=True)
+        regs = sorted({int(v) for v in re.findall(r"Used (\d+) registers", log)})
+        spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill stores", log))
+        print(f"phase 2: {name}: registers a thread {regs}, spill stores {spills} bytes", flush=True)
+        check(spills == 0, f"{name}: ptxas reports {spills} bytes of spill stores")
 
     # phases 3-4: each kernel against its plain version
     from ssl_cr_histo_tpu_torch.ops import fused

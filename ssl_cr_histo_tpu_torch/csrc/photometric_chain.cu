@@ -43,8 +43,9 @@
 // noise pointer the kernel reads noise[n, c, y', x'] at the folded
 // coordinate instead.
 //
-// Built without --use_fast_math: logf/expf/division stay IEEE-accurate so the
-// kernel agrees with PyTorch's versions to a few ulp.
+// Built without --use_fast_math; the special-function forms chosen one by one
+// in photometric_common.cuh keep it within a few 1e-7 of the plain chain
+// (that header's error budget).  Its blur divides by k as a multiply by 1/k.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -61,14 +62,14 @@ constexpr int kThreads = 256;
 
 // Stages 1-3 on one pixel at folded source coordinate (y, x) of tile n.
 __device__ __forceinline__ void load_pointwise(const float* __restrict__ img, const float* __restrict__ noise,
-                                               uint32_t seed, const float* p, const HedMats& m, int n,
+                                               uint32_t seed, const TileParams& tp, const HedMats& m, int n,
                                                int h, int w, int y, int x, float out[3]) {
   const size_t plane = static_cast<size_t>(h) * w;
   const size_t base = static_cast<size_t>(n) * 3 * plane + static_cast<size_t>(y) * w + x;
   out[0] = img[base];
   out[1] = img[base + plane];
   out[2] = img[base + 2 * plane];
-  pointwise_stages(out, p, m, noise, seed, n, h, w, y, x);
+  pointwise_stages(out, tp, m, noise, seed, n, h, w, y, x);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -77,19 +78,16 @@ photometric_chain_kernel(const float* __restrict__ img, const float* __restrict_
                          float* __restrict__ out, int h, int w, HedMats mats) {
   __shared__ float s_in[3][kIn][kIn];      // stages 1-3 over the halo patch
   __shared__ float s_rows[3][kTile][kIn];  // after the vertical blur pass
-  __shared__ float s_p[kParams];
+  __shared__ TileParams s_tp;
 
   const int n = blockIdx.z;
   const int y0 = blockIdx.y * kTile, x0 = blockIdx.x * kTile;
   const int tid = threadIdx.x;
-  if (tid < kParams) s_p[tid] = params[static_cast<size_t>(n) * kParams + tid];
+  if (tid == 0) s_tp = tile_params(params + static_cast<size_t>(n) * kParams);
   __syncthreads();
   const uint32_t seed = static_cast<uint32_t>(seeds[n]);
-
-  float p[kParams];
-#pragma unroll
-  for (int j = 0; j < kParams; ++j) p[j] = s_p[j];
-  const bool blur = p[10] > 0.5f;
+  const TileParams& tp = s_tp;
+  const bool blur = tp.blur;
 
   // Without blur only the patch itself is needed; with it, the full halo.
   const int lo = blur ? 0 : kHalo, hi = blur ? kIn : kHalo + kTile;
@@ -98,15 +96,15 @@ photometric_chain_kernel(const float* __restrict__ img, const float* __restrict_
     const int hy = lo + i / span, hx = lo + i % span;
     const int gy = fold101(y0 - kHalo + hy, h), gx = fold101(x0 - kHalo + hx, w);
     float v[3];
-    load_pointwise(img, noise, seed, p, mats, n, h, w, gy, gx, v);
+    load_pointwise(img, noise, seed, tp, mats, n, h, w, gy, gx, v);
     s_in[0][hy][hx] = v[0];
     s_in[1][hy][hx] = v[1];
     s_in[2][hy][hx] = v[2];
   }
   __syncthreads();
 
-  const int half = blur ? (static_cast<int>(p[9]) - 1) / 2 : 0;
-  const float norm = static_cast<float>(2 * half + 1);
+  const int half = blur ? tp.half : 0;
+  const float inv_norm = 1.0f / static_cast<float>(2 * half + 1);
   if (blur) {
     // vertical pass: rows of the patch, every halo column
     for (int i = tid; i < kTile * kIn; i += kThreads) {
@@ -115,13 +113,13 @@ photometric_chain_kernel(const float* __restrict__ img, const float* __restrict_
       for (int c = 0; c < 3; ++c) {
         float acc = 0.0f;
         for (int dy = -half; dy <= half; ++dy) acc += s_in[c][r + kHalo + dy][cx];
-        s_rows[c][r][cx] = acc / norm;
+        s_rows[c][r][cx] = acc * inv_norm;
       }
     }
     __syncthreads();
   }
 
-  const bool bc = p[13] > 0.5f;
+  const bool bc = tp.bc;
   const size_t plane = static_cast<size_t>(h) * w;
   for (int i = tid; i < kTile * kTile; i += kThreads) {
     const int r = i / kTile, cx = i % kTile;
@@ -133,11 +131,11 @@ photometric_chain_kernel(const float* __restrict__ img, const float* __restrict_
       if (blur) {
         float acc = 0.0f;
         for (int dx = -half; dx <= half; ++dx) acc += s_rows[c][r][cx + kHalo + dx];
-        v = acc / norm;
+        v = acc * inv_norm;
       } else {
         v = s_in[c][r + kHalo][cx + kHalo];
       }
-      if (bc) v = clip01(v * (1.0f + p[12]) + p[11]);
+      if (bc) v = clip01(v * tp.gain + tp.bias);
       out[static_cast<size_t>(n) * 3 * plane + c * plane + static_cast<size_t>(gy) * w + gx] = v;
     }
   }

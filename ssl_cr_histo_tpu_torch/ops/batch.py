@@ -39,7 +39,8 @@ def draw_rsp_v1(gen: torch.Generator, n: int, size: int) -> dict:
 
 def augment_rsp_batch_v1(gen: torch.Generator, triplets_u8: torch.Tensor, mode: str = "fused",
                          draws: Optional[dict] = None, mean=DEFAULT_MEAN, std=DEFAULT_STD,
-                         out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                         out_dtype: torch.dtype = torch.float32,
+                         order: Optional[torch.Tensor] = None) -> torch.Tensor:
     """v1 RSP pretraining augmentation, clipped and normalized
     (``batch.py:40-74``, fused mode with the photometric kernel, then
     ``normalize_batch``).
@@ -48,8 +49,11 @@ def augment_rsp_batch_v1(gen: torch.Generator, triplets_u8: torch.Tensor, mode: 
     (B, 3, 3, H, W) ``(clip(aug(x)) - mean) / std`` in ``out_dtype``,
     channel-planar: the backbone's NCHW.  ``draws`` (see ``draw_rsp_v1``)
     injects the warp matrices, photometric params and noise; they are drawn
-    from ``gen`` when None, and the Philox seeds always are.  CUDA tensors
-    run the fused kernel, CPU tensors its plain version.
+    from ``gen`` when None, and the Philox seeds always are.  ``order``
+    (B,) reorders each triplet by ``RSP_PERMUTATIONS[order[b]]`` before the
+    augmentation (the draws stay with the output slots); None keeps the
+    tiles in the given order.  CUDA tensors run the fused kernel, CPU
+    tensors its plain version.
     """
     if mode != "fused":
         raise NotImplementedError(
@@ -60,11 +64,14 @@ def augment_rsp_batch_v1(gen: torch.Generator, triplets_u8: torch.Tensor, mode: 
     seeds = PK.draw_seeds(gen, b * t)
     if triplets_u8.is_cuda:
         fn = RK.rsp_augment_cuda
+        if order is not None:
+            order = order.to(torch.int32).contiguous()
     elif triplets_u8.device.type == "cpu":
         fn = RK.rsp_augment_plain
     else:
         raise ValueError(f"no v1 augmentation for device {triplets_u8.device}")
-    return fn(triplets_u8, draws["geo"], draws["params"], seeds, draws["noise"], mean, std, out_dtype)
+    return fn(triplets_u8, draws["geo"], draws["params"], seeds, draws["noise"], mean, std, out_dtype,
+              order=order)
 
 
 def normalize_batch(imgs: torch.Tensor, mean=DEFAULT_MEAN, std=DEFAULT_STD,

@@ -127,9 +127,10 @@ def warp_pass_coefficients(inv_mats: torch.Tensor, size: int) -> torch.Tensor:
     Pass 1 samples ``tmp[y, o] = img'[y, ap*o + bp*y + cp]``, pass 2
     ``out'[o, x] = tmp[d*x + e*o + f, x]``, where ``img'`` is the tile after
     the lattice fix-ups (rotated by 90 degrees where ``rot_dominant``, then
-    transposed where ``swap``) and ``out = out'.T`` where ``swap``.  Both
-    ``warp_affine_planar`` and the fused augmentation kernel read this
-    table, so they sample at bit-identical positions."""
+    transposed where ``swap``) and ``out = out'.T`` where ``swap``.
+    ``warp_affine_planar`` reads this table; the fused augmentation kernel
+    (``csrc/rsp_augment.cu::make_plan``) computes the same rows operation for
+    operation, so both sample at bit-identical positions."""
     dev = inv_mats.device
     m = inv_mats.float()
     sel = lambda mask, a, b: torch.where(mask.view(-1, 1, 1), a, b)

@@ -1,8 +1,8 @@
 """RSP pretraining train and eval steps.
 
 Counterpart of ``ssl_cr_histo_tpu/parallel/steps.py:37-315``.  One train
-step: permute each uint8 triplet by its ordering label, augment on the
-device (one kernel: composed warp, photometric chain, clip, normalize, cast
+step: augment on the device (one kernel: each uint8 triplet read in the
+order of its label, composed warp, photometric chain, clip, normalize, cast
 to the compute type), one backbone pass over the B*3 views, pairwise FC, the 6-way
 classifier, cross-entropy, and an SGD-Nesterov step.  PyTorch runs eagerly,
 so there is no jit and no multi-step scan; the step updates ``state`` in
@@ -13,32 +13,17 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ssl_cr_histo_tpu_torch.ops import batch as aug_batch
+from ssl_cr_histo_tpu_torch.ops.rsp_augment_kernel import RSP_PERMUTATIONS, permute_triplets
 from ssl_cr_histo_tpu_torch.train.state import TrainState
-
-# The 6 resolution-sequence orderings and their class labels (reference
-# dataset.py:36-38: tuple order is [HR, LR1, LR2]).  Copied from
-# ssl_cr_histo_tpu/parallel/steps.py:37-40, which imports jax.
-RSP_PERMUTATIONS = np.array(
-    [[0, 1, 2], [0, 2, 1], [1, 2, 0], [1, 0, 2], [2, 0, 1], [2, 1, 0]],
-    dtype=np.int32,
-)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross-entropy, in float32."""
     return F.cross_entropy(logits.float(), labels.long())
-
-
-def permute_triplets(tiles: torch.Tensor, perm_idx: torch.Tensor) -> torch.Tensor:
-    """Reorder each triplet (dim 1) by its ordering index (``steps.py:51-54``)."""
-    perms = torch.as_tensor(RSP_PERMUTATIONS, device=tiles.device).long()[perm_idx.long()]
-    index = perms.view(perms.shape[0], 3, *([1] * (tiles.dim() - 2)))
-    return torch.take_along_dim(tiles, index, dim=1)
 
 
 def _autocast(device: torch.device, bf16: bool):
@@ -59,7 +44,8 @@ def pretrain_step(
     """One RSP pretraining step on (B, 3, H, W, 3) uint8 triplets in
     [HR, LR1, LR2] order, on the device of ``tiles_u8``.
 
-    labels: (B,) ordering indices; sampled from ``generator`` when None (one
+    labels: (B,) ordering indices in [0, 6), checked when given (that reads
+    them back from the device); sampled from ``generator`` when None (one
     ordering per triplet per step, ``steps.py:121-123``).  draws: injected
     augmentation draws (``ops.batch.draw_rsp_v1``'s dict) for tests.
     bf16: the augmentation writes bfloat16 and the backbone and heads run
@@ -71,15 +57,19 @@ def pretrain_step(
     clf.train()
     b = tiles_u8.shape[0]
     if labels is None:
-        labels = torch.randint(0, 6, (b,), generator=generator, device=generator.device)
+        labels = torch.randint(0, len(RSP_PERMUTATIONS), (b,), generator=generator, device=generator.device)
+    elif bool(((labels < 0) | (labels >= len(RSP_PERMUTATIONS))).any()):
+        raise ValueError(f"labels must be ordering indices in [0, {len(RSP_PERMUTATIONS)})")
     labels = labels.to(tiles_u8.device).long()
-    # permuting the raw uint8 tiles moves 4x fewer bytes than the floats, and
-    # commutes with v1's per-tile augmentation draws
-    tiles_u8 = permute_triplets(tiles_u8, labels)
+    # The ordering commutes with v1's per-tile augmentation draws, so it is
+    # applied where the uint8 tiles are read: inside the fused kernel for v1,
+    # as a gather of the raw tiles otherwise.
     if augment == "v1":
         tiles = aug_batch.augment_rsp_batch_v1(
-            generator, tiles_u8, draws=draws, out_dtype=torch.bfloat16 if bf16 else torch.float32)
+            generator, tiles_u8, draws=draws, out_dtype=torch.bfloat16 if bf16 else torch.float32,
+            order=labels)
     elif augment is None:
+        tiles_u8 = permute_triplets(tiles_u8, labels)
         tiles = aug_batch.normalize_batch(aug_batch.to_float(tiles_u8).permute(0, 1, 4, 2, 3),
                                           channel_axis=2)
     else:

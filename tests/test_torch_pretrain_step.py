@@ -156,8 +156,8 @@ def test_pretrain_step_matches_jax(setup):
     1e-4 / atol 1e-6 after removing torch's unbiased n/(n-1) factor."""
     jm, jc, params, stats, data = setup
     x_jax = _jax_augment(data)
-    perm_t = TS.permute_triplets(torch.from_numpy(data["tiles"]), torch.from_numpy(data["labels"]))
-    x_port = TB.normalize_batch(TB.augment_rsp_batch_v1(torch.Generator(), perm_t, draws=_draws(data)),
+    x_port = TB.normalize_batch(TB.augment_rsp_batch_v1(torch.Generator(), torch.from_numpy(data["tiles"]),
+                                                        draws=_draws(data), order=torch.from_numpy(data["labels"])),
                                 channel_axis=2)
     np.testing.assert_allclose(x_port.numpy(), np.asarray(x_jax), rtol=0, atol=1e-5)
 
@@ -207,6 +207,46 @@ def test_pretrain_step_matches_jax(setup):
             base = 0.9 * start[k]
             np.testing.assert_allclose(v.numpy() - base, n / (n - 1) * (want_s[k] - base),
                                        rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("augment", ["v1", None])
+def test_step_orders_triplets_where_the_tiles_are_read(setup, monkeypatch, augment):
+    """The v1 step hands the sampler's tiles and its labels (as ``order``)
+    to the augmentation, with no permuted copy of the uint8 tiles made
+    before it; the unaugmented step still permutes them.  On the v1 path the
+    ordered augmentation equals the plain augmentation of tiles permuted
+    beforehand, bit for bit."""
+    _, _, params, stats, data = setup
+    tiles, labels = torch.from_numpy(data["tiles"]), torch.from_numpy(data["labels"])
+    calls, seen = [], []
+    permute, augment_v1 = TS.permute_triplets, TB.augment_rsp_batch_v1
+    monkeypatch.setattr(TS, "permute_triplets", lambda *a: calls.append(1) or permute(*a))
+    monkeypatch.setattr(TB, "augment_rsp_batch_v1",
+                        lambda g, t, order=None, **kw: seen.append((t, order, len(calls)))
+                        or augment_v1(g, t, order=order, **kw))
+    got = TS.pretrain_step(_port_state(params, stats), tiles, torch.Generator().manual_seed(0), labels=labels,
+                           draws=_draws(data) if augment else None, augment=augment)
+    assert np.isfinite(float(got["loss"]))
+    if augment is None:
+        assert len(calls) == 1 and not seen
+    else:
+        (t, order, permutes_before), = seen
+        assert t is tiles and permutes_before == 0 and torch.equal(order, labels.long())
+        a = augment_v1(torch.Generator(), tiles, draws=_draws(data), order=labels)
+        b = augment_v1(torch.Generator(), permute(tiles, labels), draws=_draws(data))
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad", [-1, 6])
+def test_step_rejects_labels_out_of_range(setup, bad):
+    """Labels a caller passes are checked before the augmentation reads
+    tiles by them: the kernel has no range check of its own."""
+    _, _, params, stats, data = setup
+    labels = torch.from_numpy(data["labels"]).clone()
+    labels[1] = bad
+    with pytest.raises(ValueError, match="labels"):
+        TS.pretrain_step(_port_state(params, stats), torch.from_numpy(data["tiles"]),
+                         torch.Generator().manual_seed(0), labels=labels, draws=_draws(data))
 
 
 def test_eval_step_matches_jax(setup):

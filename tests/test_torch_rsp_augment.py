@@ -20,11 +20,13 @@ import jax.numpy as jnp
 from ssl_cr_histo_tpu.ops import batch as JB
 from ssl_cr_histo_tpu.ops import geometry as JG
 from ssl_cr_histo_tpu.ops import pallas_photometric as PP
+from ssl_cr_histo_tpu.parallel import steps as JS
 from ssl_cr_histo_tpu_torch.csrc import build
 from ssl_cr_histo_tpu_torch.ops import batch as TB
 from ssl_cr_histo_tpu_torch.ops import geometry as TG
 from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
 from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+from ssl_cr_histo_tpu_torch.parallel import steps as TS
 
 GATES = (3, 5, 10, 13)  # hsv, noise, blur, brightness/contrast
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
@@ -91,22 +93,27 @@ def _jax_composition(d, mean, std):
     return np.asarray(JB.normalize_batch(out.reshape(b, t, 3, s, s), mean, std, channel_axis=2))
 
 
-def _plain(d, mean, std, out_dtype=torch.float32, noise=True):
+def _plain(d, mean, std, out_dtype=torch.float32, noise=True, order=None, tiles=None):
     n = len(d["mats"])
     return RK.rsp_augment_plain(
-        torch.from_numpy(d["tiles"]), torch.from_numpy(d["mats"]), torch.from_numpy(d["params"]),
-        torch.arange(n, dtype=torch.int32), torch.from_numpy(d["noise"]) if noise else None,
-        mean, std, out_dtype)
+        torch.from_numpy(d["tiles"]) if tiles is None else tiles, torch.from_numpy(d["mats"]),
+        torch.from_numpy(d["params"]), torch.arange(n, dtype=torch.int32),
+        torch.from_numpy(d["noise"]) if noise else None, mean, std, out_dtype, order=order)
 
 
-def test_matrix_set_takes_both_fixups():
+def _order(b, seed):
+    """A numpy-drawn ordering index per triplet that uses every ordering."""
+    return np.random.default_rng(seed).permutation(np.arange(max(b, 6)) % 6)[:b].astype(np.int32)
+
+
+@pytest.mark.parametrize("s", [32, 37])
+def test_matrix_set_takes_both_fixups(s):
     """The matrices above drive the warp's 90-degree and transpose fix-ups,
     alone and together."""
-    for s in (32, 37):
-        coef = TG.warp_pass_coefficients(torch.from_numpy(_matrices(s)), s).numpy()
-        rot, swap = coef[:, 6] > 0.5, coef[:, 7] > 0.5
-        assert rot.any() and (~rot).any() and swap.any() and (~swap).any()
-        assert (rot & swap).any() and (~rot & swap).any()
+    coef = TG.warp_pass_coefficients(torch.from_numpy(_matrices(s)), s).numpy()
+    rot, swap = coef[:, 6] > 0.5, coef[:, 7] > 0.5
+    assert rot.any() and (~rot).any() and swap.any() and (~swap).any()
+    assert (rot & swap).any() and (~rot & swap).any()
 
 
 @pytest.mark.parametrize("s", [32, 37])
@@ -128,15 +135,96 @@ def test_plain_matches_jax_composition(s, norm):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 / min(std))
 
 
-def test_bf16_output_is_the_float32_output_rounded():
+@pytest.mark.parametrize("noise", [True, False], ids=["host-noise", "philox"])
+def test_bf16_output_is_the_float32_output_rounded(noise):
     """out_dtype bf16 is the float32 result cast to bf16 (round to nearest
     even), bit for bit, in both noise modes."""
     d = _inputs(37, seed=1)
-    for noise in (True, False):
-        f32 = _plain(d, MEAN, STD, torch.float32, noise)
-        bf16 = _plain(d, MEAN, STD, torch.bfloat16, noise)
-        assert bf16.dtype == torch.bfloat16
-        assert torch.equal(bf16, f32.to(torch.bfloat16))
+    f32 = _plain(d, MEAN, STD, torch.float32, noise)
+    bf16 = _plain(d, MEAN, STD, torch.bfloat16, noise)
+    assert bf16.dtype == torch.bfloat16
+    assert torch.equal(bf16, f32.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("noise", [True, False], ids=["host-noise", "philox"])
+def test_plain_order_is_permute_then_augment(noise):
+    """rsp_augment_plain(order=o) is permute_triplets(tiles, o) followed by
+    rsp_augment_plain on the reordered tiles, bit for bit: the draws, seeds
+    and noise stay with the output slots."""
+    d = _inputs(32, seed=5)
+    order = torch.from_numpy(_order(4, 5))
+    got = _plain(d, MEAN, STD, noise=noise, order=order)
+    permuted = TS.permute_triplets(torch.from_numpy(d["tiles"]), order)
+    assert torch.equal(got, _plain(d, MEAN, STD, noise=noise, tiles=permuted))
+    assert not torch.equal(got, _plain(d, MEAN, STD, noise=noise))
+
+
+@pytest.mark.parametrize("s", [32, 37])
+def test_plain_order_matches_jax_permute_then_composition(s):
+    """rsp_augment_plain(order=o) against the JAX package's permute_triplets
+    followed by its augmentation composition on the same draws, float32,
+    atol 1e-5 (see test_plain_matches_jax_composition)."""
+    d = _inputs(s, seed=6)
+    order = _order(4, 6)
+    got = _plain(d, (0.0,) * 3, (1.0,) * 3, order=torch.from_numpy(order))
+    jd = dict(d, tiles=np.asarray(JS.permute_triplets(jnp.asarray(d["tiles"]), jnp.asarray(order))))
+    want = _jax_composition(jd, (0.0,) * 3, (1.0,) * 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+def test_plain_rejects_an_order_of_another_length():
+    d = _inputs(32)
+    with pytest.raises(ValueError, match="order"):
+        _plain(d, MEAN, STD, order=torch.zeros(3, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("bad", [-1, 6])
+def test_plain_rejects_orders_out_of_range(bad):
+    """An ordering index outside [0, 6) raises (negative indices would
+    otherwise wrap around in the table)."""
+    d = _inputs(32)
+    order = torch.zeros(4, dtype=torch.int32)
+    order[2] = bad
+    with pytest.raises(ValueError, match="outside"):
+        _plain(d, MEAN, STD, order=order)
+
+
+def test_step_orders_with_the_kernels_table():
+    """The step's orderings and permute_triplets are the augmentation's own
+    (one table for the kernel, its plain version and the step), and equal the
+    JAX package's permute_triplets on every ordering."""
+    assert TS.RSP_PERMUTATIONS is RK.RSP_PERMUTATIONS and TS.permute_triplets is RK.permute_triplets
+    tiles = np.random.default_rng(9).integers(0, 256, (6, 3, 4, 4, 3), dtype=np.uint8)
+    order = np.arange(6, dtype=np.int32)
+    got = RK.permute_triplets(torch.from_numpy(tiles), torch.from_numpy(order))
+    want = np.asarray(JS.permute_triplets(jnp.asarray(tiles), jnp.asarray(order)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_augment_order_keyword():
+    """augment_rsp_batch_v1 with order None augments the tiles as given (the
+    same result as ordering 0, the identity); with an order it equals the
+    plain version with that order on the same draws and seeds."""
+    d = _inputs(32, seed=7)
+    tiles = torch.from_numpy(d["tiles"])
+    run = lambda **kw: TB.augment_rsp_batch_v1(torch.Generator().manual_seed(8), tiles, mean=MEAN, std=STD,
+                                               **kw)
+    plain = run()
+    assert torch.equal(plain, run(order=torch.zeros(4, dtype=torch.int64)))
+    order = torch.from_numpy(_order(4, 7))
+    g = torch.Generator().manual_seed(8)
+    draws = TB.draw_rsp_v1(g, 12, 32)
+    seeds = PK.draw_seeds(g, 12)
+    want = RK.rsp_augment_plain(tiles, draws["geo"], draws["params"], seeds, None, MEAN, STD, order=order)
+    assert torch.equal(run(order=order), want)
+
+
+def test_kernel_orderings_are_the_jax_packages():
+    """The six orderings handed to the kernel are the JAX package's
+    RSP_PERMUTATIONS, row by row; mean and std follow the HED matrices."""
+    consts, perms = RK._host_consts(MEAN, STD)
+    assert list(perms) == [int(v) for v in np.asarray(JS.RSP_PERMUTATIONS).reshape(-1)]
+    assert np.allclose(list(consts)[18:], MEAN + STD, rtol=1e-7, atol=0)
 
 
 def test_philox_mode_uses_the_shared_noise():
