@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU: builds the port's CUDA
 kernels, checks each against its plain PyTorch version, drives the
-pretraining CLI for one short epoch at the config of record, and times the
-step and the kernels.
+pretraining CLI for one short epoch at the config of record and the
+fine-tuning CLI from its checkpoint, and times the steps and the kernels.
 
     python3 chip_smoke.py                    # from the root of a checkout, on a GPU machine
-    python3 chip_smoke.py --profile DIR      # also write a torch.profiler table of the step
+    python3 chip_smoke.py --profile DIR      # also write torch.profiler tables of both steps
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit); no CUDA -> exit 1
@@ -30,13 +30,24 @@ Phases (any failure exits non-zero and prints no result line):
      just before and read just after: the fused kernel must launch once per
      train step and the chain kernel never; the checkpoint's float32
      forward on the card must agree with the CPU's
-  6. timing with CUDA events, in turns (old, fused, fused, old): the bf16
+  6. fine-tuning: the 3-view augmentation and a float32 fine-tune step on
+     the card against the CPU; then ``ssl_cr_histo_tpu_torch.cli.finetune.
+     main`` at Kather's config of record (9 classes, resnet18, batch 64 at
+     224^2, bf16, Adam 1e-5) for one 4-step epoch on seeded PNG class
+     folders, from phase 5's ``ckpt_1.pth``, with every launch counter set
+     to 0 just before and read just after: neither kernel may launch (the
+     3-view stack is PyTorch ops, as it is XLA ops in the JAX package); the
+     CSV row and the best / final checkpoints; BreastPathQ's regression
+     head through ``finetune.run`` on numpy data; the bf16 step and the
+     3-view stack alone timed with CUDA events (``--profile``: the step's
+     profile table too)
+  7. timing with CUDA events, in turns (old, fused, fused, old): the bf16
      step with the fused kernel against the step with the unfused composition
      (plain warp + chain kernel + clip + normalize), the fused kernel
      against that composition alone, the plain versions; the fused kernel's
      time (torch.profiler) in both noise modes and by gate, beside its
      wrapper called back to back; the chain kernel in both noise modes
-  7. the kernels line, then ``{"ok": true, "device": {...}}`` as the last line
+  8. the kernels line, then ``{"ok": true, "device": {...}}`` as the last line
 
 Imports nothing of JAX and nothing of the JAX package.  Tolerance 1e-4
 (phases 3-4) on outputs in [0, 1]: the kernels and PyTorch's CUDA ops
@@ -398,6 +409,152 @@ def old_augment(gen, triplets_u8, mode="fused", draws=None, mean=IDENTITY[0], st
     return TB.normalize_batch(torch.clamp(out, 0.0, 1.0).reshape(b, t, 3, h, w), mean, std, channel_axis=2)
 
 
+def phase_finetune_step_card_vs_cpu(torch) -> None:
+    """Phase 6: the 3-view augmentation and one float32 fine-tune step
+    (Kather's head and Adam, batch 4 at 64^2, injected draws) on the card
+    and on the CPU, from the same weights."""
+    from ssl_cr_histo_tpu_torch.cli.common import TASKS, make_optimizer
+    from ssl_cr_histo_tpu_torch.ops import batch as TB
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+    from ssl_cr_histo_tpu_torch.train.init import init_finetune_state
+
+    cfg = TASKS["kather"]
+    g = torch.Generator().manual_seed(6)
+    b, s = 4, 64
+    imgs = torch.randint(0, 256, (b, s, s, 3), dtype=torch.uint8, generator=g)
+    labels = torch.randint(0, cfg.num_classes, (b,), generator=g)
+    draws = TB.draw_3view(g, b, s)
+    # angles on both sides of +-45 degrees, where the warp's 90-degree fix-up flips
+    draws["angles"] = torch.tensor([[44.9, -45.1], [45.1, -44.9], [-89.9, 89.9], [10.0, -60.0]])
+    draws["rotate"][:] = True
+    views = {d: TB.augment_3view_batch(None, imgs.to(d), draws).cpu() for d in ("cpu", "cuda")}
+    verr = (views["cuda"] - views["cpu"]).abs().max().item()
+    check(verr <= TOL, f"3-view augmentation card vs CPU differs by {verr}")
+    out = {}
+    for d in ("cpu", "cuda"):
+        torch.manual_seed(0)
+        state = init_finetune_state("resnet18", cfg.num_classes, torch.device(d),
+                                    lambda ps: make_optimizer(cfg.optimizer, ps, cfg.lr))
+        m = S.finetune_step(state, imgs.to(d), labels.to(d), None, cfg.task, draws)
+        sd = {**state.model.state_dict(), **state.head.state_dict()}
+        out[d] = (float(m["loss"]), {k: v.detach().cpu() for k, v in sd.items() if v.is_floating_point()})
+    (loss_cpu, sd_cpu), (loss_gpu, sd_gpu) = out["cpu"], out["cuda"]
+    check(abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu), f"fine-tune step loss card {loss_gpu} vs CPU {loss_cpu}")
+    err = max((sd_gpu[k] - sd_cpu[k]).abs().max().item() for k in sd_cpu)
+    check(err <= 1e-4, f"post-step fine-tune state card vs CPU differs by {err}")
+    print(f"phase 6: 3-view augmentation (4, 64^2, angles across +-45), card vs CPU: max abs err {verr:.2e}; "
+          f"float32 fine-tune step, card vs CPU: loss {loss_gpu:.6f} vs {loss_cpu:.6f}, post-step weights and "
+          f"BN statistics max abs err {err:.2e}", flush=True)
+
+
+def write_kather(root: str, n_per_class: int, size: int = 224) -> str:
+    """Nine class folders (Kather's names) of seeded PNG patches: a class
+    colour plus noise, with cv2 (which the slide sampler needs too)."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    d = os.path.join(root, "kather")
+    for c, name in enumerate(("ADI", "BACK", "DEB", "LYM", "MUC", "MUS", "NORM", "STR", "TUM")):
+        os.makedirs(os.path.join(d, name))
+        base = np.array([40 + 24 * c, 200 - 18 * c, 120 + 10 * (c % 3)], np.int16)
+        for i in range(n_per_class):
+            img = np.clip(base + rng.integers(-40, 40, (size, size, 3), dtype=np.int16), 0, 255).astype(np.uint8)
+            cv2.imwrite(os.path.join(d, name, f"p{i}.png"), img)
+    return d
+
+
+def phase_finetune(torch, dev, tmp: str, pretrain_ckpt: str, card: str, profile_dir: str) -> None:
+    """Phase 6: the fine-tune slice.  The step on the card against the CPU;
+    the CLI at Kather's config of record (resnet18, batch 64 at 224^2,
+    bf16, Adam 1e-5) for one epoch of 4 steps from the pretrain checkpoint,
+    with both kernels' launch counters at 0 before and read after; then the
+    bf16 step and the 3-view augmentation alone timed with CUDA events."""
+    import numpy as np
+
+    from ssl_cr_histo_tpu_torch.cli import finetune
+    from ssl_cr_histo_tpu_torch.cli.common import TASKS, make_optimizer
+    from ssl_cr_histo_tpu_torch.data import datasets as D
+    from ssl_cr_histo_tpu_torch.ops import batch as TB
+    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
+    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+    from ssl_cr_histo_tpu_torch.train.init import init_finetune_state
+
+    phase_finetune_step_card_vs_cpu(torch)
+    # 9 x 36 patches: a 0.2 holdout of 64, and 4 steps of 64 over the other 260
+    data = write_kather(tmp, 36)
+    run = os.path.join(tmp, "finetune")
+    argv = ["--task", "kather", "--train_path", data, "--model_path", pretrain_ckpt, "--save_dir", run,
+            "--model", "resnet18", "--batch_size", "64", "--num_epoch", "1", "--save_freq", "1"]
+    print("phase 6: fine-tune CLI " + " ".join(argv), flush=True)
+    PK.launches = RK.launches = 0
+    t0 = time.time()
+    finetune.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"photometric_chain": PK.launches, "rsp_augment": RK.launches}
+    print(f"phase 6: fine-tune CLI wall {wall:.2f} s, kernel launches {launches} (the 3-view stack is "
+          f"PyTorch ops, as in the JAX package)", flush=True)
+    check(not any(launches.values()), f"a kernel launched on the fine-tune path: {launches}")
+    with open(os.path.join(run, "fine_tuned_results.csv")) as f:
+        rows = [r.strip() for r in f.read().splitlines()[1:] if r.strip()]
+    check(len(rows) == 1, f"expected one fine-tune CSV row, got {rows}")
+    vals = [float(v) for v in rows[0].split(",")[1:]]
+    check(all(math.isfinite(v) for v in vals) and 0.0 <= vals[1] <= 1.0, f"fine-tune CSV row {rows[0]}")
+    print(f"phase 6: fine-tune CSV (epoch, train_loss, val_err) {rows[0]}", flush=True)
+    for name in ("best.pth", "final.pth", "ckpt_1.pth"):
+        ckpt = torch.load(os.path.join(run, name), map_location="cpu", weights_only=False)
+        check("model.conv1.weight" in ckpt["model"] and "fc.2.weight" in ckpt["model"]
+              and tuple(ckpt["classifier"]["classifier.0.weight"].shape) == (9, 768),
+              f"fine-tune {name} lacks the reference keys")
+        check(all(torch.isfinite(v).all() for v in ckpt["model"].values() if v.is_floating_point()),
+              f"non-finite weights in fine-tune {name}")
+    check(ckpt["step"] == 4 and ckpt["scheduler"]["last_epoch"] == 4, "the final checkpoint is not at step 4")
+
+    # BreastPathQ's regression head through ``run`` on numpy data (its .h5
+    # loader needs h5py, which this machine may lack): batch 4 at 256^2,
+    # Adam 1e-4, MSE, one epoch of 4 steps
+    rng = np.random.default_rng(2)
+    bpq = D.ArrayDataset(rng.integers(0, 256, (20, 256, 256, 3), dtype=np.uint8), rng.random(20).astype(np.float32))
+    args = finetune.parse_args(["--task", "breastpathq", "--save_dir", os.path.join(tmp, "bpq"), "--num_epoch", "1",
+                                "--save_freq", "0", "--model_path", pretrain_ckpt])
+    PK.launches = RK.launches = 0
+    finetune.run(args, TASKS["breastpathq"], *D.train_val_split(bpq, args.validation_split, seed=args.seed))
+    check(PK.launches == RK.launches == 0, "a kernel launched on the BreastPathQ fine-tune path")
+    with open(os.path.join(tmp, "bpq", "fine_tuned_results.csv")) as f:
+        row = f.read().splitlines()[1]
+    check(all(math.isfinite(float(v)) for v in row.split(",")), f"BreastPathQ CSV row {row}")
+    ckpt = torch.load(os.path.join(tmp, "bpq", "final.pth"), map_location="cpu", weights_only=False)
+    check(tuple(ckpt["classifier"]["classifier.0.weight"].shape) == (1, 768) and ckpt["step"] == 4,
+          "BreastPathQ final checkpoint")
+    print(f"phase 6: BreastPathQ fine-tune run (16 train / 4 val at 256^2, MSE), CSV (epoch, train_loss, val_mse) "
+          f"{row}, kernel launches 0", flush=True)
+
+    # the bf16 step at the config of record and the 3-view stack alone
+    cfg = TASKS["kather"]
+    torch.manual_seed(0)
+    state = init_finetune_state("resnet18", cfg.num_classes, dev,
+                                lambda ps: make_optimizer(cfg.optimizer, ps, cfg.lr))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    imgs = torch.randint(0, 256, (cfg.batch_size, cfg.image_size, cfg.image_size, 3), dtype=torch.uint8,
+                         generator=gen, device=dev)
+    labels = torch.randint(0, cfg.num_classes, (cfg.batch_size,), generator=gen, device=dev)
+    losses = []
+    step = lambda: losses.append(S.finetune_step(state, imgs, labels, gen, cfg.task, bf16=True)["loss"])
+    step_ms = [cuda_ms(step, 20, warmup=5) for _ in range(2)]
+    check(all(math.isfinite(float(v)) for v in losses), "non-finite loss in the timed fine-tune steps")
+    aug_ms = [cuda_ms(lambda: TB.augment_3view_batch(gen, imgs), 20) for _ in range(2)]
+    mean_step, views = sum(step_ms) / 2, 3 * cfg.batch_size
+    print(f"phase 6: fine-tune step resnet18 b{cfg.batch_size} ({views} views of {cfg.image_size}^2) bf16 Adam: "
+          f"{step_ms[0]:.3f}, {step_ms[1]:.3f} ms (mean {mean_step:.3f}) = {views / mean_step * 1e3:.1f} views/s; "
+          f"3-view augmentation alone {aug_ms[0]:.3f}, {aug_ms[1]:.3f} ms = "
+          f"{min(aug_ms) / mean_step * 100:.1f}% of the step [{card}]", flush=True)
+    if profile_dir:
+        profile_steps(torch, step, profile_dir, "finetune_step_profile.txt", "fine-tune", card)
+    del state
+
+
 def in_turns(fns: dict, order: list, iters: dict, warmup: int = 2) -> dict:
     """CUDA-event ms of each named function, run in the given order;
     returns every run's time per name."""
@@ -408,7 +565,7 @@ def in_turns(fns: dict, order: list, iters: dict, warmup: int = 2) -> dict:
 
 
 def phase_timing(torch, dev, tiles, card) -> dict:
-    """Phase 6.  Returns the kernels' timings for the kernels line."""
+    """Phase 7.  Returns the kernels' timings for the kernels line."""
     from ssl_cr_histo_tpu_torch.ops import batch as TB
     from ssl_cr_histo_tpu_torch.ops import fused
     from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
@@ -437,7 +594,7 @@ def phase_timing(torch, dev, tiles, card) -> dict:
     check(all(math.isfinite(float(v)) for v in losses), "non-finite loss in the timed steps")
     runs = lambda k: ", ".join(f"{v:.3f}" for v in steps[k])
     step_ms = {k: sum(v) / len(v) for k, v in steps.items()}
-    print(f"phase 6: pretrain step resnet18 b64 256^2 bf16 joint, in turns old/fused/fused/old: "
+    print(f"phase 7: pretrain step resnet18 b64 256^2 bf16 joint, in turns old/fused/fused/old: "
           f"fused kernel {runs('fused')} ms, unfused composition {runs('old')} ms; means "
           f"{step_ms['fused']:.3f} vs {step_ms['old']:.3f} ms/step = "
           f"{64 * 3 / step_ms['fused'] * 1e3:.1f} vs {64 * 3 / step_ms['old'] * 1e3:.1f} patches/s [{card}]",
@@ -467,7 +624,7 @@ def phase_timing(torch, dev, tiles, card) -> dict:
         for (mod, name), fn in zip(names, real):
             setattr(mod, name, fn)
     launched = RK.launches - launched
-    print(f"phase 6: one bf16 step: fused kernel launches {launched}, calls {calls}", flush=True)
+    print(f"phase 7: one bf16 step: fused kernel launches {launched}, calls {calls}", flush=True)
     check(launched == 1 and not any(calls.values()), f"the step's path: {launched} fused launches, {calls}")
     del state
 
@@ -490,7 +647,7 @@ def phase_timing(torch, dev, tiles, card) -> dict:
     # bytes: uint8 tiles in, bf16 out, the (n, 3, 3) maps, params and seeds
     bytes_ = tiles.numel() + n * 3 * s * s * 2 + n * (PK.N_PARAMS + 9 + 1) * 4
     b_ms, b_by = bound_ms(bytes_, fused_ops(params, s * s, philox=True))
-    print(f"phase 6: fused kernel ({b}, 3, {s}, {s}, 3) Philox bf16 out: kernel {kernel * 1e3:.1f} us "
+    print(f"phase 7: fused kernel ({b}, 3, {s}, {s}, 3) Philox bf16 out: kernel {kernel * 1e3:.1f} us "
           f"(profiler), {b_ms / kernel * 100:.1f}% of its bound; wrapper called back to back "
           f"{aug_ms['fused'] * 1e3:.1f} us = {aug_ms['fused'] / kernel:.2f}x the kernel (runs "
           f"{aug['fused'][0] * 1e3:.1f}, {aug['fused'][1] * 1e3:.1f}), f32 out wrapper {fused_f32 * 1e3:.1f} us; "
@@ -506,7 +663,7 @@ def phase_timing(torch, dev, tiles, card) -> dict:
     ni_plain = cuda_ms(lambda: RK.rsp_augment_plain(*ni_args), 3)
     ni_bytes = bytes_ + noise.numel() * 4
     ni_ms, ni_by = bound_ms(ni_bytes, fused_ops(params, s * s, philox=False))
-    print(f"phase 6: fused kernel host-noise mode: kernel {ni_kernel * 1e3:.1f} us (profiler), plain "
+    print(f"phase 7: fused kernel host-noise mode: kernel {ni_kernel * 1e3:.1f} us (profiler), plain "
           f"{ni_plain * 1e3:.1f} us; bound {ni_ms * 1e3:.1f} us by {ni_by} ({ni_bytes / 1e6:.1f} MB), "
           f"{ni_ms / ni_kernel * 100:.1f}% of it [{card}]", flush=True)
 
@@ -524,7 +681,7 @@ def phase_timing(torch, dev, tiles, card) -> dict:
         p[:, on] = 1.0
         a = (tiles, m, p, seeds, None, *IDENTITY, torch.bfloat16)
         parts.append(f"{label} {profiled_kernel_ms(lambda: RK.rsp_augment_cuda(*a), 'rsp_augment_kernel', 20) * 1e3:.1f}")
-    print(f"phase 6: fused kernel by gate (us, profiler): {'; '.join(parts)} [{card}]", flush=True)
+    print(f"phase 7: fused kernel by gate (us, profiler): {'; '.join(parts)} [{card}]", flush=True)
 
     # the chain kernel at its (192, 3, 256, 256) float32 shape, Philox mode
     shape = (n, 3, s, s)
@@ -544,61 +701,69 @@ def phase_timing(torch, dev, tiles, card) -> dict:
     c_ms, c_by = bound_ms(bytes_, chain_ops(params, s * s, philox=True))
     ni_kernel = profiled_kernel_ms(fns["kernel_ni"], "photometric_chain_kernel", 50)
     ni_ms, ni_by = bound_ms(bytes_ + noise.numel() * 4, chain_ops(params, s * s, philox=False))
-    print(f"phase 6: photometric chain {shape}: kernel {kernel * 1e3:.1f} us (profiler), "
+    print(f"phase 7: photometric chain {shape}: kernel {kernel * 1e3:.1f} us (profiler), "
           f"{ms['kernel'] * 1e3:.1f} us (CUDA events), plain {ms['plain'] * 1e3:.1f} us (Philox mode, "
           f"plain includes its noise), bound {c_ms * 1e3:.1f} us by {c_by}, {c_ms / kernel * 100:.1f}% of it; "
           f"host-noise mode: kernel {ni_kernel * 1e3:.1f} us (profiler), {ms['kernel_ni'] * 1e3:.1f} us "
           f"(CUDA events), plain {ms['plain_ni'] * 1e3:.1f} us, bound {ni_ms * 1e3:.1f} us by {ni_by}, "
           f"{ni_ms / ni_kernel * 100:.1f}% of it [{card}]", flush=True)
     warp_ms = cuda_ms(lambda: fused.pretrain_geo_warp_planar(imgs, mats), iters=5)
-    print(f"phase 6: plain warp {shape}: {warp_ms * 1e3:.1f} us [{card}]", flush=True)
+    print(f"phase 7: plain warp {shape}: {warp_ms * 1e3:.1f} us [{card}]", flush=True)
     out["photometric_chain"] = {"ms": kernel, "plain_ms": ms["plain"], "bound_ms": c_ms, "bound_by": c_by}
     return out
 
 
-def phase_profile(torch, dev, tiles, out_dir: str, card: str) -> None:
-    """torch.profiler over 3 bf16 steps with the fused kernel after 5
-    warm-up steps and 3 timed unprofiled ones: device time by kernel into
-    ``out_dir/step_profile.txt``, and the device's busy share, its kernel
-    time over the unprofiled steps' wall time."""
+def profile_steps(torch, step, out_dir: str, filename: str, label: str, card: str):
+    """torch.profiler over 3 calls of ``step`` after 5 warm-up calls and 3
+    timed unprofiled ones: device time by kernel into ``out_dir/filename``
+    (40 rows; 15 printed), and the device's busy share, its kernel time over
+    the unprofiled steps' wall time.  Returns the profile."""
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    device_ms = sum(e.self_device_time_total for e in device_events(prof)) / 1e3
+    table = lambda rows: prof.key_averages().table(sort_by="self_device_time_total", row_limit=rows)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, filename), "w") as f:
+        f.write(f"{card}\n3 {label} steps: device {device_ms:.3f} ms (profiled), wall {wall_ms:.3f} ms "
+                f"(3 unprofiled steps just before)\n{table(40)}\n")
+    print(f"profile: 3 bf16 {label} steps, device time {device_ms:.3f} ms against {wall_ms:.3f} ms of wall for 3 "
+          f"unprofiled steps ({device_ms / wall_ms * 100:.1f}% busy); table in {out_dir}/{filename} [{card}]",
+          flush=True)
+    print(table(15), flush=True)
+    return prof
+
+
+def phase_profile(torch, dev, tiles, out_dir: str, card: str) -> None:
+    """The pretrain step's profile (``profile_steps``) into
+    ``out_dir/step_profile.txt``, and the gather kernels in it."""
     from ssl_cr_histo_tpu_torch.parallel import steps as S
     from ssl_cr_histo_tpu_torch.train.init import init_triplet_state
 
     torch.manual_seed(0)
     state = init_triplet_state("resnet18", dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    for _ in range(5):
-        S.pretrain_step(state, tiles, gen, bf16=True)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for _ in range(3):
-        S.pretrain_step(state, tiles, gen, bf16=True)
-    torch.cuda.synchronize()
-    wall_ms = (time.time() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            S.pretrain_step(state, tiles, gen, bf16=True)
-        torch.cuda.synchronize()
-    device_ms = sum(e.self_device_time_total for e in device_events(prof)) / 1e3
+    prof = profile_steps(torch, lambda: S.pretrain_step(state, tiles, gen, bf16=True), out_dir,
+                         "step_profile.txt", "pretrain", card)
     gathers = [f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms" for e in device_events(prof)
                if "gather" in e.key.lower()]
-    print(f"profile: device kernels named gather in 3 steps: {gathers or 'none'}", flush=True)
-    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "step_profile.txt"), "w") as f:
-        f.write(f"{card}\n3 steps: device {device_ms:.3f} ms (profiled), wall {wall_ms:.3f} ms "
-                f"(3 unprofiled steps just before)\n{table}\n")
-    print(f"profile: 3 bf16 steps, device time {device_ms:.3f} ms against {wall_ms:.3f} ms of wall for 3 "
-          f"unprofiled steps ({device_ms / wall_ms * 100:.1f}% busy); table in {out_dir}/step_profile.txt "
-          f"[{card}]", flush=True)
-    print(table, flush=True)
+    print(f"profile: device kernels named gather in 3 pretrain steps: {gathers or 'none'}", flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke test of the PyTorch port on one NVIDIA GPU")
-    ap.add_argument("--profile", default="", help="also profile the step; write the table to this directory")
+    ap.add_argument("--profile", default="", help="also profile the steps; write the tables to this directory")
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(ROOT, "ssl_cr_histo_tpu_torch")):
         fail("run chip_smoke.py from the root of a checkout (ssl_cr_histo_tpu_torch/ missing)")
@@ -705,7 +870,10 @@ def main() -> int:
         tiles_np = next(sampler.iter_batches(sampler.index_directory(slides, cache_dir=None),
                                              64, seed=0))
 
-    # phase 6: timing
+        # phase 6: fine-tuning from the pretrain CLI's checkpoint (the stage handoff)
+        phase_finetune(torch, dev, tmp, os.path.join(run, "ckpt_1.pth"), card, opts.profile)
+
+    # phase 7: timing
     tiles = torch.from_numpy(np.ascontiguousarray(tiles_np)).to(dev)
     timing = phase_timing(torch, dev, tiles, card)
     if opts.profile:

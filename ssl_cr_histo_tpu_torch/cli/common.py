@@ -1,7 +1,8 @@
-"""Shared CLI plumbing: common flags, seeding, device selection.
+"""Shared CLI plumbing: common flags, seeding, device selection, the task
+configs of record, the optimizer factory.
 
-Counterpart of ``ssl_cr_histo_tpu/cli/common.py:81-151``, with these
-differences:
+Counterpart of ``ssl_cr_histo_tpu/cli/common.py:16-151`` and ``:219-223``,
+with these differences:
   * no ``--photometric``: the device decides (the CUDA kernel on a GPU, the
     plain PyTorch chain on the CPU);
   * ``--device`` (default ``cuda``): a missing GPU is an error, never a
@@ -13,10 +14,57 @@ differences:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import random
 
 import numpy as np
 import torch
+
+from ssl_cr_histo_tpu_torch.train import optim
+
+
+@dataclasses.dataclass
+class TaskConfig:
+    """Per-dataset fine-tune config of record (BASELINE.md)."""
+
+    name: str
+    num_classes: int
+    task: str  # 'classification' | 'regression'
+    image_size: int
+    batch_size: int
+    optimizer: str
+    lr: float
+    milestones: tuple = (30, 60)
+    gamma: float = 0.1
+
+
+TASKS = {
+    # eval_BreastPathQ_SSL.py:234-241: Adam 1e-4, batch 4, MSE head
+    "breastpathq": TaskConfig("breastpathq", 1, "regression", 256, 4, "adam", 1e-4),
+    # eval_Camelyon_SSL.py:205-211: SGD-Nesterov 5e-4, batch 16 per class, 2-way CE
+    "camelyon16": TaskConfig("camelyon16", 2, "classification", 256, 16, "sgd", 5e-4),
+    # eval_Kather_SSL.py:231-238: Adam 1e-5, batch 64, 9-way CE
+    "kather": TaskConfig("kather", 9, "classification", 224, 64, "adam", 1e-5),
+}
+
+
+def apply_task_overrides(args, cfg: TaskConfig) -> TaskConfig:
+    """Fold CLI overrides into the task config of record."""
+    if getattr(args, "image_size", 0):
+        cfg = dataclasses.replace(cfg, image_size=args.image_size)
+    return cfg
+
+
+def make_optimizer(kind: str, params, lr: float, weight_decay: float = 1e-4) -> torch.optim.Optimizer:
+    """'adam' or 'sgd' (Nesterov, momentum 0.9) over ``params``, with
+    ``weight_decay`` added to the gradient as the reference's torch
+    optimizers do (eval_BreastPathQ_SSL.py:396-397,
+    eval_Camelyon_SSL.py:371); not decoupled AdamW."""
+    if kind == "sgd":
+        return optim.sgd_nesterov(params, lr, momentum=0.9, weight_decay=weight_decay)
+    if kind == "adam":
+        return optim.adam(params, lr, weight_decay=weight_decay)
+    raise ValueError(f"unknown optimizer {kind}")
 
 
 def add_common_args(parser: argparse.ArgumentParser) -> None:

@@ -1,0 +1,208 @@
+"""Supervised fine-tuning (SSL stage 2) on a GPU.
+
+Counterpart of ``ssl_cr_histo_tpu/cli/finetune.py:44-330``, ``--mode
+fine-tuning`` for the Kather and BreastPathQ tasks.  Config of record per
+task (``cli.common.TASKS``); Kather's (reference eval_Kather_SSL.py:231-238):
+9 classes at 224^2, batch 64 images (192 views a step after the 3-view
+stack), Adam 1e-5 with L2 1e-4 added to the gradient, MultiStepLR at epochs
+[30, 60] with gamma 0.1 stepped per optimizer step, bf16 autocast, the
+backbone loaded from a pretraining checkpoint.
+
+    python -m ssl_cr_histo_tpu_torch.cli.finetune --task kather --train_path CLASS_DIRS/ \\
+        --model_path PRETRAIN_RUN/best.pth --save_dir RUN/
+
+Writes ``fine_tuned_results.csv``, ``best.pth``, ``ckpt_<epoch>.pth`` and
+``final.pth`` under ``--save_dir``: the TripletNet under ``'model'`` and the
+head under ``'classifier'`` (``classifier.0.*``), the reference's layout.
+``--task camelyon16``, ``--mode evaluation`` and ``--resume`` exit with "not
+yet ported" (ROADMAP.md); ``--multi_step`` is not carried.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from ssl_cr_histo_tpu_torch.cli.common import (
+    TASKS,
+    add_common_args,
+    apply_task_overrides,
+    make_optimizer,
+    reject_unported,
+    resolve_device,
+    seed_everything,
+)
+from ssl_cr_histo_tpu_torch.data import datasets as D
+from ssl_cr_histo_tpu_torch.data.pipeline import prefetch_to_device
+from ssl_cr_histo_tpu_torch.eval import metrics as M
+from ssl_cr_histo_tpu_torch.parallel import steps as S
+from ssl_cr_histo_tpu_torch.train.checkpoint import save_checkpoint
+from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, load_backbone
+from ssl_cr_histo_tpu_torch.train.loop import BestTracker, CsvLogger
+from ssl_cr_histo_tpu_torch.train.state import FinetuneState
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser("SSL supervised fine-tuning (PyTorch / CUDA)")
+    p.add_argument("--task", required=True, choices=list(TASKS), help="camelyon16 is not ported yet")
+    p.add_argument("--mode", default="fine-tuning", choices=["fine-tuning", "evaluation"],
+                   help="evaluation is not ported yet")
+    p.add_argument("--train_path", default="", help="train data dir (h5 dir / class folders)")
+    p.add_argument("--val_path", default="",
+                   help="explicit validation data dir; when set the whole --train_path trains "
+                        "and --validation_split is ignored")
+    p.add_argument("--model_path", default="",
+                   help="stage-1 pretraining checkpoint (.pth with a 'model' state_dict)")
+    p.add_argument("--modules", type=int, default=0,
+                   help="freeze the first N torch-ordered tensors "
+                        "(0 full FT / 15 from-layer2 / 30 / 45 / 60 head-only / 64)")
+    p.add_argument("--labeled_train", type=float, default=1.0,
+                   help="labeled fraction: 0.1 / 0.25 / 0.5 / 1.0")
+    p.add_argument("--validation_split", type=float, default=0.2)
+    p.add_argument("--with_replacement", action="store_true",
+                   help="reproduce the reference's sampling-with-replacement defect")
+    p.add_argument("--num_epoch", type=int, default=90)
+    p.add_argument("--batch_size", type=int, default=0, help="0 = task default")
+    p.add_argument("--lr", type=float, default=0.0, help="0 = task default")
+    p.add_argument("--weight_decay", type=float, default=1e-4,
+                   help="L2 added to grads before the update (torch semantics)")
+    p.add_argument("--resume", default="", help="not ported yet")
+    p.add_argument("--save_freq", type=int, default=10,
+                   help="epochs between periodic ckpt_N checkpoints (0 = off)")
+    p.add_argument("--eval_batch_size", type=int, default=64, help="batch of per-epoch validation")
+    add_common_args(p)
+    return p.parse_args(argv)
+
+
+def load_task_dataset(cfg, path: str):
+    """One task-appropriate loader call."""
+    if cfg.name == "breastpathq":
+        return D.load_breastpathq_h5(path, cfg.image_size)
+    if cfg.name == "kather":
+        return D.load_kather_folder(path, cfg.image_size)
+    raise SystemExit(f"--task {cfg.name} is not yet ported to the PyTorch package (see ROADMAP.md)")
+
+
+def load_train_val(args, cfg):
+    """Train/val pair: an explicit ``--val_path``, or a seeded
+    ``--validation_split`` holdout of the train set
+    (eval_BreastPathQ_SSL.py:293-302)."""
+    ds = load_task_dataset(cfg, args.train_path)
+    if args.val_path:
+        return ds, load_task_dataset(cfg, args.val_path)
+    return D.train_val_split(ds, args.validation_split, seed=args.seed)
+
+
+def subsample_labeled(train, args):
+    """Labeled-fraction subsampling.  The reference applies
+    np.random.choice even at labeled_train=1.0 (a with-replacement bootstrap
+    that drops ~37% of samples), so ``--with_replacement`` subsamples
+    unconditionally; without replacement, fraction 1.0 is the identity."""
+    if args.labeled_train >= 1.0 and not args.with_replacement:
+        return train
+    return D.labeled_fraction(train, args.labeled_train, seed=args.seed,
+                              with_replacement=args.with_replacement)
+
+
+def build_state(args, cfg, device: torch.device, n_steps_per_epoch: int) -> FinetuneState:
+    """TripletNet + FinetuneHead with the task's optimizer, ``--modules``
+    frozen, and LR milestones in steps from the epoch length."""
+    lr = args.lr or cfg.lr
+    return init_finetune_state(
+        args.model, cfg.num_classes, device,
+        lambda params: make_optimizer(cfg.optimizer, params, lr, args.weight_decay),
+        modules=args.modules,
+        milestones_steps=[m * n_steps_per_epoch for m in cfg.milestones],
+        gamma=cfg.gamma,
+    )
+
+
+def validate(cfg, state: FinetuneState, val, batch_size: int, device: torch.device,
+             bf16: bool = False) -> float:
+    """Validation error (1 - accuracy) or MSE over the whole set, in order,
+    with the eval-mode forward (``cli/finetune.py:320-330``)."""
+    outs, labels = [], []
+    it = val.batches(batch_size, shuffle=False, drop_last=False)
+    for imgs, lab in prefetch_to_device(it, device):
+        outs.append(S.forward(state, imgs, bf16=bf16))
+        labels.append(lab)
+    out = torch.cat(outs).cpu().numpy()
+    lab = torch.cat(labels).cpu().numpy()
+    if cfg.task == "regression":
+        return float(np.mean((out[:, 0] - lab) ** 2))
+    return 1.0 - M.accuracy(lab, out.argmax(-1))
+
+
+def run(args, cfg, train, val) -> FinetuneState:
+    """The ``--mode fine-tuning`` loop on loaded datasets (``cli/finetune.py:
+    161-294``): per epoch, the train steps over a seeded shuffle fed one
+    batch ahead by a thread, validation, the CSV row, ``best.pth``, and
+    every ``--save_freq`` epochs ``ckpt_<epoch>.pth``; ``final.pth`` at
+    the end."""
+    device = resolve_device(args)
+    gen = seed_everything(args.seed, device)
+    batch_size = args.batch_size or cfg.batch_size
+    n_steps_per_epoch = len(train) // batch_size
+    if n_steps_per_epoch == 0:
+        raise SystemExit(f"zero steps per epoch: {len(train)} train samples vs batch {batch_size} "
+                         f"-- reduce --batch_size or add data")
+    if len(val) == 0:
+        raise SystemExit("empty validation set -- raise --validation_split or pass --val_path")
+    print(f"==> {len(train)} train / {len(val)} val samples")
+
+    state = build_state(args, cfg, device, n_steps_per_epoch)
+    if args.model_path:
+        load_backbone(state, args.model_path)
+        print(f"==> loaded pretrained backbone from {args.model_path}")
+
+    os.makedirs(args.save_dir, exist_ok=True)
+    log = CsvLogger(os.path.join(args.save_dir, "fine_tuned_results.csv"), "epoch, train_loss, val_metric")
+    best = BestTracker(args.save_dir, mode="min")
+    for epoch in range(1, args.num_epoch + 1):
+        t0 = time.time()
+        # the sum stays on the device; reading it synchronises
+        loss_sum = torch.zeros((), device=device)
+        seen = 0
+        batches = train.batches(batch_size, seed=args.seed + epoch)
+        for bi, (imgs, labels) in enumerate(prefetch_to_device(batches, device)):
+            m = S.finetune_step(state, imgs, labels, gen, cfg.task, bf16=args.bf16)
+            loss_sum += m["loss"] * len(labels)
+            seen += len(labels)
+            if (bi + 1) % args.print_freq == 0:
+                print(f"Train: [{epoch}][{bi + 1}] loss {float(m['loss']):.4f} ({float(loss_sum) / seen:.4f})")
+        train_loss = float(loss_sum) / max(seen, 1)
+
+        val_metric = validate(cfg, state, val, args.eval_batch_size, device, bf16=args.bf16)
+        log.append(epoch, train_loss, val_metric)
+        print(f"epoch {epoch}: train_loss {train_loss:.4f} val "
+              f"{'mse' if cfg.task == 'regression' else 'err'} {val_metric:.4f} ({time.time() - t0:.1f}s)")
+        meta = {"epoch": epoch, "args": vars(args), "val_metric": val_metric}
+        if best.update(val_metric, epoch, state, meta):
+            print(f"==> new best {val_metric:.4f}")
+        if args.save_freq and epoch % args.save_freq == 0:
+            meta["best_val"] = best.best_value
+            save_checkpoint(os.path.join(args.save_dir, f"ckpt_{epoch}.pth"), state, meta)
+    save_checkpoint(os.path.join(args.save_dir, "final.pth"), state,
+                    {"epoch": args.num_epoch, "best_val": best.best_value})
+    return state
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    reject_unported(args, {"resume": "--resume"})
+    if args.mode != "fine-tuning":
+        raise SystemExit(f"--mode {args.mode} is not yet ported to the PyTorch package (see ROADMAP.md)")
+    if args.task == "camelyon16":
+        raise SystemExit("--task camelyon16 is not yet ported to the PyTorch package (see ROADMAP.md)")
+    cfg = apply_task_overrides(args, TASKS[args.task])
+    resolve_device(args)  # a missing GPU fails before the data loads
+    train, val = load_train_val(args, cfg)
+    return run(args, cfg, subsample_labeled(train, args), val)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,195 @@
+"""Dataset readers for the fine-tune tasks: the port's own copy of the
+parts of ``ssl_cr_histo_tpu/data/datasets.py`` that the fine-tune slice
+uses (numpy, with cv2 and h5py imported where an image or an .h5 file is
+read, so importing this module needs neither).
+
+Readers return raw uint8 HWC arrays and labels; augmentation runs on the
+device inside the train step.  Contracts of the reference:
+  * BreastPathQ  -- .h5 files with data['x'] float CHW in [0, 1] and
+                    data['y'] cellularity scores (dataset.py:453-536)
+  * Kather       -- folder-per-class patches, 9 classes ADI..TUM
+                    (dataset.py:1002-1241)
+Camelyon16's patch and annotation loaders are not ported yet (ROADMAP.md).
+
+Labeled-fraction subsampling defaults to sampling WITHOUT replacement; the
+reference samples with replacement (eval_BreastPathQ_SSL.py:299):
+``with_replacement=True`` reproduces it.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ssl_cr_histo_tpu_torch.data.pipeline import epoch_indices
+
+KATHER_CLASSES = ("ADI", "BACK", "DEB", "LYM", "MUC", "MUS", "NORM", "STR", "TUM")
+KATHER_LABELS: Dict[str, int] = {c: i for i, c in enumerate(KATHER_CLASSES)}
+
+
+@dataclass
+class ArrayDataset:
+    """Materialized (images uint8 NHWC, labels) pair.  ``groups``
+    (optional) records each item's source pool (see ``grouping_key``)."""
+
+    images: np.ndarray
+    labels: np.ndarray
+    groups: Optional[np.ndarray] = None
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def subset(self, idx) -> "ArrayDataset":
+        return ArrayDataset(self.images[idx], self.labels[idx],
+                            None if self.groups is None else self.groups[idx])
+
+    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0, drop_last: bool = True):
+        for sel in epoch_indices(len(self), batch_size, shuffle, seed, drop_last):
+            yield self.images[sel], self.labels[sel]
+
+
+@dataclass
+class LazyImageDataset:
+    """Path-backed dataset: labels are eager (splits need them), pixels
+    decode per batch on a thread pool, as the reference's per-item decode in
+    DataLoader workers does (dataset.py:1002-1071); decoding
+    NCT-CRC-HE-100K eagerly would take ~15 GB of host RAM."""
+
+    paths: list
+    labels: np.ndarray
+    image_size: int
+    decode_threads: int = 8
+    groups: Optional[np.ndarray] = None
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def subset(self, idx) -> "LazyImageDataset":
+        idx = np.asarray(idx)
+        return LazyImageDataset([self.paths[int(i)] for i in idx], self.labels[idx], self.image_size,
+                                self.decode_threads, None if self.groups is None else self.groups[idx])
+
+    def decode(self, idx) -> np.ndarray:
+        import cv2
+
+        def one(i):
+            raw = cv2.imread(self.paths[int(i)], cv2.IMREAD_COLOR)
+            if raw is None:
+                raise FileNotFoundError(f"unreadable image {self.paths[int(i)]!r}")
+            return _resize(cv2.cvtColor(raw, cv2.COLOR_BGR2RGB), self.image_size)
+
+        return np.stack(list(self._executor().map(one, np.asarray(idx))))
+
+    def _executor(self) -> ThreadPoolExecutor:
+        # one pool per dataset: decode() runs once per batch
+        pool = getattr(self, "_pool", None)
+        if pool is None:
+            pool = self._pool = ThreadPoolExecutor(max_workers=self.decode_threads)
+        return pool
+
+    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0, drop_last: bool = True):
+        for sel in epoch_indices(len(self), batch_size, shuffle, seed, drop_last):
+            yield self.decode(sel), self.labels[sel]
+
+    def materialize(self) -> ArrayDataset:
+        return ArrayDataset(self.decode(np.arange(len(self))), self.labels, self.groups)
+
+
+def grouping_key(ds) -> np.ndarray:
+    """Pool key for per-class labeled subsampling: the dataset's source-dir
+    ``groups`` when they distinguish two or more pools, else the labels
+    (``datasets.py:132-145``)."""
+    g = getattr(ds, "groups", None)
+    if g is not None and len(np.unique(g)) >= 2:
+        return np.asarray(g)
+    return np.asarray(ds.labels)
+
+
+def _resize(img: np.ndarray, size: int) -> np.ndarray:
+    if img.shape[0] == size and img.shape[1] == size:
+        return img
+    import cv2
+
+    return cv2.resize(img, (size, size), interpolation=cv2.INTER_CUBIC)
+
+
+def load_breastpathq_h5(dataset_path: str, image_size: int = 256) -> ArrayDataset:
+    """Every .h5 under ``dataset_path``: data['x'] float CHW in [0, 1] ->
+    uint8 HWC resized to ``image_size``; data['y'] float scores."""
+    import h5py
+
+    images: List[np.ndarray] = []
+    labels: List[float] = []
+    for path in sorted(glob.glob(os.path.join(dataset_path, "*.h5"))):
+        with h5py.File(path, "r") as f:
+            x = np.asarray(f["x"])
+            y = np.asarray(f["y"]).reshape(len(x), -1)[:, 0]
+        for patch, score in zip(x, y):
+            img = (np.transpose(patch, (1, 2, 0)) * 255).astype(np.uint8)
+            images.append(_resize(img, image_size))
+            labels.append(float(score))
+    return ArrayDataset(np.stack(images), np.asarray(labels, np.float32))
+
+
+def load_kather_folder(dataset_path: str, image_size: int = 224,
+                       exts: Sequence[str] = ("tif", "png", "jpg"), lazy: "str | bool" = "auto",
+                       lazy_threshold: int = 20000):
+    """Folder-per-class loader; an unknown folder name is TUM, as in the
+    reference's else-branch (dataset.py:1050-1052).  lazy=True (or 'auto'
+    above ``lazy_threshold`` items) returns a LazyImageDataset."""
+    all_paths: List[str] = []
+    labels: List[int] = []
+    for cls_dir in sorted(glob.glob(os.path.join(dataset_path, "*/"))):
+        label = KATHER_LABELS.get(os.path.basename(os.path.dirname(cls_dir)), 8)
+        paths: List[str] = []
+        for ext in exts:
+            paths += glob.glob(os.path.join(cls_dir, f"*.{ext}"))
+        for p in sorted(paths):
+            all_paths.append(p)
+            labels.append(label)
+    ds = LazyImageDataset(all_paths, np.asarray(labels, np.int32), image_size)
+    if lazy is True or (lazy == "auto" and len(ds) > lazy_threshold):
+        return ds
+    return ds.materialize()
+
+
+def train_val_split(ds, validation_split: float = 0.1, seed: int = 42,
+                    shuffle: bool = True) -> Tuple[object, object]:
+    """Seeded holdout of floor(validation_split * n) items
+    (eval_BreastPathQ_SSL.py:293-307): (train, val)."""
+    idx = np.arange(len(ds))
+    if shuffle:
+        np.random.default_rng(seed).shuffle(idx)
+    n_val = int(np.floor(validation_split * len(ds)))
+    return ds.subset(idx[n_val:]), ds.subset(idx[:n_val])
+
+
+def labeled_fraction(ds, fraction: float, seed: int = 42, with_replacement: bool = False,
+                     per_class: bool = False):
+    """Subsample a labeled fraction, floor-sized like the reference's
+    int(frac * n) (eval_BreastPathQ_SSL.py:298).  ``per_class`` draws each
+    pool of ``grouping_key`` separately; an empty draw raises."""
+    rng = np.random.default_rng(seed)
+    if per_class:
+        parts = []
+        key = grouping_key(ds)
+        for cls in np.unique(key):
+            cls_idx = np.where(key == cls)[0]
+            k = int(fraction * len(cls_idx))
+            if k == 0:
+                raise ValueError(f"labeled fraction {fraction} of {len(cls_idx)} pool-{cls} samples "
+                                 f"floors to zero -- raise --labeled_train or add data")
+            parts.append(rng.choice(cls_idx, size=k, replace=with_replacement))
+        idx = np.concatenate(parts)
+    else:
+        n = len(ds)
+        idx = rng.choice(n, size=int(fraction * n), replace=with_replacement)
+        if len(idx) == 0 and n > 0:
+            raise ValueError(f"labeled fraction {fraction} of {n} samples floors to zero -- "
+                             f"raise --labeled_train or add data")
+    return ds.subset(idx)

@@ -1,17 +1,39 @@
 """Host -> device feeding.
 
 Counterpart of the parts of ``ssl_cr_histo_tpu/data/pipeline.py`` that the
-pretraining slice uses (that module imports jax).  The sampler ships raw
-uint8 batches; augmentation runs on the device.  A prefetch thread that
-overlaps reading with the step is later work (ROADMAP.md).
+ported slices use (that module imports jax): epoch order, padding, and a
+thread that runs a host iterator ahead of the consumer.  Samplers and
+datasets ship raw uint8 batches; augmentation runs on the device.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterable, Iterator
 
 import numpy as np
 import torch
+
+
+def epoch_indices(n: int, batch_size: int, shuffle: bool = True, seed: int = 0,
+                  drop_last: bool = True) -> Iterator[np.ndarray]:
+    """Per-batch index arrays for one epoch over ``n`` items: a seeded
+    shuffle, then consecutive slices; a short last batch is dropped when
+    ``drop_last`` (``pipeline.py:19-34``)."""
+    idx = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed).shuffle(idx)
+    end = n - (n % batch_size) if drop_last else n
+    for i in range(0, end, batch_size):
+        yield idx[i: i + batch_size]
+
+
+def batch_iterator(arrays, batch_size: int, shuffle: bool = True, seed: int = 0,
+                   drop_last: bool = True) -> Iterator:
+    """Aligned batch tuples from equal-length arrays (``pipeline.py:37-46``)."""
+    for sel in epoch_indices(len(arrays[0]), batch_size, shuffle, seed, drop_last):
+        yield tuple(a[sel] for a in arrays)
 
 
 def pad_batches(it: Iterable, batch_size: int) -> Iterator:
@@ -40,3 +62,61 @@ def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def prefetch_iter(it: Iterable, size: int = 2, map_fn=None) -> Iterator:
+    """Run ``it`` (and ``map_fn`` on each item) on a background thread,
+    ``size`` items ahead of the consumer (``pipeline.py:151-196``).  Stops
+    the worker if the consumer goes away early; re-raises worker errors."""
+    q: "queue.Queue" = queue.Queue(maxsize=size)
+    end = object()
+    stop = threading.Event()
+    errors = []
+
+    def q_put(obj) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(obj, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in it:
+                if not q_put(item if map_fn is None else map_fn(item)):
+                    return
+        except BaseException as e:  # handed to the consumer, re-raised there
+            errors.append(e)
+        finally:
+            q_put(end)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                break
+            yield item
+    finally:
+        stop.set()
+        t.join(timeout=10.0)
+    if errors:
+        raise errors[0]
+
+
+def prefetch_to_device(it: Iterable, device: torch.device, size: int = 2) -> Iterator:
+    """Device tensors of the array tuples ``it`` yields.  A thread runs
+    ``it`` (decoding and stacking a batch) and copies each batch into pinned
+    memory ``size`` batches ahead; the consumer's thread starts each copy to
+    the GPU without blocking (the JAX CLI's ``prefetch_to_device``)."""
+    pinned = device.type == "cuda"
+
+    def host(batch):
+        ts = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in batch)
+        return tuple(t.pin_memory() for t in ts) if pinned else ts
+
+    for batch in prefetch_iter(it, size=size, map_fn=host):
+        yield tuple(t.to(device, non_blocking=pinned) for t in batch)

@@ -1,7 +1,8 @@
 """RSP multi-resolution triplet sampling from WSI pyramids.
 
 The port's own copy of ``ssl_cr_histo_tpu/data/sampler.py`` (numpy and cv2
-only), so that the port imports nothing of the JAX package;
+only; cv2 imported where it is used), so that the port imports nothing of
+the JAX package;
 ``tests/test_torch_data.py`` holds the two to equal output.
 
 Re-implements the reference tile samplers with exact coordinate math but a
@@ -30,7 +31,6 @@ import os
 from dataclasses import dataclass
 from typing import Iterator, List, Sequence, Tuple
 
-import cv2
 import numpy as np
 
 from ssl_cr_histo_tpu_torch.data.wsi import PyramidReader, open_slide
@@ -38,6 +38,8 @@ from ssl_cr_histo_tpu_torch.data.wsi import PyramidReader, open_slide
 
 def foreground_lab(tile_u8: np.ndarray, mu: float, mu_percent: float = 0.15, thresh: float = 0.95) -> bool:
     """v1 tissue test on a uint8 RGB tile (reference util.py:18-23)."""
+    import cv2
+
     lab = cv2.cvtColor(tile_u8, cv2.COLOR_RGB2LAB).astype(np.float32)
     a = lab[..., 1] - 128.0  # cv2 uint8 Lab stores a+128
     mask = a > (1.0 + mu_percent) * mu
@@ -46,6 +48,8 @@ def foreground_lab(tile_u8: np.ndarray, mu: float, mu_percent: float = 0.15, thr
 
 def foreground_hsv(tile_u8: np.ndarray, sat_thresh: float = 0.1, thresh: float = 0.75) -> bool:
     """v2 tissue test (Pretraining_v2/util.py:9-13)."""
+    import cv2
+
     hsv = cv2.cvtColor(tile_u8, cv2.COLOR_RGB2HSV)
     mask = hsv[..., 1].astype(np.float32) / 255.0 > sat_thresh
     return mask.mean() >= thresh
@@ -53,6 +57,8 @@ def foreground_hsv(tile_u8: np.ndarray, sat_thresh: float = 0.1, thresh: float =
 
 def slide_lab_mu(reader: PyramidReader, thumb_level: int | None = None) -> float:
     """Thumbnail mean of the LAB a-channel (reference dataset.py:400-403)."""
+    import cv2
+
     level = thumb_level if thumb_level is not None else reader.level_count - 1
     w, h = reader.level_dimensions[level]
     thumb = reader.read_region((0, 0), level, (w, h))

@@ -1,7 +1,8 @@
 """Whole-slide-image pyramid IO.
 
-The port's own copy of ``ssl_cr_histo_tpu/data/wsi.py`` (numpy and cv2 only),
-so that the port imports nothing of the JAX package.
+The port's own copy of ``ssl_cr_histo_tpu/data/wsi.py`` (numpy and cv2 only;
+cv2 imported where it is used), so that the port imports nothing of the JAX
+package.
 
 A small reader protocol with three backends:
 
@@ -24,7 +25,6 @@ import os
 from collections import OrderedDict
 from typing import List, Protocol, Tuple
 
-import cv2
 import numpy as np
 
 try:  # pragma: no cover - not present in this image
@@ -75,6 +75,8 @@ class ArrayPyramid:
     """In-memory pyramid with OpenSlide read_region semantics."""
 
     def __init__(self, level0: np.ndarray, levels: int = 4, mpp_x: float = 0.5):
+        import cv2
+
         assert level0.dtype == np.uint8 and level0.ndim == 3
         self._levels = [level0]
         for _ in range(levels - 1):
@@ -156,6 +158,8 @@ def synthetic_wsi(
     """Procedural H&E-like slide: white background, pink stroma regions with
     purple nuclei blobs — enough structure for foreground detection and
     augmentation to behave realistically."""
+    import cv2
+
     rng = np.random.default_rng(seed)
     img = np.full((height, width, 3), 242, np.uint8)
     # large stroma regions (eosin pink)

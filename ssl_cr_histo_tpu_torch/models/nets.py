@@ -1,9 +1,10 @@
 """The triplet (RSP) network and its pretraining classifier head.
 
-Counterpart of ``ssl_cr_histo_tpu/models/nets.py:27-113``, with the
+Counterpart of ``ssl_cr_histo_tpu/models/nets.py:27-124``, with the
 reference's module names so that state_dicts carry its keys: the backbone
 under ``model.*``, the pairwise MLP under ``fc.0`` / ``fc.2``, the classifier
-under ``classifier.0`` / ``classifier.2``.
+under ``classifier.0`` / ``classifier.2``, the fine-tune head under
+``classifier.0``.
 """
 
 from __future__ import annotations
@@ -73,6 +74,18 @@ class Classifier(nn.Module):
         super().__init__()
         self.classifier = nn.Sequential(
             nn.Linear(in_features, 128), nn.ReLU(inplace=True), nn.Linear(128, num_classes))
+
+    def forward(self, x):
+        return self.classifier(x)
+
+
+class FinetuneHead(nn.Module):
+    """Fine-tune head: one Linear in -> num_classes (``nets.py:116-124``),
+    under ``classifier.0`` as in the reference's FinetuneResNet."""
+
+    def __init__(self, in_features: int, num_classes: int):
+        super().__init__()
+        self.classifier = nn.Sequential(nn.Linear(in_features, num_classes))
 
     def forward(self, x):
         return self.classifier(x)

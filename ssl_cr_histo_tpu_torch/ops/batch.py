@@ -1,10 +1,11 @@
 """Batched augmentation entry points on the device.
 
-Counterpart of ``ssl_cr_histo_tpu/ops/batch.py``.  Only the main path of
-RSP pretraining is ported: the v1 pool in fused mode, which on the card is
-one hand-written kernel from the uint8 triplets to the normalized planar
-batch (``ops/rsp_augment_kernel.py``).  The other policies raise
-``NotImplementedError`` (see ROADMAP.md, Queue 1).
+Counterpart of ``ssl_cr_histo_tpu/ops/batch.py``.  Ported: the v1 RSP
+pretraining pool in fused mode, which on the card is one hand-written
+kernel from the uint8 triplets to the normalized planar batch
+(``ops/rsp_augment_kernel.py``), and the fine-tune 3-view stack, which the
+JAX package computes with XLA ops and the port with PyTorch ops.  The other
+policies raise ``NotImplementedError`` (see ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from ssl_cr_histo_tpu_torch.ops import fused
+from ssl_cr_histo_tpu_torch.ops import fused, geometry
 from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
 from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
 
@@ -72,6 +73,58 @@ def augment_rsp_batch_v1(gen: torch.Generator, triplets_u8: torch.Tensor, mode: 
         raise ValueError(f"no v1 augmentation for device {triplets_u8.device}")
     return fn(triplets_u8, draws["geo"], draws["params"], seeds, draws["noise"], mean, std, out_dtype,
               order=order)
+
+
+# The third view is resized to (S + 20)^2 and cropped back to S^2
+# (``batch.py:121-122``).
+THREE_VIEW_PAD = 20
+
+
+def draw_3view(gen: torch.Generator, b: int, size: int) -> dict:
+    """Per-image draws of the fine-tune 3-view stack (``batch.py:110-124``)
+    for ``b`` images of ``size``^2: ``angles`` (b, 2) in [-90, 90) and
+    ``rotate`` (b, 2) coins at p = 0.5 for views 2 and 3, ``crop`` (b, 2)
+    offsets (y0, x0) into the (size + 20)^2 third view, and ``perm`` (b, 3),
+    a permutation of the three views."""
+    dev = gen.device
+    resized = size + THREE_VIEW_PAD
+    return {
+        "angles": -90.0 + 180.0 * torch.rand(b, 2, generator=gen, device=dev),
+        "rotate": torch.rand(b, 2, generator=gen, device=dev) < 0.5,
+        "crop": torch.randint(0, resized - size + 1, (b, 2), generator=gen, device=dev),
+        "perm": torch.argsort(torch.rand(b, 3, generator=gen, device=dev), dim=1),
+    }
+
+
+def augment_3view_batch(gen: torch.Generator, imgs_u8: torch.Tensor,
+                        draws: Optional[dict] = None) -> torch.Tensor:
+    """The supervised fine-tune 3-view stack (``batch.py:105-133``):
+    [identity, rotated, rotated + resized to (S+20)^2 + cropped to S^2] per
+    image, each rotation applied at p = 0.5 with reflect-101 borders, the
+    three views shuffled per image and clipped to [0, 1].
+
+    imgs_u8: (B, H, W, 3) uint8 with H == W.  Returns (B, 3, 3, H, W)
+    float32, channel-planar.  ``draws`` (see ``draw_3view``) injects the
+    angles, coins, crop offsets and permutations; they are drawn from
+    ``gen`` when None.  Framework ops on any device: the JAX package runs
+    this with XLA ops too, no Pallas kernel."""
+    b, s = imgs_u8.shape[0], imgs_u8.shape[1]
+    if draws is None:
+        draws = draw_3view(gen, b, s)
+    dev = imgs_u8.device
+    d = {k: v.to(dev) for k, v in draws.items()}
+    v1 = to_float(imgs_u8).permute(0, 3, 1, 2)
+
+    def rot(j):
+        mats = geometry.rotation_matrix(d["angles"][:, j], s, s)
+        out = geometry.warp_affine_planar(v1, mats, pad_mode="reflect101")
+        return torch.where(d["rotate"][:, j].view(b, 1, 1, 1), out, v1)
+
+    v3 = geometry.resize(rot(1), s + THREE_VIEW_PAD, s + THREE_VIEW_PAD)
+    v3 = geometry.random_crop(v3, d["crop"][:, 0], d["crop"][:, 1], s, s)
+    views = torch.stack([v1, rot(0), v3], 1)
+    perm = d["perm"].long().view(b, 3, 1, 1, 1).expand_as(views)
+    return torch.clamp(torch.gather(views, 1, perm), 0.0, 1.0)
 
 
 def normalize_batch(imgs: torch.Tensor, mean=DEFAULT_MEAN, std=DEFAULT_STD,

@@ -1,4 +1,5 @@
-"""Affine matrix builders and the two-pass separable warp, batched.
+"""Affine matrix builders and the two-pass separable warp, batched; the
+cv2-exact bilinear resize and the crops of the fine-tune 3-view stack.
 
 Counterpart of ``ssl_cr_histo_tpu/ops/geometry.py``.  Every geometric op is
 a 3x3 *inverse* map (output pixel -> input location, (x, y) coordinates, y
@@ -17,6 +18,7 @@ masked, not clamped), exactly as the dense weights' index range does.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Coordinate swap x <-> y (``geometry.py:270``).
@@ -179,3 +181,53 @@ def warp_affine_planar(imgs: torch.Tensor, inv_mats: torch.Tensor, pad_mode: str
     tmp = _resample_pass(img, ap * xs + bp * ys + cp, 3, pad_mode)
     out = _resample_pass(tmp, d * xs + e * ys + f, 2, pad_mode)
     return sel(swap, out.transpose(2, 3), out).contiguous()
+
+
+def center_crop(imgs: torch.Tensor, crop_h: int, crop_w: int) -> torch.Tensor:
+    """Central crop of the trailing (H, W) dims (``geometry.py:446-452``)."""
+    h, w = imgs.shape[-2:]
+    y0, x0 = (h - crop_h) // 2, (w - crop_w) // 2
+    return imgs[..., y0:y0 + crop_h, x0:x0 + crop_w]
+
+
+def random_crop(imgs: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor, crop_h: int,
+                crop_w: int) -> torch.Tensor:
+    """Crop each (C, H, W) image of (N, C, H, W) ``imgs`` at its own offset:
+    rows ``y0[i]:y0[i] + crop_h``, columns ``x0[i]:x0[i] + crop_w``
+    (``geometry.py:455-461``, with the offsets drawn by the caller)."""
+    n, c = imgs.shape[:2]
+    dev = imgs.device
+    rows = (y0.view(n, 1).long() + torch.arange(crop_h, device=dev)).view(n, 1, crop_h, 1)
+    out = torch.gather(imgs, 2, rows.expand(n, c, crop_h, imgs.shape[3]))
+    cols = (x0.view(n, 1).long() + torch.arange(crop_w, device=dev)).view(n, 1, 1, crop_w)
+    return torch.gather(out, 3, cols.expand(n, c, crop_h, crop_w))
+
+
+def _cv2_linear_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) cv2.INTER_LINEAR weights: half-pixel mapping
+    src = (dst + 0.5) * n_in / n_out - 0.5, two taps, edge clamp; positions
+    in float64, weights cast to float32 (``geometry.py:464-475``)."""
+    dst = np.arange(n_out, dtype=np.float64)
+    src = (dst + 0.5) * (n_in / n_out) - 0.5
+    i0 = np.floor(src).astype(int)
+    frac = (src - i0).astype(np.float32)
+    w = np.zeros((n_out, n_in), np.float32)
+    rows = np.arange(n_out)
+    np.add.at(w, (rows, np.clip(i0, 0, n_in - 1)), 1.0 - frac)
+    np.add.at(w, (rows, np.clip(i0 + 1, 0, n_in - 1)), frac)
+    return w
+
+
+def resize(imgs: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resize of the trailing (H, W) dims, cv2.INTER_LINEAR-exact
+    (``geometry.py:478-497``, bilinear only): two products with the 2-tap
+    weight matrices.  Channel-planar, float32 out."""
+    x = imgs.float()
+    h, w = x.shape[-2:]
+    if out_h != h:
+        wy = torch.from_numpy(_cv2_linear_weights(h, out_h)).to(x.device)
+        x = torch.einsum("oh,...hw->...ow", wy, x)
+    if out_w != w:
+        wx = torch.from_numpy(_cv2_linear_weights(w, out_w)).to(x.device)
+        x = torch.einsum("ow,...hw->...ho", wx, x)
+    return x

@@ -1,2 +1,2 @@
-"""Train and eval steps.  One GPU in this slice; data parallelism over
-several GPUs is a later slice (ROADMAP.md)."""
+"""Train and eval steps (pretraining and fine-tuning).  One GPU so far;
+data parallelism over several GPUs is a later slice (ROADMAP.md)."""

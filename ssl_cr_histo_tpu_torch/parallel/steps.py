@@ -1,12 +1,14 @@
-"""RSP pretraining train and eval steps.
+"""Train and eval steps of RSP pretraining and supervised fine-tuning.
 
-Counterpart of ``ssl_cr_histo_tpu/parallel/steps.py:37-315``.  One train
+Counterpart of ``ssl_cr_histo_tpu/parallel/steps.py:37-421``.  A pretrain
 step: augment on the device (one kernel: each uint8 triplet read in the
 order of its label, composed warp, photometric chain, clip, normalize, cast
-to the compute type), one backbone pass over the B*3 views, pairwise FC, the 6-way
-classifier, cross-entropy, and an SGD-Nesterov step.  PyTorch runs eagerly,
-so there is no jit and no multi-step scan; the step updates ``state`` in
-place.
+to the compute type), one backbone pass over the B*3 views, pairwise FC, the
+6-way classifier, cross-entropy, and an SGD-Nesterov step.  A fine-tune
+step: the 3-view stack (PyTorch ops), one ``encode_single`` pass over the
+B*3 views, the head, cross-entropy or MSE, an Adam or SGD step and one step
+of the LR schedule.  PyTorch runs eagerly, so there is no jit and no
+multi-step scan; the steps update ``state`` in place.
 """
 
 from __future__ import annotations
@@ -18,12 +20,17 @@ import torch.nn.functional as F
 
 from ssl_cr_histo_tpu_torch.ops import batch as aug_batch
 from ssl_cr_histo_tpu_torch.ops.rsp_augment_kernel import RSP_PERMUTATIONS, permute_triplets
-from ssl_cr_histo_tpu_torch.train.state import TrainState
+from ssl_cr_histo_tpu_torch.train.state import FinetuneState, TrainState
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross-entropy, in float32."""
     return F.cross_entropy(logits.float(), labels.long())
+
+
+def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean squared error (``steps.py:47``)."""
+    return torch.mean((pred - target) ** 2)
 
 
 def _autocast(device: torch.device, bf16: bool):
@@ -125,3 +132,57 @@ def pretrain_eval_step(
             loss_sum += (F.cross_entropy(logits, labels, reduction="none") * w).sum()
             correct += ((logits.argmax(-1) == labels).float() * w).sum()
     return {"loss_sum": loss_sum, "correct": correct, "count": 6.0 * w.sum()}
+
+
+def finetune_step(
+    state: FinetuneState,
+    images_u8: torch.Tensor,
+    labels: torch.Tensor,
+    generator: torch.Generator,
+    task: str = "classification",
+    draws: Optional[dict] = None,
+    *,
+    bf16: bool = False,
+) -> dict:
+    """One supervised fine-tune step on (B, H, W, 3) uint8 images and their
+    (B,) labels, on the device of ``images_u8`` (``steps.py:367-386``).
+
+    The 3-view stack (``ops.batch.augment_3view_batch``; ``draws`` injects
+    its draws) gives B*3 views, b-major, each with its image's label; one
+    ``encode_single`` pass and the head give logits (classification, mean
+    cross-entropy, metric accuracy) or a score (regression, MSE against the
+    float label, metric the loss).  Then an optimizer step and one step of
+    the LR schedule.  bf16: backbone and head under bfloat16 autocast; the
+    loss is float32.  Returns {'loss', 'metric'} as device tensors."""
+    model, head = state.model, state.head
+    model.train()
+    head.train()
+    views = aug_batch.augment_3view_batch(generator, images_u8, draws)
+    b, v = views.shape[:2]
+    x = aug_batch.normalize_batch(views.reshape(b * v, *views.shape[2:]), channel_axis=1)
+    labels = labels.to(images_u8.device).repeat_interleave(v)
+    with _autocast(x.device, bf16):
+        out = head(model.encode_single(x)).float()
+    if task == "regression":
+        loss = mse(out.squeeze(-1), labels.float())
+        metric = loss.detach()
+    else:
+        loss = cross_entropy(out, labels)
+        metric = (out.detach().argmax(-1) == labels).float().mean()
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+    return {"loss": loss.detach(), "metric": metric}
+
+
+@torch.no_grad()
+def forward(state: FinetuneState, images_u8: torch.Tensor, *, bf16: bool = False) -> torch.Tensor:
+    """Eval-mode forward (running BN statistics): (B, H, W, 3) uint8 images
+    -> (B, num_classes) float32 head outputs (``steps.py:411-421``)."""
+    state.model.eval()
+    state.head.eval()
+    x = aug_batch.normalize_batch(aug_batch.to_float(images_u8).permute(0, 3, 1, 2), channel_axis=1)
+    with _autocast(x.device, bf16):
+        return state.head(state.model.encode_single(x)).float()

@@ -3,11 +3,13 @@ from the JAX package.
 
 The port's checkpoint is a ``torch.save`` dict whose ``'model'`` entry is the
 TripletNet state_dict (``model.*`` backbone, ``fc.0|2.*`` pairwise head) and
-whose ``'classifier'`` entry is the Classifier's (``classifier.0|2.*``): the
-reference's layout, which the JAX package reads with
-``train.checkpoint.load_torch_triplet_checkpoint``.  The optimizer, the
-Lookahead state and a ``meta`` dict ride along under their own keys, for a
-resume that is not ported yet.
+whose ``'classifier'`` entry is the head's: the pretraining Classifier's
+(``classifier.0|2.*``) or the fine-tune head's (``classifier.0.*``).  That is
+the reference's layout, which the JAX package reads with
+``train.checkpoint.load_torch_triplet_checkpoint`` and
+``load_torch_linear_head``.  The optimizer, the Lookahead state or the LR
+schedule, the step and a ``meta`` dict ride along under their own keys, for
+a resume that is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,23 +20,15 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ssl_cr_histo_tpu_torch.train.state import TrainState
+from ssl_cr_histo_tpu_torch.train.state import FinetuneState, TrainState
 
 
-def save_checkpoint(path: str, state: TrainState, meta: dict) -> None:
-    """Write ``path`` (a ``.pth`` file) atomically."""
+def save_checkpoint(path: str, state: "TrainState | FinetuneState", meta: dict) -> None:
+    """Write ``path`` (a ``.pth`` file) atomically: the state's
+    ``payload()`` and ``meta``."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    payload = {
-        "model": state.model.state_dict(),
-        "classifier": state.classifier.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
-        "slow": state.slow,
-        "la_count": state.la_count,
-        "step": state.step,
-        "meta": meta,
-    }
     tmp = path + ".tmp"
-    torch.save(payload, tmp)
+    torch.save({**state.payload(), "meta": meta}, tmp)
     os.replace(tmp, path)
 
 
@@ -60,8 +54,9 @@ def _torch_name(path: tuple) -> str:
 
 def from_jax_params(model_params: dict, batch_stats: dict,
                     head_params: "dict | None" = None) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """JAX TripletNet params / batch_stats (and Classifier params) as numpy
-    trees -> (TripletNet state_dict, Classifier state_dict) of the port.
+    """JAX TripletNet params / batch_stats (and head params: a Classifier's
+    ``fc1``/``fc2`` or a FinetuneHead's ``fc``) as numpy trees ->
+    (TripletNet state_dict, head state_dict) of the port.
 
     Mirrors ``ssl_cr_histo_tpu/train/checkpoint.py:213-273``: conv kernels
     HWIO -> OIHW, Dense kernels transposed, BN scale/bias/mean/var ->
@@ -84,7 +79,7 @@ def from_jax_params(model_params: dict, batch_stats: dict,
             sd[f"fc.{idx}.weight"] = t(np.asarray(fc[name]["kernel"]).T)
             sd[f"fc.{idx}.bias"] = t(np.asarray(fc[name]["bias"]))
     head_sd: Dict[str, torch.Tensor] = {}
-    for name, idx in (("fc1", 0), ("fc2", 2)):
+    for name, idx in (("fc", 0), ("fc1", 0), ("fc2", 2)):
         if head_params and name in head_params:
             head_sd[f"classifier.{idx}.weight"] = t(np.asarray(head_params[name]["kernel"]).T)
             head_sd[f"classifier.{idx}.bias"] = t(np.asarray(head_params[name]["bias"]))

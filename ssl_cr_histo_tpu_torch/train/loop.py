@@ -13,7 +13,7 @@ from dataclasses import dataclass, field
 
 from ssl_cr_histo_tpu_torch.train import optim
 from ssl_cr_histo_tpu_torch.train.checkpoint import save_checkpoint
-from ssl_cr_histo_tpu_torch.train.state import TrainState
+from ssl_cr_histo_tpu_torch.train.state import FinetuneState, TrainState
 
 
 class CsvLogger:
@@ -43,8 +43,9 @@ def lookahead_epoch(state: TrainState, la_steps: int = 5, la_alpha: float = 0.5)
 
 @dataclass
 class BestTracker:
-    """Best-validation checkpoint (``best.pth``), optionally gated to epochs
-    after ``gate_epoch`` (80 for Camelyon16, pretrain_Camelyon16.py:307)."""
+    """Best-validation checkpoint (``best.pth``) of either stage, optionally
+    gated to epochs after ``gate_epoch`` (80 for Camelyon16,
+    pretrain_Camelyon16.py:307)."""
 
     save_dir: str
     mode: str = "min"
@@ -57,7 +58,7 @@ class BestTracker:
             return None
         return self.best if self.mode == "min" else -self.best
 
-    def update(self, value: float, epoch: int, state: TrainState, meta: dict) -> bool:
+    def update(self, value: float, epoch: int, state: "TrainState | FinetuneState", meta: dict) -> bool:
         if not math.isfinite(value):
             # a diverged metric must never become the best
             return False

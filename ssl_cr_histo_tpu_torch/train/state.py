@@ -1,4 +1,5 @@
-"""Training state of the pretraining stage."""
+"""Training states of the pretraining and fine-tuning stages.  Each knows
+the dict its checkpoint holds (``train.checkpoint.save_checkpoint``)."""
 
 from __future__ import annotations
 
@@ -7,7 +8,7 @@ from typing import List, Optional
 
 import torch
 
-from ssl_cr_histo_tpu_torch.models import Classifier, TripletNet
+from ssl_cr_histo_tpu_torch.models import Classifier, FinetuneHead, TripletNet
 
 
 @dataclass
@@ -30,3 +31,36 @@ class TrainState:
 
     def parameters(self) -> List[torch.nn.Parameter]:
         return list(self.model.parameters()) + list(self.classifier.parameters())
+
+    def payload(self) -> dict:
+        return {
+            "model": self.model.state_dict(),
+            "classifier": self.classifier.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "slow": self.slow,
+            "la_count": self.la_count,
+            "step": self.step,
+        }
+
+
+@dataclass
+class FinetuneState:
+    """Fine-tune state: the TripletNet (frozen tensors have
+    ``requires_grad`` off, see ``train.freeze``), the head, the optimizer
+    over the trainable tensors, the per-step LR schedule, and the optimizer
+    steps taken."""
+
+    model: TripletNet
+    head: FinetuneHead
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LRScheduler
+    step: int = 0
+
+    def payload(self) -> dict:
+        return {
+            "model": self.model.state_dict(),
+            "classifier": self.head.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "scheduler": self.scheduler.state_dict(),
+            "step": self.step,
+        }

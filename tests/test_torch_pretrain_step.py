@@ -383,8 +383,10 @@ def test_cli_rejects_unported_flags(tmp_path):
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import without jax,
     flax, optax or chex, and without any module of the JAX package
-    (``ssl_cr_histo_tpu``, even its numpy-only ones).  A subprocess: this
-    test process has jax loaded (tests/conftest.py)."""
+    (``ssl_cr_histo_tpu``, even its numpy-only ones); nor do they load cv2,
+    h5py or matplotlib, which the GPU machine may lack (the functions that
+    read images or .h5 files import them).  A subprocess: this test process
+    has jax loaded (tests/conftest.py)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ssl_cr_histo_tpu_torch as P\n"
@@ -395,6 +397,8 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "jax_pkg = sorted(k for k in sys.modules if k.split('.')[0] == 'ssl_cr_histo_tpu')\n"
         "assert not jax_pkg, jax_pkg\n"
+        "optional = sorted(k for k in sys.modules if k.split('.')[0] in ('cv2', 'h5py', 'matplotlib'))\n"
+        "assert not optional, optional\n"
         "print('ok', len([k for k in sys.modules if k.startswith('ssl_cr_histo_tpu_torch')]))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
