@@ -5,7 +5,7 @@ pretraining CLI for one short epoch at the config of record and the
 fine-tuning CLI from its checkpoint, and times the steps and the kernels.
 
     python3 chip_smoke.py                    # from the root of a checkout, on a GPU machine
-    python3 chip_smoke.py --profile DIR      # also write torch.profiler tables of both steps
+    python3 chip_smoke.py --profile DIR      # also write torch.profiler tables of the steps
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit); no CUDA -> exit 1
@@ -41,13 +41,26 @@ Phases (any failure exits non-zero and prints no result line):
      head through ``finetune.run`` on numpy data; the bf16 step and the
      3-view stack alone timed with CUDA events (``--profile``: the step's
      profile table too)
-  7. timing with CUDA events, in turns (old, fused, fused, old): the bf16
+  7. consistency training: the weak/strong views (all nine strong ops, maps
+     on both sides of +-45 degrees) and a float32 consistency step on the
+     card against the CPU (the teacher must not move); then
+     ``ssl_cr_histo_tpu_torch.cli.consistency.main`` at Kather's CR config
+     of record (resnet18, 8 labeled + 56 unlabeled images at 224^2, NAug 7,
+     bf16, Adam 1e-5) for one epoch on phase 6's PNG class folders from
+     phase 6's ``best.pth``, with every launch counter set to 0 just before
+     and read just after: neither kernel may launch (the views are PyTorch
+     ops, as they are XLA ops in the JAX package); the CSV row and the best
+     / final checkpoints; BreastPathQ's regression variant through
+     ``consistency.run`` on numpy data (batch 4, mu 7, 256^2); the bf16 step
+     and the views alone timed with CUDA events (``--profile``: the step's
+     profile table too)
+  8. timing with CUDA events, in turns (old, fused, fused, old): the bf16
      step with the fused kernel against the step with the unfused composition
      (plain warp + chain kernel + clip + normalize), the fused kernel
      against that composition alone, the plain versions; the fused kernel's
      time (torch.profiler) in both noise modes and by gate, beside its
      wrapper called back to back; the chain kernel in both noise modes
-  8. the kernels line, then ``{"ok": true, "device": {...}}`` as the last line
+  9. the kernels line, then ``{"ok": true, "device": {...}}`` as the last line
 
 Imports nothing of JAX and nothing of the JAX package.  Tolerance 1e-4
 (phases 3-4) on outputs in [0, 1]: the kernels and PyTorch's CUDA ops
@@ -555,6 +568,195 @@ def phase_finetune(torch, dev, tmp: str, pretrain_ckpt: str, card: str, profile_
     del state
 
 
+def coverage_fix_draws(torch, b: int, s: int) -> dict:
+    """Consistency-view draws for ``b`` >= 16 images of ``s``^2 (seeded, on
+    the host) in which all nine strong ops occur with their gates on, and
+    the composed maps fall on both sides of +-45 degrees: image i < 9 runs op
+    i at its first stage; images 9-12 rotate by 44.9, -45.1, 45.1, -44.9
+    degrees (rotate_crop, no flip); images 13-15 compose a shift-scale-rotate
+    of 30 degrees with a rotation of 20, -80 and 10 degrees.  The other
+    stages keep their drawn ops."""
+    from ssl_cr_histo_tpu_torch.ops import batch as TB
+    from ssl_cr_histo_tpu_torch.ops import randaugment as RA
+
+    g = torch.Generator().manual_seed(8)
+    d = TB.draw_transform_fix(g, b, s)
+    ops = d["ops"]
+    rot, ssr = RA.V1_POOL.index("rotate_crop"), RA.V1_POOL.index("shift_scale_rotate")
+    ops[:9, 0] = torch.arange(9)
+    ops[9:16, :2] = torch.tensor([[rot, 4]] * 4 + [[ssr, rot]] * 3)
+    p = RA.draw_v1_params(g, ops, d["mags"])
+    p[:9, 0, RA.GATE] = 1.0
+    for i, angle in enumerate((44.9, -45.1, 45.1, -44.9)):
+        p[9 + i, 0, :3] = torch.tensor([angle, 0.0, 0.0])  # rotation, no flip
+        p[9 + i, 0, RA.GATE] = 1.0
+    for i, angle in enumerate((20.0, -80.0, 10.0)):
+        p[13 + i, 0, :4] = torch.tensor([0.02, -0.03, 1.1, 30.0])
+        p[13 + i, 1, :3] = torch.tensor([angle, 0.0, 0.0])
+        p[13 + i, :2, RA.GATE] = 1.0
+    d["params"] = p
+    d["noise"] = torch.randn(int((ops == RA.NOISE).sum()), 3, s, s, generator=g)
+    return d
+
+
+def phase_consistency_card_vs_cpu(torch) -> None:
+    """Phase 7: the consistency views (all nine ops, maps across +-45
+    degrees, 16 images of 224^2) and one float32 consistency step (Kather's
+    head and Adam, batch 2 + 2 * mu 7 at 64^2, injected views) on the card
+    and on the CPU, from the same weights; the teacher must not move."""
+    from ssl_cr_histo_tpu_torch.cli.common import TASKS, make_optimizer
+    from ssl_cr_histo_tpu_torch.ops import batch as TB
+    from ssl_cr_histo_tpu_torch.ops import fused, geometry
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+    from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_teacher
+
+    g = torch.Generator().manual_seed(9)
+    b, s = 16, 224
+    imgs = torch.randint(0, 256, (b, s, s, 3), dtype=torch.uint8, generator=g)
+    d = coverage_fix_draws(torch, b, s)
+    flags = geometry.warp_pass_coefficients(fused.strong_pool_matrix(d["ops"], d["params"], s), s)[:, 6]
+    check(bool((flags[9:16] > 0.5).any()) and bool((flags[9:16] < 0.5).any()),
+          "the coverage draws do not take the warp's 90-degree fix-up on both sides")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        draws = dict(d, noise=d["noise"].to(dev))
+        out[dev] = [v.cpu() for v in TB.transform_fix_batch(None, imgs.to(dev), draws=draws)]
+    verr = max((a - c).abs().max().item() for a, c in zip(out["cuda"], out["cpu"]))
+    check(verr <= 1e-5, f"consistency views card vs CPU differ by {verr}")
+
+    cfg, mu, bl, s = TASKS["kather"], 7, 2, 64
+    x_l = torch.randint(0, 256, (bl, s, s, 3), dtype=torch.uint8, generator=g)
+    x_u = torch.randint(0, 256, (bl * mu, s, s, 3), dtype=torch.uint8, generator=g)
+    y_l = torch.randint(0, cfg.num_classes, (bl,), generator=g)
+    weak, strong = TB.transform_fix_batch(g, x_u)
+    x_lv, _ = S.expand_labeled_batch(g, x_l, y_l)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        torch.manual_seed(0)
+        state = init_finetune_state("resnet18", cfg.num_classes, torch.device(dev),
+                                    lambda ps: make_optimizer(cfg.optimizer, ps, cfg.lr), modules=15)
+        teacher = init_teacher(state)
+        with torch.no_grad():  # a teacher that differs from the student
+            for t in teacher.model.parameters():
+                t.mul_(0.99)
+        t_sd = {k: v.clone() for k, v in teacher.model.state_dict().items()}
+        m = S.consistency_step(state, teacher, x_l.to(dev), y_l.to(dev), x_u.to(dev), None, cfg.task,
+                               views=tuple(v.to(dev) for v in (x_lv, weak, strong)))
+        check(all(torch.equal(v, t_sd[k]) for k, v in teacher.model.state_dict().items()),
+              f"the teacher moved in the consistency step on {dev}")
+        sd = {**state.model.state_dict(), **state.head.state_dict()}
+        res[dev] = ({k: float(m[k]) for k in ("loss", "sup", "cons")},
+                    {k: v.detach().cpu() for k, v in sd.items() if v.is_floating_point()})
+    (l_cpu, sd_cpu), (l_gpu, sd_gpu) = res["cpu"], res["cuda"]
+    for k in l_cpu:
+        check(abs(l_gpu[k] - l_cpu[k]) <= 1e-4 * abs(l_cpu[k]), f"consistency step {k} card {l_gpu[k]} vs CPU {l_cpu[k]}")
+    err = max((sd_gpu[k] - sd_cpu[k]).abs().max().item() for k in sd_cpu)
+    check(err <= 1e-4, f"post-step consistency state card vs CPU differs by {err}")
+    print(f"phase 7: consistency views ({b}, 224^2, all nine ops, maps across +-45 degrees), card vs CPU: max abs "
+          f"err {verr:.2e}; float32 consistency step (2 + 14 images at 64^2), card vs CPU: loss {l_gpu['loss']:.6f} "
+          f"vs {l_cpu['loss']:.6f} (sup {l_gpu['sup']:.6f} vs {l_cpu['sup']:.6f}, cons {l_gpu['cons']:.6f} vs "
+          f"{l_cpu['cons']:.6f}), post-step weights and BN statistics max abs err {err:.2e}, teacher unchanged",
+          flush=True)
+
+
+def phase_consistency(torch, dev, tmp: str, card: str, profile_dir: str) -> None:
+    """Phase 7: the consistency slice from phase 6's fine-tune checkpoints
+    (the stage 2 -> 3 handoff).  Card vs CPU; the CLI at Kather's CR config
+    (resnet18, 8 labeled images and 56 unlabeled at 224^2, NAug 7, bf16,
+    Adam 1e-5) for one epoch on phase 6's PNG class folders, with both
+    kernels' launch counters at 0 before and read after; BreastPathQ through
+    ``run`` on numpy data; the bf16 step and the views alone timed."""
+    import numpy as np
+
+    from ssl_cr_histo_tpu_torch.cli import consistency
+    from ssl_cr_histo_tpu_torch.cli.common import TASKS, make_optimizer
+    from ssl_cr_histo_tpu_torch.data import datasets as D
+    from ssl_cr_histo_tpu_torch.ops import batch as TB
+    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
+    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+    from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_teacher
+
+    phase_consistency_card_vs_cpu(torch)
+    # phase 6's 9 x 36 patches: a 0.2 holdout, 26 labeled (0.1) in 3 batches of 8, 4 unlabeled batches of 56
+    run = os.path.join(tmp, "consistency")
+    argv = ["--task", "kather", "--train_path", os.path.join(tmp, "kather"), "--finetune_ckpt",
+            os.path.join(tmp, "finetune", "best.pth"), "--save_dir", run, "--model", "resnet18",
+            "--batch_size", "8", "--mu", "7", "--NAug", "7", "--num_epoch", "1", "--save_freq", "1"]
+    print("phase 7: consistency CLI " + " ".join(argv), flush=True)
+    PK.launches = RK.launches = 0
+    t0 = time.time()
+    consistency.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"photometric_chain": PK.launches, "rsp_augment": RK.launches}
+    print(f"phase 7: consistency CLI wall {wall:.2f} s, kernel launches {launches} (the views are PyTorch ops, "
+          f"as they are XLA ops in the JAX package)", flush=True)
+    check(not any(launches.values()), f"a kernel launched on the consistency path: {launches}")
+    with open(os.path.join(run, "consistency_results.csv")) as f:
+        rows = [r.strip() for r in f.read().splitlines()[1:] if r.strip()]
+    check(len(rows) == 1, f"expected one consistency CSV row, got {rows}")
+    vals = [float(v) for v in rows[0].split(",")[1:]]
+    check(all(math.isfinite(v) for v in vals) and 0.0 <= vals[3] <= 1.0, f"consistency CSV row {rows[0]}")
+    print(f"phase 7: consistency CSV (epoch, train_loss, sup_loss, cons_loss, val_err) {rows[0]}", flush=True)
+    for name in ("best.pth", "final.pth"):
+        ckpt = torch.load(os.path.join(run, name), map_location="cpu", weights_only=False)
+        check("model.conv1.weight" in ckpt["model"]
+              and tuple(ckpt["classifier"]["classifier.0.weight"].shape) == (9, 768),
+              f"consistency {name} lacks the reference keys")
+        check(all(torch.isfinite(v).all() for v in ckpt["model"].values() if v.is_floating_point()),
+              f"non-finite weights in consistency {name}")
+    check(ckpt["step"] >= 3, f"the consistency epoch took {ckpt['step']} steps, fewer than 3")
+
+    # BreastPathQ's regression variant through ``run`` on numpy data: batch 4, mu 7 at 256^2, from
+    # phase 6's BreastPathQ checkpoint; 64 train (16 labeled) / 16 val, two steps
+    rng = np.random.default_rng(3)
+    bpq = D.ArrayDataset(rng.integers(0, 256, (80, 256, 256, 3), dtype=np.uint8), rng.random(80).astype(np.float32))
+    args = consistency.parse_args(["--task", "breastpathq", "--train_path", "numpy", "--finetune_ckpt",
+                                   os.path.join(tmp, "bpq", "final.pth"), "--save_dir", os.path.join(tmp, "bpq_cr"),
+                                   "--num_epoch", "1", "--save_freq", "0", "--labeled_train", "0.25"])
+    train, val = D.train_val_split(bpq, args.validation_split, seed=args.seed)
+    labeled = D.labeled_fraction(train, args.labeled_train, seed=args.seed)
+    PK.launches = RK.launches = 0
+    consistency.run(args, TASKS["breastpathq"], labeled, train, val)
+    check(PK.launches == RK.launches == 0, "a kernel launched on the BreastPathQ consistency path")
+    with open(os.path.join(tmp, "bpq_cr", "consistency_results.csv")) as f:
+        row = f.read().splitlines()[1]
+    check(all(math.isfinite(float(v)) for v in row.split(",")), f"BreastPathQ consistency CSV row {row}")
+    ckpt = torch.load(os.path.join(tmp, "bpq_cr", "final.pth"), map_location="cpu", weights_only=False)
+    check(tuple(ckpt["classifier"]["classifier.0.weight"].shape) == (1, 768) and ckpt["step"] == 2,
+          "BreastPathQ consistency final checkpoint")
+    print(f"phase 7: BreastPathQ consistency run (16 labeled / 64 unlabeled / 16 val at 256^2, batch 4, mu 7, "
+          f"MSE), CSV (epoch, train_loss, sup_loss, cons_loss, val_mse) {row}, kernel launches 0", flush=True)
+
+    # the bf16 step at Kather's CR config and the consistency views alone
+    cfg, b, mu = TASKS["kather"], TASKS["kather"].cr_batch, 7
+    torch.manual_seed(0)
+    state = init_finetune_state("resnet18", cfg.num_classes, dev,
+                                lambda ps: make_optimizer(cfg.optimizer, ps, cfg.lr), modules=60)
+    teacher = init_teacher(state)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    host_gen = torch.Generator().manual_seed(1)
+    size = cfg.image_size
+    x_l = torch.randint(0, 256, (b, size, size, 3), dtype=torch.uint8, generator=gen, device=dev)
+    x_u = torch.randint(0, 256, (b * mu, size, size, 3), dtype=torch.uint8, generator=gen, device=dev)
+    y_l = torch.randint(0, cfg.num_classes, (b,), generator=gen, device=dev)
+    losses = []
+    step = lambda: losses.append(S.consistency_step(state, teacher, x_l, y_l, x_u, gen, cfg.task, host_gen=host_gen,
+                                                    bf16=True)["loss"])
+    step_ms = [cuda_ms(step, 20, warmup=5) for _ in range(2)]
+    check(all(math.isfinite(float(v)) for v in losses), "non-finite loss in the timed consistency steps")
+    aug_ms = [cuda_ms(lambda: TB.transform_fix_batch(gen, x_u, host_gen=host_gen), 20) for _ in range(2)]
+    mean_step, n_img = sum(step_ms) / 2, b + b * mu
+    print(f"phase 7: consistency step resnet18 {b} labeled (x3 views) + {b * mu} unlabeled (weak + strong) at "
+          f"{size}^2, bf16 Adam: {step_ms[0]:.3f}, {step_ms[1]:.3f} ms (mean {mean_step:.3f}) = "
+          f"{n_img / mean_step * 1e3:.1f} images/s; weak/strong views of {b * mu} images alone {aug_ms[0]:.3f}, "
+          f"{aug_ms[1]:.3f} ms = {min(aug_ms) / mean_step * 100:.1f}% of the step [{card}]", flush=True)
+    if profile_dir:
+        profile_steps(torch, step, profile_dir, "consistency_step_profile.txt", "consistency", card)
+    del state, teacher
+
+
 def in_turns(fns: dict, order: list, iters: dict, warmup: int = 2) -> dict:
     """CUDA-event ms of each named function, run in the given order;
     returns every run's time per name."""
@@ -565,7 +767,7 @@ def in_turns(fns: dict, order: list, iters: dict, warmup: int = 2) -> dict:
 
 
 def phase_timing(torch, dev, tiles, card) -> dict:
-    """Phase 7.  Returns the kernels' timings for the kernels line."""
+    """Phase 8.  Returns the kernels' timings for the kernels line."""
     from ssl_cr_histo_tpu_torch.ops import batch as TB
     from ssl_cr_histo_tpu_torch.ops import fused
     from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
@@ -594,7 +796,7 @@ def phase_timing(torch, dev, tiles, card) -> dict:
     check(all(math.isfinite(float(v)) for v in losses), "non-finite loss in the timed steps")
     runs = lambda k: ", ".join(f"{v:.3f}" for v in steps[k])
     step_ms = {k: sum(v) / len(v) for k, v in steps.items()}
-    print(f"phase 7: pretrain step resnet18 b64 256^2 bf16 joint, in turns old/fused/fused/old: "
+    print(f"phase 8: pretrain step resnet18 b64 256^2 bf16 joint, in turns old/fused/fused/old: "
           f"fused kernel {runs('fused')} ms, unfused composition {runs('old')} ms; means "
           f"{step_ms['fused']:.3f} vs {step_ms['old']:.3f} ms/step = "
           f"{64 * 3 / step_ms['fused'] * 1e3:.1f} vs {64 * 3 / step_ms['old'] * 1e3:.1f} patches/s [{card}]",
@@ -624,7 +826,7 @@ def phase_timing(torch, dev, tiles, card) -> dict:
         for (mod, name), fn in zip(names, real):
             setattr(mod, name, fn)
     launched = RK.launches - launched
-    print(f"phase 7: one bf16 step: fused kernel launches {launched}, calls {calls}", flush=True)
+    print(f"phase 8: one bf16 step: fused kernel launches {launched}, calls {calls}", flush=True)
     check(launched == 1 and not any(calls.values()), f"the step's path: {launched} fused launches, {calls}")
     del state
 
@@ -647,7 +849,7 @@ def phase_timing(torch, dev, tiles, card) -> dict:
     # bytes: uint8 tiles in, bf16 out, the (n, 3, 3) maps, params and seeds
     bytes_ = tiles.numel() + n * 3 * s * s * 2 + n * (PK.N_PARAMS + 9 + 1) * 4
     b_ms, b_by = bound_ms(bytes_, fused_ops(params, s * s, philox=True))
-    print(f"phase 7: fused kernel ({b}, 3, {s}, {s}, 3) Philox bf16 out: kernel {kernel * 1e3:.1f} us "
+    print(f"phase 8: fused kernel ({b}, 3, {s}, {s}, 3) Philox bf16 out: kernel {kernel * 1e3:.1f} us "
           f"(profiler), {b_ms / kernel * 100:.1f}% of its bound; wrapper called back to back "
           f"{aug_ms['fused'] * 1e3:.1f} us = {aug_ms['fused'] / kernel:.2f}x the kernel (runs "
           f"{aug['fused'][0] * 1e3:.1f}, {aug['fused'][1] * 1e3:.1f}), f32 out wrapper {fused_f32 * 1e3:.1f} us; "
@@ -663,7 +865,7 @@ def phase_timing(torch, dev, tiles, card) -> dict:
     ni_plain = cuda_ms(lambda: RK.rsp_augment_plain(*ni_args), 3)
     ni_bytes = bytes_ + noise.numel() * 4
     ni_ms, ni_by = bound_ms(ni_bytes, fused_ops(params, s * s, philox=False))
-    print(f"phase 7: fused kernel host-noise mode: kernel {ni_kernel * 1e3:.1f} us (profiler), plain "
+    print(f"phase 8: fused kernel host-noise mode: kernel {ni_kernel * 1e3:.1f} us (profiler), plain "
           f"{ni_plain * 1e3:.1f} us; bound {ni_ms * 1e3:.1f} us by {ni_by} ({ni_bytes / 1e6:.1f} MB), "
           f"{ni_ms / ni_kernel * 100:.1f}% of it [{card}]", flush=True)
 
@@ -681,7 +883,7 @@ def phase_timing(torch, dev, tiles, card) -> dict:
         p[:, on] = 1.0
         a = (tiles, m, p, seeds, None, *IDENTITY, torch.bfloat16)
         parts.append(f"{label} {profiled_kernel_ms(lambda: RK.rsp_augment_cuda(*a), 'rsp_augment_kernel', 20) * 1e3:.1f}")
-    print(f"phase 7: fused kernel by gate (us, profiler): {'; '.join(parts)} [{card}]", flush=True)
+    print(f"phase 8: fused kernel by gate (us, profiler): {'; '.join(parts)} [{card}]", flush=True)
 
     # the chain kernel at its (192, 3, 256, 256) float32 shape, Philox mode
     shape = (n, 3, s, s)
@@ -701,14 +903,14 @@ def phase_timing(torch, dev, tiles, card) -> dict:
     c_ms, c_by = bound_ms(bytes_, chain_ops(params, s * s, philox=True))
     ni_kernel = profiled_kernel_ms(fns["kernel_ni"], "photometric_chain_kernel", 50)
     ni_ms, ni_by = bound_ms(bytes_ + noise.numel() * 4, chain_ops(params, s * s, philox=False))
-    print(f"phase 7: photometric chain {shape}: kernel {kernel * 1e3:.1f} us (profiler), "
+    print(f"phase 8: photometric chain {shape}: kernel {kernel * 1e3:.1f} us (profiler), "
           f"{ms['kernel'] * 1e3:.1f} us (CUDA events), plain {ms['plain'] * 1e3:.1f} us (Philox mode, "
           f"plain includes its noise), bound {c_ms * 1e3:.1f} us by {c_by}, {c_ms / kernel * 100:.1f}% of it; "
           f"host-noise mode: kernel {ni_kernel * 1e3:.1f} us (profiler), {ms['kernel_ni'] * 1e3:.1f} us "
           f"(CUDA events), plain {ms['plain_ni'] * 1e3:.1f} us, bound {ni_ms * 1e3:.1f} us by {ni_by}, "
           f"{ni_ms / ni_kernel * 100:.1f}% of it [{card}]", flush=True)
     warp_ms = cuda_ms(lambda: fused.pretrain_geo_warp_planar(imgs, mats), iters=5)
-    print(f"phase 7: plain warp {shape}: {warp_ms * 1e3:.1f} us [{card}]", flush=True)
+    print(f"phase 8: plain warp {shape}: {warp_ms * 1e3:.1f} us [{card}]", flush=True)
     out["photometric_chain"] = {"ms": kernel, "plain_ms": ms["plain"], "bound_ms": c_ms, "bound_by": c_by}
     return out
 
@@ -872,8 +1074,10 @@ def main() -> int:
 
         # phase 6: fine-tuning from the pretrain CLI's checkpoint (the stage handoff)
         phase_finetune(torch, dev, tmp, os.path.join(run, "ckpt_1.pth"), card, opts.profile)
+        # phase 7: consistency training from phase 6's checkpoints (stage 2 -> 3)
+        phase_consistency(torch, dev, tmp, card, opts.profile)
 
-    # phase 7: timing
+    # phase 8: timing
     tiles = torch.from_numpy(np.ascontiguousarray(tiles_np)).to(dev)
     timing = phase_timing(torch, dev, tiles, card)
     if opts.profile:

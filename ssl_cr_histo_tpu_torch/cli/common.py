@@ -7,8 +7,8 @@ with these differences:
     plain PyTorch chain on the CPU);
   * ``--device`` (default ``cuda``): a missing GPU is an error, never a
     silent run on the CPU; the CPU tests pass ``--device cpu``;
-  * ``--aug_mode exact``, ``--reference_exact`` and ``--remat`` exit with a
-    "not yet ported" error.
+  * ``--aug_mode fast|masked|exact``, ``--reference_exact`` and ``--remat``
+    exit with a "not yet ported" error.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from ssl_cr_histo_tpu_torch.train import optim
 
 @dataclasses.dataclass
 class TaskConfig:
-    """Per-dataset fine-tune config of record (BASELINE.md)."""
+    """Per-dataset fine-tune and consistency config of record (BASELINE.md)."""
 
     name: str
     num_classes: int
@@ -36,15 +36,26 @@ class TaskConfig:
     lr: float
     milestones: tuple = (30, 60)
     gamma: float = 0.1
+    # The reference's consistency scripts default to smaller batches than
+    # its fine-tune ones (eval_*_SSL_CR.py --batch_size: BPQ 4, Camelyon16
+    # 8, Kather 8); 0 = the fine-tune batch.
+    cr_batch_size: int = 0
+
+    @property
+    def cr_batch(self) -> int:
+        """Labeled images per consistency step (``common.py:30-37``)."""
+        return self.cr_batch_size or self.batch_size
 
 
 TASKS = {
-    # eval_BreastPathQ_SSL.py:234-241: Adam 1e-4, batch 4, MSE head
+    # eval_BreastPathQ_SSL.py:234-241: Adam 1e-4, batch 4, MSE head; CR batch 4
     "breastpathq": TaskConfig("breastpathq", 1, "regression", 256, 4, "adam", 1e-4),
-    # eval_Camelyon_SSL.py:205-211: SGD-Nesterov 5e-4, batch 16 per class, 2-way CE
-    "camelyon16": TaskConfig("camelyon16", 2, "classification", 256, 16, "sgd", 5e-4),
-    # eval_Kather_SSL.py:231-238: Adam 1e-5, batch 64, 9-way CE
-    "kather": TaskConfig("kather", 9, "classification", 224, 64, "adam", 1e-5),
+    # eval_Camelyon_SSL.py:205-211: SGD-Nesterov 5e-4, batch 16 per class, 2-way CE;
+    # CR batch 8 (eval_Camelyon_SSL_CR.py:247)
+    "camelyon16": TaskConfig("camelyon16", 2, "classification", 256, 16, "sgd", 5e-4, cr_batch_size=8),
+    # eval_Kather_SSL.py:231-238: Adam 1e-5, batch 64, 9-way CE; CR batch 8
+    # (eval_Kather_SSL_CR.py:267)
+    "kather": TaskConfig("kather", 9, "classification", 224, 64, "adam", 1e-5, cr_batch_size=8),
 }
 
 
@@ -78,8 +89,8 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--no-bf16", dest="bf16", action="store_false")
     parser.add_argument("--device", default="cuda",
                         help="torch device; 'cuda' fails when no GPU is present")
-    parser.add_argument("--aug_mode", default="fused", choices=["fused", "exact"],
-                        help="fused = single-warp policy; exact is not ported yet")
+    parser.add_argument("--aug_mode", default="fused", choices=["fused", "fast", "masked", "exact"],
+                        help="fused = single-warp policy; fast, masked and exact are not ported yet")
     parser.add_argument("--image_size", type=int, default=0,
                         help="override the input resolution (0 = default)")
     parser.add_argument("--remat", action="store_true", help="not ported yet")
@@ -93,8 +104,8 @@ def reject_unported(args, stage_flags: dict) -> None:
     for dest, name in flags.items():
         if getattr(args, dest, False):
             raise SystemExit(f"{name} is not yet ported to the PyTorch package (see ROADMAP.md)")
-    if args.aug_mode == "exact":
-        raise SystemExit("--aug_mode exact is not yet ported to the PyTorch package (see ROADMAP.md)")
+    if args.aug_mode != "fused":
+        raise SystemExit(f"--aug_mode {args.aug_mode} is not yet ported to the PyTorch package (see ROADMAP.md)")
 
 
 def resolve_device(args) -> torch.device:

@@ -14,6 +14,7 @@ both do.
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 
@@ -76,8 +77,8 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """forward(x (B, 3, H, W)) -> (B, feature_dim) globally pooled float32
-    features."""
+    """forward(x (B, 3, H, W)) -> (B, feature_dim) globally pooled features,
+    float32 (float64 for a float64 model)."""
 
     def __init__(self, stage_sizes, block_cls, num_filters: int = 64):
         super().__init__()
@@ -104,8 +105,10 @@ class ResNet(nn.Module):
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         for i in range(self.n_stages):
             x = getattr(self, f"layer{i + 1}")(x)
-        # heads take float32 features, also under bf16 autocast
-        return x.mean(dim=(2, 3)).float()
+        # heads take float32 features under bf16 autocast (float64 stays
+        # float64, for the float64 parity tests)
+        x = x.mean(dim=(2, 3))
+        return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def ResNet18() -> ResNet:

@@ -3,9 +3,10 @@
 Counterpart of ``ssl_cr_histo_tpu/ops/batch.py``.  Ported: the v1 RSP
 pretraining pool in fused mode, which on the card is one hand-written
 kernel from the uint8 triplets to the normalized planar batch
-(``ops/rsp_augment_kernel.py``), and the fine-tune 3-view stack, which the
-JAX package computes with XLA ops and the port with PyTorch ops.  The other
-policies raise ``NotImplementedError`` (see ROADMAP.md, Queue 1).
+(``ops/rsp_augment_kernel.py``); the fine-tune 3-view stack and the fused
+weak/strong consistency views, which the JAX package computes with XLA ops
+and the port with PyTorch ops.  The other policies raise
+``NotImplementedError`` (see ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from ssl_cr_histo_tpu_torch.ops import fused, geometry
 from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
+from ssl_cr_histo_tpu_torch.ops import randaugment as RA
 from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
 
 # The reference scales by /255 only (ToTensor): mean 0, std 1.
@@ -125,6 +127,64 @@ def augment_3view_batch(gen: torch.Generator, imgs_u8: torch.Tensor,
     views = torch.stack([v1, rot(0), v3], 1)
     perm = d["perm"].long().view(b, 3, 1, 1, 1).expand_as(views)
     return torch.clamp(torch.gather(views, 1, perm), 0.0, 1.0)
+
+
+def draw_transform_fix(gen: torch.Generator, b: int, size: int, n: int = 7, m: int = 10,
+                       host_gen: Optional[torch.Generator] = None) -> dict:
+    """Per-image draws of the consistency views (``batch.py:136-160``, fused
+    mode) for ``b`` images of ``size``^2 with ``n`` strong stages at
+    magnitudes in [1, m):
+
+      weak_flip, strong_flip  (b,) bool, the p = 0.5 mirror coins
+      ops                     (b, n) int64 op index in [0, 9) per stage
+                              (``ops.randaugment.V1_POOL`` order)
+      mags                    (b, n) int64 magnitude in [1, m)
+      params                  (b, n, N_PARAMS) float32, each stage's op's
+                              parameters and gate (``draw_v1_params``)
+      noise                   (K, 3, size, size) float32 standard normal, one
+                              field per (image, stage) pair whose op is noise,
+                              in row-major (image, stage) order
+
+    Which generator draws what: the small tables (coins, ops, magnitudes,
+    params) come from ``host_gen``, a CPU generator, so that the op groups
+    of ``fused.randaugment_v1_fused`` are known on the host without a copy
+    back from the device; the noise fields come from ``gen`` on its device.
+    ``host_gen`` None draws everything from ``gen``, which must then be a CPU
+    generator."""
+    tg = gen if host_gen is None else host_gen
+    if tg.device.type != "cpu":
+        raise ValueError("draw_transform_fix draws its tables on the host: pass a CPU host_gen")
+    ops = torch.randint(0, len(RA.V1_POOL), (b, n), generator=tg)
+    mags = torch.randint(1, m, (b, n), generator=tg)
+    return {
+        "weak_flip": torch.rand(b, generator=tg) < 0.5,
+        "strong_flip": torch.rand(b, generator=tg) < 0.5,
+        "ops": ops,
+        "mags": mags,
+        "params": RA.draw_v1_params(tg, ops, mags),
+        "noise": torch.randn(int((ops == RA.NOISE).sum()), 3, size, size, generator=gen, device=gen.device),
+    }
+
+
+def transform_fix_batch(gen: torch.Generator, imgs_u8: torch.Tensor, n: int = 7, m: int = 10,
+                        mode: str = "fused", draws: Optional[dict] = None,
+                        host_gen: Optional[torch.Generator] = None):
+    """Weak and strong views for consistency training (``batch.py:136-160``):
+    (B, H, W, 3) uint8 with H == W -> (weak, strong), each float32
+    channel-planar (B, 3, H, W) clipped to [0, 1], on the device of
+    ``imgs_u8``.  ``draws`` (see ``draw_transform_fix``) injects the draws;
+    they are drawn from ``gen`` and ``host_gen`` when None.  PyTorch ops on
+    any device, as the JAX package uses XLA ops: no Pallas kernel.  Only the
+    fused mode is ported."""
+    if mode != "fused":
+        raise NotImplementedError(
+            f"aug_mode {mode!r} is not yet ported for consistency views (ROADMAP.md Queue 1)")
+    b, s = imgs_u8.shape[0], imgs_u8.shape[1]
+    if draws is None:
+        draws = draw_transform_fix(gen, b, s, n, m, host_gen=host_gen)
+    imgs = to_float(imgs_u8.permute(0, 3, 1, 2).contiguous())
+    weak, strong = fused.transform_fix_fused(imgs, draws)
+    return torch.clamp(weak, 0.0, 1.0), torch.clamp(strong, 0.0, 1.0)
 
 
 def normalize_batch(imgs: torch.Tensor, mean=DEFAULT_MEAN, std=DEFAULT_STD,

@@ -1,5 +1,6 @@
 """Affine matrix builders and the two-pass separable warp, batched; the
-cv2-exact bilinear resize and the crops of the fine-tune 3-view stack.
+cv2-exact bilinear resize and the crops of the fine-tune 3-view stack; the
+lattice flips of the consistency views.
 
 Counterpart of ``ssl_cr_histo_tpu/ops/geometry.py``.  Every geometric op is
 a 3x3 *inverse* map (output pixel -> input location, (x, y) coordinates, y
@@ -181,6 +182,16 @@ def warp_affine_planar(imgs: torch.Tensor, inv_mats: torch.Tensor, pad_mode: str
     tmp = _resample_pass(img, ap * xs + bp * ys + cp, 3, pad_mode)
     out = _resample_pass(tmp, d * xs + e * ys + f, 2, pad_mode)
     return sel(swap, out.transpose(2, 3), out).contiguous()
+
+
+def flip_horizontal(imgs: torch.Tensor) -> torch.Tensor:
+    """Mirror the trailing W axis (``geometry.py:425-426``)."""
+    return imgs.flip(-1)
+
+
+def flip_vertical(imgs: torch.Tensor) -> torch.Tensor:
+    """Mirror the H axis (``geometry.py:429-430``)."""
+    return imgs.flip(-2)
 
 
 def center_crop(imgs: torch.Tensor, crop_h: int, crop_w: int) -> torch.Tensor:

@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from ssl_cr_histo_tpu_torch.ops import color
+from ssl_cr_histo_tpu_torch.ops import color, photometric
 
 # params vector layout (float32), as ``pallas_photometric.py:34-40``:
 #   0: hue_shift   1: sat_shift   2: val_shift   3: hsv_gate
@@ -145,38 +145,6 @@ def philox_normal(seeds: torch.Tensor, shape) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _rgb2hsv(r, g, b):
-    v = torch.maximum(torch.maximum(r, g), b)
-    mn = torch.minimum(torch.minimum(r, g), b)
-    delta = v - mn
-    safe = torch.where(delta == 0.0, 1.0, delta)
-    h_r = torch.remainder((g - b) / safe, 6.0)
-    h_g = (b - r) / safe + 2.0
-    h_b = (r - g) / safe + 4.0
-    h = torch.where(v == r, h_r, torch.where(v == g, h_g, h_b))
-    h = torch.where(delta == 0.0, 0.0, h / 6.0)
-    s = torch.where(v == 0.0, 0.0, delta / torch.where(v == 0.0, 1.0, v))
-    return h, s, v
-
-
-def _hsv2rgb(h, s, v):
-    h6 = torch.remainder(h, 1.0) * 6.0
-    i = torch.floor(h6)
-    f = h6 - i
-    p = v * (1.0 - s)
-    q = v * (1.0 - s * f)
-    t = v * (1.0 - s * (1.0 - f))
-    i = torch.remainder(i.to(torch.int32), 6)
-
-    def pick(*cs):
-        out = cs[5]
-        for k in range(4, -1, -1):
-            out = torch.where(i == k, cs[k], out)
-        return out
-
-    return pick(v, q, p, p, t, v), pick(t, v, v, q, p, p), pick(p, p, t, v, v, q)
-
-
 def _mat3_apply(c0, c1, c2, m):
     return (
         c0 * m[0][0] + c1 * m[1][0] + c2 * m[2][0],
@@ -195,32 +163,6 @@ def _hed_shift(r, g, b, dh, de, dd):
     return clip(lr), clip(lg), clip(lb)
 
 
-def _reflect101_index(size: int, r: int, device) -> torch.Tensor:
-    idx = torch.arange(-r, size + r, device=device).abs()
-    period = max(2 * (size - 1), 1)
-    idx = idx % period
-    return torch.where(idx >= size, period - idx, idx)
-
-
-def _box_blur(x: torch.Tensor, ksize: torch.Tensor, max_k: int = 7) -> torch.Tensor:
-    """Separable box blur of (N, H, W) planes with reflect101 borders and a
-    per-tile odd ksize <= max_k via masked taps (``:62-81``): rows first,
-    then columns, each tap sum taken in ascending offset order."""
-    r = max_k // 2
-    half = (ksize - 1.0) / 2.0
-    for dim in (1, 2):
-        size = x.shape[dim]
-        padded = x.index_select(dim, _reflect101_index(size, r, x.device))
-        acc = torch.zeros_like(x)
-        norm = torch.zeros_like(half)
-        for k in range(2 * r + 1):
-            tap = (abs(float(k - r)) <= half).to(x.dtype)
-            acc = acc + tap * padded.narrow(dim, k, size)
-            norm = norm + tap
-        x = acc / norm
-    return x
-
-
 def _chain_planes(r, g, b, p, noise):
     """The chain on (N, H, W) color planes in compute-then-select form;
     ``p`` is a sequence of N_PARAMS (N, 1, 1) tensors, ``noise`` a 3-tuple
@@ -229,18 +171,18 @@ def _chain_planes(r, g, b, p, noise):
     def gated(gate, new, old):
         return tuple(torch.where(gate > 0.5, a, o) for a, o in zip(new, old))
 
-    h, s, v = _rgb2hsv(r, g, b)
+    h, s, v = color.rgb2hsv_planes(r, g, b)
     h = torch.remainder(h + p[0] / 180.0, 1.0)
     s = torch.clamp(s + p[1] / 255.0, 0.0, 1.0)
     v = torch.clamp(v + p[2] / 255.0, 0.0, 1.0)
-    r, g, b = gated(p[3], _hsv2rgb(h, s, v), (r, g, b))
+    r, g, b = gated(p[3], color.hsv2rgb_planes(h, s, v), (r, g, b))
 
     noisy = tuple(torch.clamp(x + nz * p[4], 0.0, 1.0) for x, nz in zip((r, g, b), noise))
     r, g, b = gated(p[5], noisy, (r, g, b))
 
     r, g, b = _hed_shift(r, g, b, p[6], p[7], p[8])
 
-    r, g, b = gated(p[10], tuple(_box_blur(x, p[9]) for x in (r, g, b)), (r, g, b))
+    r, g, b = gated(p[10], tuple(photometric.box_blur_planes(x, p[9]) for x in (r, g, b)), (r, g, b))
 
     bc = lambda x: torch.clamp(x * (1.0 + p[12]) + p[11], 0.0, 1.0)
     return gated(p[13], tuple(bc(x) for x in (r, g, b)), (r, g, b))

@@ -1,14 +1,20 @@
-"""Train and eval steps of RSP pretraining and supervised fine-tuning.
+"""Train and eval steps of RSP pretraining, supervised fine-tuning and
+consistency training.
 
-Counterpart of ``ssl_cr_histo_tpu/parallel/steps.py:37-421``.  A pretrain
+Counterpart of ``ssl_cr_histo_tpu/parallel/steps.py:37-421`` and
+``:460-639``.  A pretrain
 step: augment on the device (one kernel: each uint8 triplet read in the
 order of its label, composed warp, photometric chain, clip, normalize, cast
 to the compute type), one backbone pass over the B*3 views, pairwise FC, the
 6-way classifier, cross-entropy, and an SGD-Nesterov step.  A fine-tune
 step: the 3-view stack (PyTorch ops), one ``encode_single`` pass over the
 B*3 views, the head, cross-entropy or MSE, an Adam or SGD step and one step
-of the LR schedule.  PyTorch runs eagerly, so there is no jit and no
-multi-step scan; the steps update ``state`` in place.
+of the LR schedule.  A consistency step: the weak and strong views of the
+unlabeled images and the labeled 3-view stack (PyTorch ops), the teacher
+on the weak views in eval mode, one student pass over the labeled and strong
+views, supervised plus consistency loss, an optimizer step and one step of
+the LR schedule.  PyTorch runs eagerly, so there is no jit and no multi-step
+scan; the steps update ``state`` in place.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ import torch.nn.functional as F
 
 from ssl_cr_histo_tpu_torch.ops import batch as aug_batch
 from ssl_cr_histo_tpu_torch.ops.rsp_augment_kernel import RSP_PERMUTATIONS, permute_triplets
-from ssl_cr_histo_tpu_torch.train.state import FinetuneState, TrainState
+from ssl_cr_histo_tpu_torch.train.state import FinetuneState, Teacher, TrainState
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -186,3 +192,123 @@ def forward(state: FinetuneState, images_u8: torch.Tensor, *, bf16: bool = False
     x = aug_batch.normalize_batch(aug_batch.to_float(images_u8).permute(0, 3, 1, 2), channel_axis=1)
     with _autocast(x.device, bf16):
         return state.head(state.model.encode_single(x)).float()
+
+
+# ---------------------------------------------------------------------------
+# Consistency training (SSL_CR stage 3)
+# ---------------------------------------------------------------------------
+
+
+def expand_labeled_batch(gen: torch.Generator, x_l_u8: torch.Tensor, y_l: torch.Tensor, views: int = 3,
+                         draws: Optional[dict] = None):
+    """The labeled branch of consistency training (``steps.py:460-477``):
+    with ``views`` 3, each (B, H, W, 3) uint8 image becomes its 3-view stack
+    (``ops.batch.augment_3view_batch``), b-major, each view with its image's
+    label; with 1, the image itself.  Returns float32 planar (views*B, 3, H,
+    W) in [0, 1], not normalized, and the (views*B,) labels, on the device
+    of the images."""
+    if views == 1:
+        return aug_batch.to_float(x_l_u8.permute(0, 3, 1, 2)), y_l.to(x_l_u8.device)
+    if views != 3:
+        raise ValueError("the reference 3-view stack supports views in {1, 3}")
+    stacks = aug_batch.augment_3view_batch(gen, x_l_u8, draws)
+    b, v = stacks.shape[:2]
+    return stacks.reshape(b * v, *stacks.shape[2:]), y_l.to(stacks.device).repeat_interleave(v)
+
+
+def consistency_step(
+    state: FinetuneState,
+    teacher: Teacher,
+    x_l_u8: torch.Tensor,
+    y_l: torch.Tensor,
+    x_u_u8: torch.Tensor,
+    gen: torch.Generator,
+    task: str = "classification",
+    lambda_u: float = 1.0,
+    n_aug: int = 7,
+    labeled_views: int = 3,
+    views: Optional[tuple] = None,
+    host_gen: Optional[torch.Generator] = None,
+    *,
+    bf16: bool = False,
+) -> dict:
+    """One teacher/student consistency step (``steps.py:480-585``; reference
+    eval_Kather_SSL_CR.py:37-127) on the device of the images.
+
+    (B, H, W, 3) uint8 labeled images ``x_l_u8`` with their (B,) labels, and
+    (mu*B, H, W, 3) uint8 unlabeled images ``x_u_u8``.  The unlabeled images
+    give weak and strong views (``ops.batch.transform_fix_batch``: tables
+    from ``host_gen``, noise from ``gen``), the labeled ones their 3-view
+    stack (``expand_labeled_batch``, from ``gen``); ``views`` = (labeled
+    views, weak, strong), float32 planar in [0, 1], replaces both, for tests.
+    The teacher runs on the weak views in eval mode, without gradient; the
+    student on cat(labeled views, strong views) in one train-mode pass, so
+    its BN statistics pool both.  Classification: cross-entropy on the
+    labels plus ``lambda_u`` times cross-entropy of the strong views against
+    the teacher's hard pseudo-labels (argmax of its softmax; ties to the
+    first class); metric the labeled accuracy.  Regression: MSE on the
+    labels plus ``lambda_u`` times the MSE between teacher and student
+    outputs; metric the supervised loss.  Then an optimizer step on the
+    student's trainable tensors and one step of the LR schedule.  bf16:
+    teacher, student and head under bfloat16 autocast; losses in float32.
+    Returns {'loss', 'sup', 'cons', 'metric'} as device tensors."""
+    model, head = state.model, state.head
+    if views is None:
+        weak, strong = aug_batch.transform_fix_batch(gen, x_u_u8, n_aug, host_gen=host_gen)
+        x_l, y = expand_labeled_batch(gen, x_l_u8, y_l, labeled_views)
+    else:
+        x_l, weak, strong = views
+        y = y_l.to(x_l.device).repeat_interleave(x_l.shape[0] // y_l.shape[0])
+    norm = lambda t: aug_batch.normalize_batch(t, channel_axis=1)
+    x_l, weak, strong = norm(x_l), norm(weak), norm(strong)
+    b_l = x_l.shape[0]
+
+    teacher.model.eval()
+    teacher.head.eval()
+    with torch.no_grad(), _autocast(weak.device, bf16):
+        out_w = teacher.head(teacher.model.encode_single(weak)).float()
+    model.train()
+    head.train()
+    with _autocast(x_l.device, bf16):
+        out = head(model.encode_single(torch.cat([x_l, strong]))).float()
+    out_l, out_s = out[:b_l], out[b_l:]
+    if task == "regression":
+        sup = mse(out_l.squeeze(-1), y.float())
+        cons = mse(out_w.squeeze(-1), out_s.squeeze(-1))
+        metric = sup.detach()
+    else:
+        sup = cross_entropy(out_l, y)
+        cons = cross_entropy(out_s, torch.argmax(torch.softmax(out_w, -1), -1))
+        metric = (out_l.detach().argmax(-1) == y).float().mean()
+    loss = sup + lambda_u * cons
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+    return {"loss": loss.detach(), "sup": sup.detach(), "cons": cons.detach(), "metric": metric}
+
+
+@torch.no_grad()
+def refresh_teacher(teacher: Teacher, state: FinetuneState) -> Teacher:
+    """Teacher <- student, parameters and BN buffers alike, in place
+    (``steps.py:627-632``; the reference's per-epoch deepcopy,
+    eval_Kather_SSL_CR.py:582-583); the teacher stays in eval mode without
+    gradients."""
+    teacher.model.load_state_dict(state.model.state_dict())
+    teacher.head.load_state_dict(state.head.state_dict())
+    return teacher
+
+
+@torch.no_grad()
+def ema_update(teacher: Teacher, state: FinetuneState, decay: float = 0.99) -> Teacher:
+    """EMA teacher (``--ema``, not the reference's semantics;
+    ``steps.py:635-639``): t <- decay * t + (1 - decay) * s for every
+    parameter and BN running statistic (every floating tensor of the
+    state_dicts), in place."""
+    for t_mod, s_mod in ((teacher.model, state.model), (teacher.head, state.head)):
+        student = s_mod.state_dict()
+        for k, t in t_mod.state_dict().items():
+            if t.is_floating_point():
+                t.mul_(decay).add_(student[k], alpha=1.0 - decay)
+    return teacher

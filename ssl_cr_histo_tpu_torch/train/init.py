@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Iterable, List
 
 import torch
@@ -10,7 +11,7 @@ import torch
 from ssl_cr_histo_tpu_torch.models import Classifier, FinetuneHead, TripletNet, feature_dim
 from ssl_cr_histo_tpu_torch.train import optim
 from ssl_cr_histo_tpu_torch.train.freeze import freeze
-from ssl_cr_histo_tpu_torch.train.state import FinetuneState, TrainState
+from ssl_cr_histo_tpu_torch.train.state import FinetuneState, Teacher, TrainState
 
 
 def init_triplet_state(model_name: str, device: torch.device, lr: float = 0.01,
@@ -47,14 +48,43 @@ def init_finetune_state(
     return FinetuneState(model, head, opt, optim.multistep_schedule(opt, milestones_steps, gamma))
 
 
+def _state_dict(raw: dict, key: str) -> dict:
+    """``raw[key]`` (or ``raw`` itself when it has no such entry) without
+    DataParallel's ``module.`` key prefix."""
+    sd = raw[key] if isinstance(raw, dict) and key in raw else raw
+    return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+
+
 def load_backbone(state: FinetuneState, path: str) -> FinetuneState:
     """Stage handoff: load the backbone, the pairwise fc and the BN
     statistics from a pretraining checkpoint's ``'model'`` state_dict (the
     port's ``.pth``, or the reference's, whose keys may carry DataParallel's
     ``module.`` prefix), in place, keeping the fresh head
     (``init.py:49-59``; reference eval_BreastPathQ_SSL.py:342-353)."""
-    raw = torch.load(path, map_location="cpu", weights_only=False)
-    sd = raw["model"] if isinstance(raw, dict) and "model" in raw else raw
-    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
-    state.model.load_state_dict(sd)
+    state.model.load_state_dict(_state_dict(torch.load(path, map_location="cpu", weights_only=False), "model"))
     return state
+
+
+def load_finetuned(state: FinetuneState, path: str) -> FinetuneState:
+    """Stage 2 -> 3 handoff: load the TripletNet (``'model'``, BN statistics
+    included) and the head (``'classifier'``) of a fine-tune checkpoint (the
+    port's ``.pth``, or the reference's, with or without ``module.``) into
+    the student, in place; its optimizer and schedule stay fresh
+    (``cli/consistency.py:188-194``; reference
+    eval_BreastPathQ_SSL_CR.py:391-402)."""
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    if not isinstance(raw, dict) or "model" not in raw or "classifier" not in raw:
+        raise ValueError(f"{path}: not a fine-tune checkpoint (needs 'model' and 'classifier')")
+    state.model.load_state_dict(_state_dict(raw, "model"))
+    state.head.load_state_dict(_state_dict(raw, "classifier"))
+    return state
+
+
+def init_teacher(state: FinetuneState) -> Teacher:
+    """A teacher equal to the student: copies of its TripletNet and head,
+    parameters and BN buffers alike, in eval mode with ``requires_grad``
+    off (the reference's deepcopy, eval_Kather_SSL_CR.py:582-583)."""
+    teacher = Teacher(copy.deepcopy(state.model), copy.deepcopy(state.head))
+    for m in (teacher.model, teacher.head):
+        m.eval().requires_grad_(False)
+    return teacher

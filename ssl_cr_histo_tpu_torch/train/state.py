@@ -1,5 +1,6 @@
-"""Training states of the pretraining and fine-tuning stages.  Each knows
-the dict its checkpoint holds (``train.checkpoint.save_checkpoint``)."""
+"""Training states of the pretraining, fine-tuning and consistency stages.
+Each knows the dict its checkpoint holds
+(``train.checkpoint.save_checkpoint``)."""
 
 from __future__ import annotations
 
@@ -64,3 +65,17 @@ class FinetuneState:
             "scheduler": self.scheduler.state_dict(),
             "step": self.step,
         }
+
+
+@dataclass
+class Teacher:
+    """The consistency stage's teacher: a TripletNet and FinetuneHead pair
+    in eval mode with ``requires_grad`` off, outside the optimizer, refreshed
+    from the student (``parallel.steps.refresh_teacher`` / ``ema_update``).
+    Its checkpoint has the student's layout without optimizer state."""
+
+    model: TripletNet
+    head: FinetuneHead
+
+    def payload(self) -> dict:
+        return {"model": self.model.state_dict(), "classifier": self.head.state_dict()}

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the GPU:
 the photometric chain (``csrc/photometric_chain.cu``) and the fused v1
-augmentation (``csrc/rsp_augment.cu``).
+augmentation (``csrc/rsp_augment.cu``); and the consistency views and step,
+which launch no kernel, on the card against the CPU.
 
 Every test here needs a card (marker ``cuda``) and skips where
 ``torch.cuda.is_available()`` is False.  The file imports nothing of JAX, so
@@ -253,3 +254,64 @@ def test_fused_wrapper_rejects_bad_inputs(cuda):
         call(mats=d["mats"].cpu())
     with pytest.raises(ValueError):
         call(noise=d["noise"][:, :, :16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [37, 224])
+def test_consistency_views_card_match_cpu(cuda, s):
+    """The weak/strong consistency views (PyTorch ops, no kernel) on the card
+    against the CPU on the same draws, every op of the strong pool on, within
+    1e-5; both kernels stay unlaunched."""
+    from ssl_cr_histo_tpu_torch.ops import randaugment as RA
+
+    g = torch.Generator().manual_seed(s)
+    b = 18
+    d = TB.draw_transform_fix(g, b, s)
+    d["ops"][:9, 0] = torch.arange(9)
+    d["params"] = RA.draw_v1_params(g, d["ops"], d["mags"])
+    d["params"][..., RA.GATE] = 1.0
+    d["noise"] = torch.randn(int((d["ops"] == RA.NOISE).sum()), 3, s, s, generator=g)
+    imgs = torch.randint(0, 256, (b, s, s, 3), dtype=torch.uint8, generator=g)
+    launched = (RK.launches, PK.launches)
+    want = TB.transform_fix_batch(None, imgs, draws=d)
+    got = TB.transform_fix_batch(None, imgs.to(cuda), draws=dict(d, noise=d["noise"].to(cuda)))
+    assert (RK.launches, PK.launches) == launched
+    for a, w in zip(got, want):
+        assert a.is_cuda and a.shape == (b, 3, s, s)
+        np.testing.assert_allclose(a.cpu().numpy(), w.numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_consistency_step_card_matches_cpu(cuda, monkeypatch):
+    """One float32 consistency step (Kather's head, Adam, batch 2 + 4
+    unlabeled at 32^2, the views drawn on the host) on the card and on the
+    CPU from the same weights, TF32 off as the CLIs run it: losses rtol
+    1e-4, the student within 1e-4, the teacher unchanged."""
+    from ssl_cr_histo_tpu_torch.cli.common import TASKS, make_optimizer
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+    from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_teacher
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = TASKS["kather"]
+    g = torch.Generator().manual_seed(3)
+    x_l = torch.randint(0, 256, (2, 32, 32, 3), dtype=torch.uint8, generator=g)
+    x_u = torch.randint(0, 256, (4, 32, 32, 3), dtype=torch.uint8, generator=g)
+    y_l = torch.tensor([1, 7])
+    views = (S.expand_labeled_batch(g, x_l, y_l)[0], *TB.transform_fix_batch(g, x_u))
+    out = {}
+    for dev in ("cpu", cuda):
+        torch.manual_seed(0)
+        state = init_finetune_state("resnet18", cfg.num_classes, torch.device(dev),
+                                    lambda ps: make_optimizer(cfg.optimizer, ps, cfg.lr))
+        teacher = init_teacher(state)
+        t0 = {k: v.clone() for k, v in teacher.model.state_dict().items()}
+        m = S.consistency_step(state, teacher, x_l.to(dev), y_l.to(dev), x_u.to(dev), None, cfg.task,
+                               views=tuple(v.to(dev) for v in views))
+        assert all(torch.equal(v, t0[k]) for k, v in teacher.model.state_dict().items())
+        out[str(dev)] = ({k: float(m[k]) for k in ("loss", "sup", "cons")},
+                         {k: v.detach().cpu() for k, v in state.model.state_dict().items() if v.is_floating_point()})
+    (l_cpu, sd_cpu), (l_gpu, sd_gpu) = out["cpu"], out[str(cuda)]
+    for k in l_cpu:
+        np.testing.assert_allclose(l_gpu[k], l_cpu[k], rtol=1e-4)
+    assert max((sd_gpu[k] - sd_cpu[k]).abs().max().item() for k in sd_cpu) <= 1e-4
