@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU: builds the port's CUDA
 kernels, checks each against its plain PyTorch version, drives the
-pretraining CLI for one short epoch at the config of record and the
-fine-tuning CLI from its checkpoint, and times the steps and the kernels.
+pretraining CLI for one short epoch at the config of record, the
+fine-tuning and consistency CLIs from its checkpoint for Kather and then
+Camelyon16, the heatmap CLI and the FROC from the Camelyon16 checkpoint,
+and times the steps, the serving forward and the kernels.
 
     python3 chip_smoke.py                    # from the root of a checkout, on a GPU machine
     python3 chip_smoke.py --profile DIR      # also write torch.profiler tables of the steps
@@ -28,8 +30,13 @@ Phases (any failure exits non-zero and prints no result line):
      pretrain.main`` on two synthetic slides at resnet18 / batch 64 / 256^2 /
      bf16 / joint encode, one epoch, with every launch counter set to 0
      just before and read just after: the fused kernel must launch once per
-     train step and the chain kernel never; the checkpoint's float32
-     forward on the card must agree with the CPU's
+     train step and the chain kernel never; the epoch's wall time (the
+     CLI's print; batches come through its prefetch thread) beside the
+     stream time between the CUDA events around each step; the
+     checkpoint's float32 forward on the card must agree with the CPU's;
+     then the same CLI run four times more, warm, with the inline feed it
+     had before the prefetch thread and with the prefetch thread (inline,
+     prefetch, prefetch, inline), each run's epoch wall printed
   6. fine-tuning: the 3-view augmentation and a float32 fine-tune step on
      the card against the CPU; then ``ssl_cr_histo_tpu_torch.cli.finetune.
      main`` at Kather's config of record (9 classes, resnet18, batch 64 at
@@ -60,7 +67,26 @@ Phases (any failure exits non-zero and prints no result line):
      against that composition alone, the plain versions; the fused kernel's
      time (torch.profiler) in both noise modes and by gate, beside its
      wrapper called back to back; the chain kernel in both noise modes
-  9. the kernels line, then ``{"ok": true, "device": {...}}`` as the last line
+  9. Camelyon16, from phase 5's ``ckpt_1.pth`` to a scored heatmap: seeded
+     tumor and normal patch dirs of 256^2 PNGs with list.txt and annotation
+     JSONs, two 8192^2 slides (a tumor and a normal one) with tissue masks
+     at resolution 64 (128 x 128 cells, half tissue: 8192 patches a slide,
+     fewer than a real Camelyon16 slide has) and the tumor slide's
+     ground-truth mask; ``cli.finetune`` with ``--task camelyon16`` (16
+     images a pool, 96 views a step, 256^2, bf16, SGD-Nesterov) for one
+     4-step epoch, ``cli.consistency`` with ``--task camelyon16`` (8
+     labeled + 56 unlabeled images a pool) for one step from its
+     ``best.pth``, ``cli.heatmap`` (batch 256, 256^2, bf16) over both slides
+     from that ``best.pth``, each with every launch counter set to 0 just
+     before and read just after (neither kernel may launch); each map's
+     shape, values in [0, 1], 0 exactly off the mask, the artifacts; one
+     map card vs CPU in float32 on a 2048^2 crop (max abs diff <= 1e-4);
+     ``cli.froc`` on the maps and its report; the fine-tune step, the
+     consistency step and the serving forward at batch 256 timed with CUDA
+     events, and each map's wall time as patches/s against the sum of its
+     forwards (``--profile``: the map's device busy share and
+     ``heatmap_profile.txt``)
+ 10. the kernels line, then ``{"ok": true, "device": {...}}`` as the last line
 
 Imports nothing of JAX and nothing of the JAX package.  Tolerance 1e-4
 (phases 3-4) on outputs in [0, 1]: the kernels and PyTorch's CUDA ops
@@ -72,6 +98,8 @@ FMA contraction.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -757,6 +785,368 @@ def phase_consistency(torch, dev, tmp: str, card: str, profile_dir: str) -> None
     del state, teacher
 
 
+def with_events(torch, fn, pairs: list):
+    """``fn`` with a CUDA event pair recorded around each call into
+    ``pairs``; their sum (``events_s``, after a synchronize) is the card's
+    time inside the calls."""
+    def wrapped(*a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*a, **kw)
+        end.record()
+        pairs.append((start, end))
+        return out
+    return wrapped
+
+
+def events_s(pairs: list) -> float:
+    return sum(s.elapsed_time(e) for s, e in pairs) / 1e3
+
+
+@contextlib.contextmanager
+def cuda_timed(torch, module, name: str):
+    """``module.<name>`` timed by ``with_events`` for the block; yields the
+    event pairs."""
+    pairs, real = [], getattr(module, name)
+    setattr(module, name, with_events(torch, real, pairs))
+    try:
+        yield pairs
+    finally:
+        setattr(module, name, real)
+
+
+class Tee:
+    """A stdout that also keeps what is written (to read a CLI's prints)."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.buf.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_pretrain_feeds(torch, pretrain, S, argv: list, tmp: str, steps: int, card: str) -> None:
+    """Phase 5's feed side by side: the pretrain CLI run with its batches
+    fed through the prefetch thread (``data.pipeline.prefetch_to_device``)
+    and with the inline feed it had before (each batch pinned and copied on
+    the loop's thread, then stepped), in the order inline, prefetch,
+    prefetch, inline, all after phase 5's run has warmed the card.  Prints
+    each run's epoch wall (the CLI's own print) and the stream time between
+    the CUDA events around each of its steps."""
+    import numpy as np
+
+    real = pretrain.prefetch_to_device
+
+    def inline(it, device, size=2):
+        for batch in it:
+            yield tuple(torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(device, non_blocking=True)
+                        for a in batch)
+
+    walls = {"inline": [], "prefetch": []}
+    for i, name in enumerate(("inline", "prefetch", "prefetch", "inline")):
+        pretrain.prefetch_to_device = inline if name == "inline" else real
+        tee = Tee(io.StringIO())
+        try:
+            with cuda_timed(torch, S, "pretrain_step") as pairs, contextlib.redirect_stdout(tee):
+                pretrain.main(argv + ["--save_dir", os.path.join(tmp, f"feed_{i}_{name}")])
+            torch.cuda.synchronize()
+        finally:
+            pretrain.prefetch_to_device = real
+        epoch = re.search(r"Epoch time: ([0-9.]+) s", tee.buf.getvalue())
+        check(epoch is not None and len(pairs) == steps, f"feed {name}: no epoch time or {len(pairs)} steps")
+        walls[name].append(float(epoch.group(1)))
+        print(f"phase 5: feed {name} (run {i + 1} of 4): epoch wall {float(epoch.group(1)):.2f} s against "
+              f"{events_s(pairs):.4f} s of stream time between the events around its {steps} steps [{card}]",
+              flush=True)
+    print(f"phase 5: epoch wall, inline feed {walls['inline']} s, prefetch feed {walls['prefetch']} s [{card}]",
+          flush=True)
+
+
+def write_camelyon(root: str, patch: int, n_per_pool: int, n_valid: int, slide: int, resolution: int) -> dict:
+    """Phase 9's Camelyon16 data, numpy and cv2 only, seeded:
+      * train patch dirs 'tumor' (slide Tumor_026, centres in its positive
+        polygon) and 'normal' (Normal_040), and VALID dirs (Tumor_030,
+        Normal_050), each a list.txt of 'pid,x,y' and line-indexed
+        '{idx}.png' files of ``patch``^2: tumor patches dense purple, normal
+        ones pale pink, with noise; the annotation JSONs of the four slides;
+      * slides 'tumor_001' and 'normal_001' as ``slide``^2 uint8 .npy: white,
+        tissue over the left half (pink; the tumor slide with a purple block
+        in it), and their tissue masks at ``resolution`` ((slide / res)^2
+        cells, mask[x, y] as the serving path indexes it; half of them
+        tissue); the ground-truth mask of the tumor slide's block.
+    This is smaller than a real Camelyon16 slide (tens of thousands of
+    tissue cells at resolution 64 or more)."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    d = {k: os.path.join(root, k) for k in ("tumor", "normal", "tumor_valid", "normal_valid", "json", "wsi",
+                                            "mask", "gt")}
+    for p in d.values():
+        os.makedirs(p)
+    colours = {"Tumor": (120, 50, 150), "Normal": (225, 170, 200)}
+    for key, pid, n in (("tumor", "Tumor_026", n_per_pool), ("normal", "Normal_040", n_per_pool),
+                        ("tumor_valid", "Tumor_030", n_valid), ("normal_valid", "Normal_050", n_valid)):
+        base = np.array(colours[pid.split("_")[0]], np.int16)
+        with open(os.path.join(d[key], "list.txt"), "w") as f:
+            for i in range(n):
+                x, y = (int(v) for v in rng.integers(1000, 9000, 2))
+                f.write(f"{pid},{x},{y}\n")
+                img = np.clip(base + rng.integers(-30, 30, (patch, patch, 3), dtype=np.int16), 0, 255)
+                cv2.imwrite(os.path.join(d[key], f"{i}.png"), img.astype(np.uint8)[..., ::-1])
+    square = [[0, 0], [10000, 0], [10000, 10000], [0, 10000]]
+    for pid in ("Tumor_026", "Tumor_030", "Normal_040", "Normal_050"):
+        doc = {"positive": [{"name": "t", "vertices": square}] if pid.startswith("Tumor") else [], "negative": []}
+        with open(os.path.join(d["json"], f"{pid}.json"), "w") as f:
+            json.dump(doc, f)
+
+    cells = slide // resolution
+    block = np.clip(rng.integers(-25, 25, (1024, 1024, 3), dtype=np.int16), -25, 25)
+    for name in ("tumor_001", "normal_001"):
+        level0 = np.full((slide, slide, 3), 245, np.uint8)
+        half = slide // 2
+        tissue = np.tile(block, (slide // 1024 + 1, half // 1024 + 1, 1))[:slide, :half]
+        level0[:, :half] = np.clip(tissue + np.array(colours["Normal"], np.int16), 0, 255)
+        mask = np.zeros((cells, cells), np.uint8)
+        mask[: cells // 2] = 1  # mask[x, y]: x < half is tissue
+        if name == "tumor_001":
+            x0, x1, y0, y1 = cells // 8, cells * 5 // 16, cells * 5 // 16, cells * 5 // 8
+            gt = np.zeros_like(mask)
+            gt[x0:x1, y0:y1] = 1
+            level0[y0 * resolution: y1 * resolution, x0 * resolution: x1 * resolution] = np.clip(
+                tissue[: (y1 - y0) * resolution, : (x1 - x0) * resolution] + np.array(colours["Tumor"], np.int16),
+                0, 255)
+            np.save(os.path.join(d["gt"], f"{name}.npy"), gt)
+        np.save(os.path.join(d["wsi"], f"{name}.npy"), level0)
+        np.save(os.path.join(d["mask"], f"{name}_tissue.npy"), mask)
+    return d
+
+
+def check_no_launch(PK, RK, label: str) -> dict:
+    launches = {"photometric_chain": PK.launches, "rsp_augment": RK.launches}
+    check(not any(launches.values()), f"a kernel launched on the {label} path: {launches}")
+    return launches
+
+
+def phase_camelyon(torch, dev, tmp: str, pretrain_ckpt: str, card: str, profile_dir: str, patch: int = 256,
+                   slide: int = 8192, resolution: int = 64) -> None:
+    """Phase 9: Camelyon16 from the pretrain checkpoint to a scored heatmap.
+    The fine-tune CLI (--task camelyon16, 16 images a pool, 256^2, bf16,
+    SGD-Nesterov 5e-4) for one epoch of 4 steps, then the consistency CLI
+    (8 labeled + 56 unlabeled images a pool) for one step from its
+    best.pth, then the heatmap CLI (batch 256, 256^2, bf16) over two
+    ``slide``^2 slides from the consistency best.pth, each with every
+    launch counter at 0 before and read after (neither kernel may launch);
+    one map card vs CPU in float32 on a 2048^2 crop; the FROC CLI on
+    the maps; then the steps, the serving forward and each map's wall
+    time (against the sum of its forwards) timed with CUDA events.  The
+    sizes are parameters so that a CPU rehearsal can shrink them; the card
+    runs the defaults."""
+    import numpy as np
+    import scipy
+
+    from ssl_cr_histo_tpu_torch.cli import consistency, finetune
+    from ssl_cr_histo_tpu_torch.cli import froc as froc_cli
+    from ssl_cr_histo_tpu_torch.cli import heatmap as heatmap_cli
+    from ssl_cr_histo_tpu_torch.cli.common import TASKS, make_optimizer
+    from ssl_cr_histo_tpu_torch.data.wsi import ArrayPyramid, open_slide
+    from ssl_cr_histo_tpu_torch.eval import heatmap as H
+    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
+    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+    from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_serving_state, init_teacher
+
+    cfg = TASKS["camelyon16"]
+    cpu = dev.type == "cpu"
+    common = ["--model", "resnet18", "--device", dev.type] + (["--image_size", str(patch)] if cpu else [])
+    t0 = time.time()
+    d = write_camelyon(tmp, patch, 64, 16, slide, resolution)
+    print(f"phase 9: wrote 2 x 64 train and 2 x 16 VALID Camelyon16 patches of {patch}^2, two {slide}^2 slides "
+          f"with masks at resolution {resolution} in {time.time() - t0:.1f} s (scipy {scipy.__version__})",
+          flush=True)
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+
+    # fine-tune, 16 images a pool a step: 4 steps over 2 x 64 patches
+    run = os.path.join(tmp, "c16_finetune")
+    argv = ["--task", "camelyon16", "--train_path", f"{d['tumor']},{d['normal']}", "--json_path", d["json"],
+            "--val_path", f"{d['tumor_valid']},{d['normal_valid']}", "--model_path", pretrain_ckpt,
+            "--save_dir", run, "--num_epoch", "1", "--save_freq", "1"] + common
+    print("phase 9: fine-tune CLI " + " ".join(argv), flush=True)
+    PK.launches = RK.launches = 0
+    t0 = time.time()
+    finetune.main(argv)
+    sync()
+    wall = time.time() - t0
+    launches = check_no_launch(PK, RK, "Camelyon16 fine-tune")
+    with open(os.path.join(run, "fine_tuned_results.csv")) as f:
+        row = f.read().splitlines()[1]
+    vals = [float(v) for v in row.split(",")]
+    check(all(math.isfinite(v) for v in vals) and 0.0 <= vals[2] <= 1.0, f"Camelyon16 fine-tune CSV row {row}")
+    ckpt = torch.load(os.path.join(run, "final.pth"), map_location="cpu", weights_only=False)
+    check(tuple(ckpt["classifier"]["classifier.0.weight"].shape) == (2, 768) and ckpt["step"] == 4,
+          f"Camelyon16 fine-tune checkpoint: step {ckpt['step']}")
+    print(f"phase 9: Camelyon16 fine-tune CLI wall {wall:.2f} s (4 steps of 16 + 16 images, validation of 32), "
+          f"CSV (epoch, train_loss, val_err) {row}, kernel launches {launches}", flush=True)
+
+    # consistency from its best.pth: 8 labeled (0.125 of 64) and 56 unlabeled a pool, one step
+    cr = os.path.join(tmp, "c16_consistency")
+    argv = ["--task", "camelyon16", "--train_path", f"{d['tumor']},{d['normal']}", "--json_path", d["json"],
+            "--val_path", f"{d['tumor_valid']},{d['normal_valid']}", "--finetune_ckpt",
+            os.path.join(run, "best.pth"), "--save_dir", cr, "--labeled_train", "0.125", "--num_epoch", "1",
+            "--save_freq", "1"] + common
+    print("phase 9: consistency CLI " + " ".join(argv), flush=True)
+    PK.launches = RK.launches = 0
+    t0 = time.time()
+    consistency.main(argv)
+    sync()
+    wall = time.time() - t0
+    launches = check_no_launch(PK, RK, "Camelyon16 consistency")
+    with open(os.path.join(cr, "consistency_results.csv")) as f:
+        row = f.read().splitlines()[1]
+    check(all(math.isfinite(float(v)) for v in row.split(",")), f"Camelyon16 consistency CSV row {row}")
+    ckpt = torch.load(os.path.join(cr, "final.pth"), map_location="cpu", weights_only=False)
+    check(ckpt["step"] == 1 and tuple(ckpt["classifier"]["classifier.0.weight"].shape) == (2, 768),
+          f"Camelyon16 consistency checkpoint: step {ckpt['step']}")
+    print(f"phase 9: Camelyon16 consistency CLI wall {wall:.2f} s (1 step of 8 + 8 labeled and 56 + 56 unlabeled "
+          f"images), CSV (epoch, train_loss, sup_loss, cons_loss, val_err) {row}, kernel launches {launches}",
+          flush=True)
+
+    # serving: the heatmap CLI over both slides from the consistency checkpoint
+    maps_dir, best = os.path.join(tmp, "c16_maps"), os.path.join(cr, "best.pth")
+    report = os.path.join(tmp, "froc.json")
+    argv = ["--test_image_pth", d["wsi"], "--test_mask_pth", d["mask"], "--probs_map_path", maps_dir,
+            "--finetune_ckpt", best, "--batch_size", "256"] + common
+    print("phase 9: heatmap CLI " + " ".join(argv), flush=True)
+    PK.launches = RK.launches = 0
+    t0 = time.time()
+    maps = heatmap_cli.main(argv)
+    sync()
+    wall = time.time() - t0
+    launches = check_no_launch(PK, RK, "serving")
+    cells = slide // resolution
+    for name, pm in sorted(maps.items()):
+        mask = np.load(os.path.join(d["mask"], f"{name}_tissue.npy"))
+        check(pm.shape == (cells, cells) and pm.dtype == np.float32, f"map {name}: {pm.shape} {pm.dtype}")
+        check(bool(np.all((pm >= 0) & (pm <= 1))), f"map {name} leaves [0, 1]")
+        check(not pm[mask == 0].any() and bool((pm[mask > 0] > 0).all()), f"map {name} is not 0 exactly off the mask")
+        files = sorted(f for f in os.listdir(maps_dir) if f.startswith(name + ".") or f.startswith(name + "_"))
+        check({f"{name}.npy", f"{name}.png", f"{name}_heatmap.png"} <= set(files), f"artifacts of {name}: {files}")
+        print(f"phase 9: map {name} {pm.shape}, {int(mask.sum())} tissue cells, in [{pm[mask > 0].min():.4f}, "
+              f"{pm[mask > 0].max():.4f}], 0 off the mask; artifacts {files}", flush=True)
+    check(sorted(maps) == ["normal_001", "tumor_001"], f"maps written: {sorted(maps)}")
+    print(f"phase 9: heatmap CLI wall {wall:.2f} s for two slides, kernel launches {launches}", flush=True)
+
+    # the FROC on both maps
+    froc_cli.main(["--probs_map_path", maps_dir, "--gt_path", d["gt"], "--out", report])
+    with open(report) as f:
+        rep = json.load(f)
+    check(rep["n_slides"] == 2 and rep["total_lesions"] == 1 and math.isfinite(rep["froc"]), f"FROC report {rep}")
+    rep.pop("curve")
+    print("phase 9: FROC report " + json.dumps(rep), flush=True)
+
+    if cpu:  # a rehearsal on the CPU stops here: the rest compares with the card and times it
+        return
+    # one map card vs CPU in float32, on a crop of the tumor slide (half of it tissue)
+    crop, iters = 2048, 20
+    level0 = np.load(os.path.join(d["wsi"], "tumor_001.npy"))
+    x0, y0 = slide // 2 - crop // 2, slide // 4
+    c = crop // resolution
+    sub = ArrayPyramid(np.ascontiguousarray(level0[y0: y0 + crop, x0: x0 + crop]), levels=1)
+    sub_mask = np.load(os.path.join(d["mask"], "tumor_001_tissue.npy"))[x0 // resolution: x0 // resolution + c,
+                                                                         y0 // resolution: y0 // resolution + c]
+    crops = {}
+    for where in ("cuda", "cpu"):
+        state = init_serving_state("resnet18", 2, torch.device(where), best)
+        crops[where] = H.compute_probs_map(sub, sub_mask, lambda x, s=state: S.forward(s, x), torch.device(where),
+                                           image_size=patch, batch_size=256)
+    err = float(np.abs(crops["cuda"] - crops["cpu"]).max())
+    print(f"phase 9: map of a {crop}^2 crop ({int(sub_mask.sum())} patches), float32, card vs CPU: max abs "
+          f"diff {err:.3e}", flush=True)
+    check(err <= 1e-4, f"the crop's map, card vs CPU, differs by {err}")
+
+    # timing: the Camelyon16 fine-tune and consistency steps, the serving
+    # forward alone, and each map's wall against the sum of its forwards
+    gen = torch.Generator(device=dev).manual_seed(0)
+    host_gen = torch.Generator().manual_seed(1)
+    torch.manual_seed(0)
+    state = init_finetune_state("resnet18", 2, dev, lambda ps: make_optimizer(cfg.optimizer, ps, cfg.lr))
+    rows, b = cfg.rows_per_step(cfg.batch_size), cfg.cr_batch
+    imgs = torch.randint(0, 256, (rows, patch, patch, 3), dtype=torch.uint8, generator=gen, device=dev)
+    labels = torch.randint(0, 2, (rows,), generator=gen, device=dev)
+    losses = []
+    step = lambda: losses.append(S.finetune_step(state, imgs, labels, gen, cfg.task, bf16=True)["loss"])
+    ft_ms = [cuda_ms(step, iters, 5) for _ in range(2)]
+    del state
+    torch.manual_seed(0)
+    state = init_finetune_state("resnet18", 2, dev, lambda ps: make_optimizer(cfg.optimizer, ps, cfg.lr), modules=60)
+    teacher = init_teacher(state)
+    x_l = torch.randint(0, 256, (2 * b, patch, patch, 3), dtype=torch.uint8, generator=gen, device=dev)
+    y_l = torch.randint(0, 2, (2 * b,), generator=gen, device=dev)
+    x_u = torch.randint(0, 256, (2 * b * 7, patch, patch, 3), dtype=torch.uint8, generator=gen, device=dev)
+    cr_step = lambda: losses.append(S.consistency_step(state, teacher, x_l, y_l, x_u, gen, cfg.task,
+                                                       host_gen=host_gen, bf16=True)["loss"])
+    cr_ms = [cuda_ms(cr_step, iters // 2, 3) for _ in range(2)]
+    check(all(math.isfinite(float(v)) for v in losses), "non-finite loss in the timed Camelyon16 steps")
+    print(f"phase 9: Camelyon16 fine-tune step resnet18 {rows} images ({3 * rows} views) of {patch}^2, bf16 "
+          f"SGD-Nesterov: {ft_ms[0]:.3f}, {ft_ms[1]:.3f} ms (mean {sum(ft_ms) / 2:.3f}) = "
+          f"{3 * rows / (sum(ft_ms) / 2) * 1e3:.1f} views/s; consistency step {2 * b} labeled (x3 views) + "
+          f"{14 * b} unlabeled (weak + strong) at {patch}^2, --modules_student 60, bf16: {cr_ms[0]:.3f}, "
+          f"{cr_ms[1]:.3f} ms (mean {sum(cr_ms) / 2:.3f}) = {16 * b / (sum(cr_ms) / 2) * 1e3:.1f} images/s [{card}]",
+          flush=True)
+    del state, teacher
+
+    serve = init_serving_state("resnet18", 2, dev, best)
+    patches = torch.randint(0, 256, (256, patch, patch, 3), dtype=torch.uint8, generator=gen, device=dev)
+    fwd_ms = [cuda_ms(lambda: S.forward(serve, patches, bf16=True), iters, 3) for _ in range(2)]
+    fwd = sum(fwd_ms) / 2
+    print(f"phase 9: serving forward resnet18 eval, batch 256 of {patch}^2 uint8, bf16: {fwd_ms[0]:.3f}, "
+          f"{fwd_ms[1]:.3f} ms (mean {fwd:.3f}) = {256 / fwd * 1e3:.1f} patches/s [{card}]", flush=True)
+    forward = lambda x: S.forward(serve, x, bf16=True)  # noqa: E731
+    for name in ("tumor_001", "normal_001"):
+        reader, mask = open_slide(os.path.join(d["wsi"], f"{name}.npy")), np.load(
+            os.path.join(d["mask"], f"{name}_tissue.npy"))
+        n = int(mask.sum())
+        H.compute_probs_map(reader, mask, forward, dev, image_size=patch, batch_size=256)  # warm
+        pairs = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        H.compute_probs_map(reader, mask, with_events(torch, forward, pairs), dev, image_size=patch, batch_size=256)
+        torch.cuda.synchronize()
+        map_s = time.time() - t0
+        # the patch reads alone: the same batches into pinned memory, no forward
+        x_idcs, y_idcs, res = H.mask_work_list(reader, mask)
+        t0 = time.time()
+        for _ in H.iter_patch_batches(reader, x_idcs, y_idcs, res, patch, 256, pin=True):
+            pass
+        read_s = time.time() - t0
+        print(f"phase 9: map {name}: {n} patches in {map_s:.3f} s wall = {n / map_s:.1f} patches/s; the sum of its "
+              f"{len(pairs)} forwards at the forward's own rate {len(pairs) * fwd / 1e3:.3f} s; between each "
+              f"forward's events in the loop {events_s(pairs):.3f} s (the card also waits there for the host's "
+              f"launches); the patch reads alone {read_s:.3f} s = {n / read_s:.1f} patches/s (8 threads, pinned); "
+              f"slide {slide}^2, smaller than a real Camelyon16 slide [{card}]", flush=True)
+        if profile_dir and name == "tumor_001":
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.time()
+                H.compute_probs_map(reader, mask, forward, dev, image_size=patch, batch_size=256)
+                torch.cuda.synchronize()
+                wall_ms = (time.time() - t0) * 1e3
+            device_ms = sum(e.self_device_time_total for e in device_events(prof)) / 1e3
+            table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=30)
+            os.makedirs(profile_dir, exist_ok=True)
+            with open(os.path.join(profile_dir, "heatmap_profile.txt"), "w") as f:
+                f.write(f"{card}\nmap {name} ({n} patches): device {device_ms:.3f} ms, wall {wall_ms:.3f} ms "
+                        f"(profiled)\n{table}\n")
+            print(f"profile: map {name}, device time {device_ms:.3f} ms against {wall_ms:.3f} ms of wall "
+                  f"({device_ms / wall_ms * 100:.1f}% busy, profiled); table in {profile_dir}/heatmap_profile.txt "
+                  f"[{card}]", flush=True)
+
+
 def in_turns(fns: dict, order: list, iters: dict, warmup: int = 2) -> dict:
     """CUDA-event ms of each named function, run in the given order;
     returns every run's time per name."""
@@ -1015,24 +1405,32 @@ def main() -> int:
     from ssl_cr_histo_tpu_torch.cli import pretrain
     from ssl_cr_histo_tpu_torch.data import RSPTripletSampler
     from ssl_cr_histo_tpu_torch.models import Classifier, TripletNet, feature_dim
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
 
     phase_step_card_vs_cpu(torch)
     steps = 8
     with tempfile.TemporaryDirectory() as tmp:
         slides = write_slides(tmp)
         run = os.path.join(tmp, "run")
-        argv = ["--train_image_pth", slides, "--save_dir", run, "--model", "resnet18",
+        base = ["--train_image_pth", slides, "--model", "resnet18",
                 "--batch_size", "64", "--tile_h", "256", "--tile_w", "256", "--tile_stride", "16",
                 "--num_epoch", "1", "--steps_per_epoch", str(steps), "--validation_size", "64",
                 "--save_freq", "1", "--index_cache_dir", ""]
+        argv = base + ["--save_dir", run]
         print("phase 5: pretrain CLI " + " ".join(argv), flush=True)
         PK.launches = RK.launches = 0
+        tee = Tee(sys.stdout)
         t0 = time.time()
-        pretrain.main(argv)
+        with cuda_timed(torch, S, "pretrain_step") as pairs, contextlib.redirect_stdout(tee):
+            pretrain.main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = {"photometric_chain": PK.launches, "rsp_augment": RK.launches}
-        print(f"phase 5: CLI wall {wall:.2f} s, launches {launches}", flush=True)
+        epoch = re.search(r"Epoch time: ([0-9.]+) s", tee.buf.getvalue())
+        check(epoch is not None and len(pairs) == steps, f"the CLI printed no epoch time or took {len(pairs)} steps")
+        print(f"phase 5: CLI wall {wall:.2f} s, launches {launches}; the epoch's wall {float(epoch.group(1)):.2f} s "
+              f"(the CLI's own print) against {events_s(pairs):.3f} s of stream time between the CUDA events "
+              f"around each of its {steps} steps [{card}]", flush=True)
         check(launches["rsp_augment"] >= steps,
               f"fused kernel launched {launches['rsp_augment']} times in {steps} train steps")
         check(launches["photometric_chain"] == 0,
@@ -1067,6 +1465,7 @@ def main() -> int:
         check(ferr <= 1e-3, f"card vs CPU float32 forward differ by {ferr}")
         print(f"phase 5: checkpoint forward, card vs CPU float32 logits: max abs err {ferr:.2e}",
               flush=True)
+        phase_pretrain_feeds(torch, pretrain, S, base, tmp, steps, card)
         # one real batch of triplets for the timing phase
         sampler = RSPTripletSampler(tile=256, stride=16)
         tiles_np = next(sampler.iter_batches(sampler.index_directory(slides, cache_dir=None),
@@ -1077,11 +1476,15 @@ def main() -> int:
         # phase 7: consistency training from phase 6's checkpoints (stage 2 -> 3)
         phase_consistency(torch, dev, tmp, card, opts.profile)
 
-    # phase 8: timing
-    tiles = torch.from_numpy(np.ascontiguousarray(tiles_np)).to(dev)
-    timing = phase_timing(torch, dev, tiles, card)
-    if opts.profile:
-        phase_profile(torch, dev, tiles, opts.profile, card)
+        # phase 8: timing
+        tiles = torch.from_numpy(np.ascontiguousarray(tiles_np)).to(dev)
+        timing = phase_timing(torch, dev, tiles, card)
+        if opts.profile:
+            phase_profile(torch, dev, tiles, opts.profile, card)
+        del tiles
+
+        # phase 9: Camelyon16 from the pretrain checkpoint to a heatmap and its FROC
+        phase_camelyon(torch, dev, tmp, os.path.join(run, "ckpt_1.pth"), card, opts.profile)
 
     replaces = {"photometric_chain": "ssl_cr_histo_tpu/ops/pallas_photometric.py:199",
                 "rsp_augment": "ssl_cr_histo_tpu/ops/pallas_photometric.py:199"}

@@ -40,11 +40,20 @@ class TaskConfig:
     # its fine-tune ones (eval_*_SSL_CR.py --batch_size: BPQ 4, Camelyon16
     # 8, Kather 8); 0 = the fine-tune batch.
     cr_batch_size: int = 0
+    # Train batches come from two pools (tumor and normal source dirs) drawn
+    # in balance, batch_size from each, as Camelyon16's zipped loaders do
+    balanced: bool = False
 
     @property
     def cr_batch(self) -> int:
         """Labeled images per consistency step (``common.py:30-37``)."""
         return self.cr_batch_size or self.batch_size
+
+    def rows_per_step(self, batch_size: int) -> int:
+        """Rows a train step takes at this batch setting: a balanced task
+        draws ``batch_size`` from each of its two pools, the other tasks
+        ``batch_size`` in all (``common.py:39-45``)."""
+        return 2 * batch_size if self.balanced else batch_size
 
 
 TASKS = {
@@ -52,7 +61,8 @@ TASKS = {
     "breastpathq": TaskConfig("breastpathq", 1, "regression", 256, 4, "adam", 1e-4),
     # eval_Camelyon_SSL.py:205-211: SGD-Nesterov 5e-4, batch 16 per class, 2-way CE;
     # CR batch 8 (eval_Camelyon_SSL_CR.py:247)
-    "camelyon16": TaskConfig("camelyon16", 2, "classification", 256, 16, "sgd", 5e-4, cr_batch_size=8),
+    "camelyon16": TaskConfig("camelyon16", 2, "classification", 256, 16, "sgd", 5e-4, cr_batch_size=8,
+                             balanced=True),
     # eval_Kather_SSL.py:231-238: Adam 1e-5, batch 64, 9-way CE; CR batch 8
     # (eval_Kather_SSL_CR.py:267)
     "kather": TaskConfig("kather", 9, "classification", 224, 64, "adam", 1e-5, cr_batch_size=8),
@@ -64,6 +74,22 @@ def apply_task_overrides(args, cfg: TaskConfig) -> TaskConfig:
     if getattr(args, "image_size", 0):
         cfg = dataclasses.replace(cfg, image_size=args.image_size)
     return cfg
+
+
+def balanced_epoch_len(key, batch_size: int) -> int:
+    """Steps per epoch of ``data.pipeline.balanced_batch_iterator`` over
+    pool key ``key`` (``datasets.grouping_key``): the smaller pool's count
+    of ``batch_size`` batches (``common.py:232-257``), from which
+    Camelyon16's LR milestones are counted; possibly 0.  Raises SystemExit
+    when the key has other than two pools, before any data is decoded."""
+    _, counts = np.unique(np.asarray(key, dtype=np.int64), return_counts=True)
+    if len(counts) != 2:
+        raise SystemExit(
+            f"Camelyon16 balanced batching needs exactly two pools (tumor + normal source dirs, or binary "
+            f"polygon labels); got {len(counts)} -- for multi-dir layouts pass exactly two comma-joined patch "
+            f"dirs; for single-dir layouts the polygon labels (after any --labeled_train subsample) must "
+            f"contain both classes")
+    return int(counts.min()) // max(batch_size, 1)
 
 
 def make_optimizer(kind: str, params, lr: float, weight_decay: float = 1e-4) -> torch.optim.Optimizer:

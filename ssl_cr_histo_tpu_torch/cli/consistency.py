@@ -1,15 +1,19 @@
 """Teacher/student consistency training (SSL_CR stage 3) on a GPU.
 
 Counterpart of ``ssl_cr_histo_tpu/cli/consistency.py:45-349``, ``--mode
-fine-tuning`` for the Kather and BreastPathQ tasks.  Kather's CR config of
-record (reference eval_Kather_SSL_CR.py:267; ``cli.common.TASKS``): 9
-classes at 224^2, 8 labeled images a step (24 views after the 3-view stack),
-mu 7 (56 unlabeled images a step, each with a weak and a strong view), NAug
-7 strong stages at magnitudes in [1, 10), lambda_u 1, the tensors below
-``--modules_student`` 60 frozen, Adam 1e-5 with L2 1e-4 added to the
-gradient, MultiStepLR at epochs [30, 60] (in steps) with gamma 0.1, bf16
-autocast, and the teacher refreshed from the student at the end of each
-epoch.  Teacher and student start from a fine-tune checkpoint.
+fine-tuning`` for the Kather, BreastPathQ and Camelyon16 tasks.  Kather's
+CR config of record (reference eval_Kather_SSL_CR.py:267;
+``cli.common.TASKS``): 9 classes at 224^2, 8 labeled images a step (24
+views after the 3-view stack), mu 7 (56 unlabeled images a step, each with
+a weak and a strong view), NAug 7 strong stages at magnitudes in [1, 10),
+lambda_u 1, the tensors below ``--modules_student`` 60 frozen, Adam 1e-5
+with L2 1e-4 added to the gradient, MultiStepLR at epochs [30, 60] (in
+steps) with gamma 0.1, bf16 autocast, and the teacher refreshed from the
+student at the end of each epoch.  Teacher and student start from a
+fine-tune checkpoint.  Camelyon16's CR config (eval_Camelyon_SSL_CR.py:247): 8 labeled images from each of the
+tumor and normal pools and 56 unlabeled from each (mu 7) a step at 256^2,
+the four balanced iterators (tumor/normal x labeled/unlabeled) zipped,
+SGD-Nesterov 5e-4.
 
     python -m ssl_cr_histo_tpu_torch.cli.consistency --task kather --train_path CLASS_DIRS/ \\
         --finetune_ckpt FT_RUN/best.pth --save_dir RUN/
@@ -18,9 +22,9 @@ Writes ``consistency_results.csv``, ``best.pth``, ``ckpt_<epoch>.pth`` and
 ``final.pth`` under ``--save_dir`` in the fine-tune layout (the student's
 TripletNet under ``'model'``, its head under ``'classifier'``), and with
 ``--ema`` the teacher's own ``teacher_best.pth``, ``teacher_ckpt_<epoch>.pth``
-and ``teacher_final.pth``.  ``--task camelyon16``, ``--mode evaluation``,
-``--resume``, ``--aug_mode fast|masked|exact`` and ``--reference_exact`` exit
-with "not yet ported" (ROADMAP.md); ``--multi_step`` is not carried.
+and ``teacher_final.pth``.  ``--mode evaluation``, ``--resume``, ``--aug_mode
+fast|masked|exact`` and ``--reference_exact`` exit with "not yet ported"
+(ROADMAP.md); ``--multi_step`` is not carried.
 """
 
 from __future__ import annotations
@@ -40,7 +44,13 @@ from ssl_cr_histo_tpu_torch.cli.common import (
     resolve_device,
     seed_everything,
 )
-from ssl_cr_histo_tpu_torch.cli.finetune import load_train_val, subsample_labeled, validate
+from ssl_cr_histo_tpu_torch.cli.finetune import (
+    load_train_val,
+    steps_per_epoch,
+    subsample_labeled,
+    train_batches,
+    validate,
+)
 from ssl_cr_histo_tpu_torch.data.pipeline import prefetch_to_device
 from ssl_cr_histo_tpu_torch.parallel import steps as S
 from ssl_cr_histo_tpu_torch.train.checkpoint import save_checkpoint
@@ -51,15 +61,18 @@ from ssl_cr_histo_tpu_torch.train.state import FinetuneState
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("SSL_CR consistency training (PyTorch / CUDA)")
-    p.add_argument("--task", required=True, choices=list(TASKS), help="camelyon16 is not ported yet")
+    p.add_argument("--task", required=True, choices=list(TASKS))
     p.add_argument("--mode", default="fine-tuning", choices=["fine-tuning", "evaluation"],
                    help="evaluation is not ported yet")
     p.add_argument("--train_path", default="",
                    help="train data dir: the labeled fraction supervises, the whole train split is "
-                        "the unlabeled pool")
+                        "the unlabeled pool; Camelyon16 takes two comma-joined patch dirs, tumor and normal")
+    p.add_argument("--json_path", default="", help="Camelyon16 annotation JSON dir")
     p.add_argument("--val_path", default="",
-                   help="explicit validation data dir; when set the whole --train_path trains "
+                   help="explicit validation data dir(s); when set the whole --train_path trains "
                         "and --validation_split is ignored")
+    p.add_argument("--val_json_path", default="",
+                   help="annotation JSON dir for --val_path (defaults to --json_path)")
     p.add_argument("--with_replacement", action="store_true",
                    help="reproduce the reference's labeled subsampling with replacement")
     p.add_argument("--finetune_ckpt", default="",
@@ -95,22 +108,21 @@ def run(args, cfg, labeled, train, val) -> FinetuneState:
     (``cli/consistency.py:145-349``): per epoch, labeled batches of B (seed
     ``seed + epoch``) zipped with unlabeled batches of B * mu from the whole
     train split (seed ``1000 + seed + epoch``), each fed one batch ahead by a
-    thread; a consistency step per pair; the teacher refreshed from the
-    student at the end of the epoch (or EMA-updated after each step under
-    ``--ema``); validation of the student, the CSV row, ``best.pth``, and
-    every ``--save_freq`` epochs ``ckpt_<epoch>.pth``; ``final.pth`` at the
-    end.  Returns the student."""
+    thread (for Camelyon16 both balanced, B and B * mu from each pool); a
+    consistency step per pair; the teacher refreshed from the student at the
+    end of the epoch (or EMA-updated after each step under ``--ema``);
+    validation of the student, the CSV row, ``best.pth``, and every
+    ``--save_freq`` epochs ``ckpt_<epoch>.pth``; ``final.pth`` at the end.
+    Returns the student."""
     device = resolve_device(args)
     gen = seed_everything(args.seed, device)
     # the augmentation tables' host generator (ops.batch.draw_transform_fix)
     host_gen = torch.Generator().manual_seed(args.seed + 1)
     batch_size = args.batch_size or cfg.cr_batch
-    n_labeled = len(labeled) // batch_size
-    n_unlabeled = len(train) // (batch_size * args.mu)
-    if min(n_labeled, n_unlabeled) == 0:
-        raise SystemExit(f"zero steps per epoch: {n_labeled} labeled batches (batch {batch_size}) vs "
-                         f"{n_unlabeled} unlabeled batches (batch {batch_size}*mu{args.mu}) -- reduce "
-                         f"--batch_size/--mu or add data")
+    # labeled and unlabeled batch counts (for a balanced task, of the four
+    # zipped loaders, ``cli/consistency.py:165-183``); zero raises SystemExit
+    n_labeled = steps_per_epoch(cfg, labeled, batch_size)
+    n_unlabeled = steps_per_epoch(cfg, train, batch_size * args.mu)
     if len(val) == 0:
         raise SystemExit("empty validation set -- raise --validation_split or pass --val_path")
     n_steps = min(n_labeled, n_unlabeled)
@@ -139,8 +151,9 @@ def run(args, cfg, labeled, train, val) -> FinetuneState:
         # the sums stay on the device; reading them synchronises
         sums = torch.zeros(3, device=device)
         seen = 0
-        lab_it = labeled.batches(batch_size, seed=args.seed + epoch)
-        unlab_it = ((imgs,) for imgs, _ in train.batches(batch_size * args.mu, seed=1000 + args.seed + epoch))
+        lab_it = train_batches(cfg, labeled, batch_size, args.seed + epoch)
+        unlab_it = ((imgs,) for imgs, _ in train_batches(cfg, train, batch_size * args.mu,
+                                                         1000 + args.seed + epoch))
         pairs = zip(prefetch_to_device(lab_it, device), prefetch_to_device(unlab_it, device))
         for bi, ((x_l, y_l), (x_u,)) in enumerate(pairs):
             m = S.consistency_step(state, teacher, x_l, y_l, x_u, gen, cfg.task, args.lambda_u, args.NAug,
@@ -183,14 +196,12 @@ def main(argv=None):
     reject_unported(args, {"resume": "--resume"})
     if args.mode != "fine-tuning":
         raise SystemExit(f"--mode {args.mode} is not yet ported to the PyTorch package (see ROADMAP.md)")
-    if args.task == "camelyon16":
-        raise SystemExit("--task camelyon16 is not yet ported to the PyTorch package (see ROADMAP.md)")
     if not args.train_path or not args.finetune_ckpt:
         raise SystemExit("--train_path and --finetune_ckpt required for fine-tuning")
     cfg = apply_task_overrides(args, TASKS[args.task])
     resolve_device(args)  # a missing GPU fails before the data loads
     train, val = load_train_val(args, cfg)
-    return run(args, cfg, subsample_labeled(train, args), train, val)
+    return run(args, cfg, subsample_labeled(train, args, cfg), train, val)
 
 
 if __name__ == "__main__":

@@ -1,21 +1,28 @@
 """Supervised fine-tuning (SSL stage 2) on a GPU.
 
 Counterpart of ``ssl_cr_histo_tpu/cli/finetune.py:44-330``, ``--mode
-fine-tuning`` for the Kather and BreastPathQ tasks.  Config of record per
-task (``cli.common.TASKS``); Kather's (reference eval_Kather_SSL.py:231-238):
-9 classes at 224^2, batch 64 images (192 views a step after the 3-view
-stack), Adam 1e-5 with L2 1e-4 added to the gradient, MultiStepLR at epochs
-[30, 60] with gamma 0.1 stepped per optimizer step, bf16 autocast, the
-backbone loaded from a pretraining checkpoint.
+fine-tuning`` for the Kather, BreastPathQ and Camelyon16 tasks.  Config of
+record per task (``cli.common.TASKS``); Kather's (reference
+eval_Kather_SSL.py:231-238): 9 classes at 224^2, batch 64 images (192 views
+a step after the 3-view stack), Adam 1e-5 with L2 1e-4 added to the
+gradient, MultiStepLR at epochs [30, 60] with gamma 0.1 stepped per
+optimizer step, bf16 autocast, the backbone loaded from a pretraining
+checkpoint.  Camelyon16's (eval_Camelyon_SSL.py:205-211): 2 classes at
+256^2, 16 images from each of the tumor and normal pools a step (96 views),
+SGD-Nesterov 5e-4 with L2 1e-4, the milestones counted in the balanced
+iterator's epochs.
 
     python -m ssl_cr_histo_tpu_torch.cli.finetune --task kather --train_path CLASS_DIRS/ \\
         --model_path PRETRAIN_RUN/best.pth --save_dir RUN/
+    python -m ssl_cr_histo_tpu_torch.cli.finetune --task camelyon16 --train_path TUMOR_DIR,NORMAL_DIR \\
+        --json_path JSONS/ --val_path TUMOR_VALID,NORMAL_VALID --model_path PRETRAIN_RUN/ckpt_1.pth \\
+        --save_dir RUN/
 
 Writes ``fine_tuned_results.csv``, ``best.pth``, ``ckpt_<epoch>.pth`` and
 ``final.pth`` under ``--save_dir``: the TripletNet under ``'model'`` and the
 head under ``'classifier'`` (``classifier.0.*``), the reference's layout.
-``--task camelyon16``, ``--mode evaluation`` and ``--resume`` exit with "not
-yet ported" (ROADMAP.md); ``--multi_step`` is not carried.
+``--mode evaluation`` and ``--resume`` exit with "not yet ported"
+(ROADMAP.md); ``--multi_step`` is not carried.
 """
 
 from __future__ import annotations
@@ -31,13 +38,14 @@ from ssl_cr_histo_tpu_torch.cli.common import (
     TASKS,
     add_common_args,
     apply_task_overrides,
+    balanced_epoch_len,
     make_optimizer,
     reject_unported,
     resolve_device,
     seed_everything,
 )
 from ssl_cr_histo_tpu_torch.data import datasets as D
-from ssl_cr_histo_tpu_torch.data.pipeline import prefetch_to_device
+from ssl_cr_histo_tpu_torch.data.pipeline import balanced_batch_iterator, prefetch_to_device
 from ssl_cr_histo_tpu_torch.eval import metrics as M
 from ssl_cr_histo_tpu_torch.parallel import steps as S
 from ssl_cr_histo_tpu_torch.train.checkpoint import save_checkpoint
@@ -48,13 +56,18 @@ from ssl_cr_histo_tpu_torch.train.state import FinetuneState
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("SSL supervised fine-tuning (PyTorch / CUDA)")
-    p.add_argument("--task", required=True, choices=list(TASKS), help="camelyon16 is not ported yet")
+    p.add_argument("--task", required=True, choices=list(TASKS))
     p.add_argument("--mode", default="fine-tuning", choices=["fine-tuning", "evaluation"],
                    help="evaluation is not ported yet")
-    p.add_argument("--train_path", default="", help="train data dir (h5 dir / class folders)")
+    p.add_argument("--train_path", default="",
+                   help="train data dir (h5 dir / class folders / patch dirs); Camelyon16 takes two "
+                        "comma-joined patch dirs, tumor and normal (or one dir with polygon labels)")
+    p.add_argument("--json_path", default="", help="Camelyon16 annotation JSON dir")
     p.add_argument("--val_path", default="",
-                   help="explicit validation data dir; when set the whole --train_path trains "
+                   help="explicit validation data dir(s); when set the whole --train_path trains "
                         "and --validation_split is ignored")
+    p.add_argument("--val_json_path", default="",
+                   help="annotation JSON dir for --val_path (defaults to --json_path)")
     p.add_argument("--model_path", default="",
                    help="stage-1 pretraining checkpoint (.pth with a 'model' state_dict)")
     p.add_argument("--modules", type=int, default=0,
@@ -78,34 +91,63 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def load_task_dataset(cfg, path: str):
-    """One task-appropriate loader call."""
+def load_task_dataset(cfg, path: str, json_path: str = ""):
+    """One task-appropriate loader call (``cli/finetune.py:103-110``)."""
     if cfg.name == "breastpathq":
         return D.load_breastpathq_h5(path, cfg.image_size)
-    if cfg.name == "kather":
-        return D.load_kather_folder(path, cfg.image_size)
-    raise SystemExit(f"--task {cfg.name} is not yet ported to the PyTorch package (see ROADMAP.md)")
+    if cfg.name == "camelyon16":
+        return D.load_camelyon16_patches(path, json_path, cfg.image_size)
+    return D.load_kather_folder(path, cfg.image_size)
 
 
 def load_train_val(args, cfg):
-    """Train/val pair: an explicit ``--val_path``, or a seeded
-    ``--validation_split`` holdout of the train set
+    """Train/val pair: an explicit ``--val_path`` (the reference's
+    Camelyon16 VALID dirs, with ``--val_json_path`` or ``--json_path``), or
+    a seeded ``--validation_split`` holdout of the train set
     (eval_BreastPathQ_SSL.py:293-302)."""
-    ds = load_task_dataset(cfg, args.train_path)
+    ds = load_task_dataset(cfg, args.train_path, args.json_path)
     if args.val_path:
-        return ds, load_task_dataset(cfg, args.val_path)
+        return ds, load_task_dataset(cfg, args.val_path, args.val_json_path or args.json_path)
     return D.train_val_split(ds, args.validation_split, seed=args.seed)
 
 
-def subsample_labeled(train, args):
-    """Labeled-fraction subsampling.  The reference applies
-    np.random.choice even at labeled_train=1.0 (a with-replacement bootstrap
-    that drops ~37% of samples), so ``--with_replacement`` subsamples
-    unconditionally; without replacement, fraction 1.0 is the identity."""
+def subsample_labeled(train, args, cfg):
+    """Labeled-fraction subsampling (``cli/finetune.py:124-144``):
+    Camelyon16 draws each pool of ``datasets.grouping_key`` apart (the
+    reference's per-directory loaders), the other tasks draw from all.  The
+    reference applies np.random.choice even at labeled_train=1.0 (a
+    with-replacement bootstrap that drops ~37% of samples), so
+    ``--with_replacement`` subsamples unconditionally; without replacement,
+    fraction 1.0 is the identity."""
     if args.labeled_train >= 1.0 and not args.with_replacement:
         return train
-    return D.labeled_fraction(train, args.labeled_train, seed=args.seed,
-                              with_replacement=args.with_replacement)
+    return D.labeled_fraction(train, args.labeled_train, seed=args.seed, with_replacement=args.with_replacement,
+                              per_class=cfg.balanced)
+
+
+def steps_per_epoch(cfg, train, batch_size: int) -> int:
+    """Train steps an epoch: a balanced task's iterator gives the smaller
+    pool's batch count, the other tasks ``len // batch``
+    (``cli/finetune.py:185-203``).  Zero raises SystemExit: an epoch
+    without a step would still validate and checkpoint an untrained head."""
+    if cfg.balanced:
+        n = balanced_epoch_len(D.grouping_key(train), batch_size)
+    else:
+        n = len(train) // batch_size
+    if n == 0:
+        raise SystemExit(f"zero steps per epoch: {len(train)} train samples vs batch {batch_size}"
+                         f"{'/class (smaller pool undersized)' if cfg.balanced else ''}"
+                         f" -- reduce --batch_size or add data")
+    return n
+
+
+def train_batches(cfg, train, batch_size: int, seed: int):
+    """One epoch's host batches: balanced tumor/normal batches of
+    ``batch_size`` a pool for Camelyon16 (the reference's zipped loaders,
+    eval_Camelyon_SSL.py:281-291), a seeded shuffle for the other tasks."""
+    if cfg.balanced:
+        return balanced_batch_iterator(train, batch_size, seed=seed)
+    return train.batches(batch_size, seed=seed)
 
 
 def build_state(args, cfg, device: torch.device, n_steps_per_epoch: int) -> FinetuneState:
@@ -139,20 +181,18 @@ def validate(cfg, state: FinetuneState, val, batch_size: int, device: torch.devi
 
 def run(args, cfg, train, val) -> FinetuneState:
     """The ``--mode fine-tuning`` loop on loaded datasets (``cli/finetune.py:
-    161-294``): per epoch, the train steps over a seeded shuffle fed one
-    batch ahead by a thread, validation, the CSV row, ``best.pth``, and
-    every ``--save_freq`` epochs ``ckpt_<epoch>.pth``; ``final.pth`` at
-    the end."""
+    161-294``): per epoch, the train steps over a seeded shuffle (balanced
+    tumor/normal batches for Camelyon16) fed one batch ahead by a thread,
+    validation, the CSV row, ``best.pth``, and every ``--save_freq`` epochs
+    ``ckpt_<epoch>.pth``; ``final.pth`` at the end."""
     device = resolve_device(args)
     gen = seed_everything(args.seed, device)
     batch_size = args.batch_size or cfg.batch_size
-    n_steps_per_epoch = len(train) // batch_size
-    if n_steps_per_epoch == 0:
-        raise SystemExit(f"zero steps per epoch: {len(train)} train samples vs batch {batch_size} "
-                         f"-- reduce --batch_size or add data")
+    n_steps_per_epoch = steps_per_epoch(cfg, train, batch_size)
     if len(val) == 0:
         raise SystemExit("empty validation set -- raise --validation_split or pass --val_path")
-    print(f"==> {len(train)} train / {len(val)} val samples")
+    print(f"==> {len(train)} train / {len(val)} val samples; {n_steps_per_epoch} steps an epoch of "
+          f"{cfg.rows_per_step(batch_size)} images")
 
     state = build_state(args, cfg, device, n_steps_per_epoch)
     if args.model_path:
@@ -167,7 +207,7 @@ def run(args, cfg, train, val) -> FinetuneState:
         # the sum stays on the device; reading it synchronises
         loss_sum = torch.zeros((), device=device)
         seen = 0
-        batches = train.batches(batch_size, seed=args.seed + epoch)
+        batches = train_batches(cfg, train, batch_size, args.seed + epoch)
         for bi, (imgs, labels) in enumerate(prefetch_to_device(batches, device)):
             m = S.finetune_step(state, imgs, labels, gen, cfg.task, bf16=args.bf16)
             loss_sum += m["loss"] * len(labels)
@@ -196,12 +236,10 @@ def main(argv=None):
     reject_unported(args, {"resume": "--resume"})
     if args.mode != "fine-tuning":
         raise SystemExit(f"--mode {args.mode} is not yet ported to the PyTorch package (see ROADMAP.md)")
-    if args.task == "camelyon16":
-        raise SystemExit("--task camelyon16 is not yet ported to the PyTorch package (see ROADMAP.md)")
     cfg = apply_task_overrides(args, TASKS[args.task])
     resolve_device(args)  # a missing GPU fails before the data loads
     train, val = load_train_val(args, cfg)
-    return run(args, cfg, subsample_labeled(train, args), val)
+    return run(args, cfg, subsample_labeled(train, args, cfg), val)
 
 
 if __name__ == "__main__":

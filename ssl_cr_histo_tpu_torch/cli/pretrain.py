@@ -25,7 +25,7 @@ import torch
 
 from ssl_cr_histo_tpu_torch.cli.common import add_common_args, reject_unported, resolve_device, seed_everything
 from ssl_cr_histo_tpu_torch.data import ReaderCache, RSPTripletSampler, TripletIndex
-from ssl_cr_histo_tpu_torch.data.pipeline import pad_batches, to_device
+from ssl_cr_histo_tpu_torch.data.pipeline import pad_batches, prefetch_to_device
 from ssl_cr_histo_tpu_torch.parallel import steps as S
 from ssl_cr_histo_tpu_torch.train.checkpoint import save_checkpoint
 from ssl_cr_histo_tpu_torch.train.init import init_triplet_state
@@ -145,8 +145,9 @@ def main(argv=None):
                                        readers=readers, read_workers=args.read_workers)
         if args.steps_per_epoch:
             batches = itertools.islice(batches, args.steps_per_epoch)
-        for bi, tiles_np in enumerate(batches):
-            tiles = to_device(tiles_np, device)
+        # a thread reads and pins the next batches while the card runs this
+        # one (``cli/pretrain.py:302-304``); the order and seeds are the sampler's
+        for bi, (tiles,) in enumerate(prefetch_to_device(((t,) for t in batches), device)):
             m = S.pretrain_step(state, tiles, gen, **step_kwargs)
             n = tiles.shape[0]
             loss_sum += m["loss"] * n
@@ -160,13 +161,13 @@ def main(argv=None):
         print(f"Epoch time: {time.time() - t0:.2f} s.")
 
         # validation: every held-out triplet under all 6 orderings; the last
-        # partial batch is zero-padded with a validity mask
+        # partial batch is zero-padded with a validity mask; both come through
+        # the prefetch thread (``cli/pretrain.py:274``)
         sums = {k: torch.zeros((), device=device) for k in ("loss_sum", "correct", "count")}
         vb = sampler.iter_batches(val_positions, args.batch_size, seed=0, drop_last=False,
                                   readers=readers, read_workers=args.read_workers)
-        for tiles_np, valid in pad_batches(vb, args.batch_size):
-            out = S.pretrain_eval_step(state, to_device(tiles_np, device),
-                                       to_device(valid, device), bf16=args.bf16)
+        for tiles, valid in prefetch_to_device(pad_batches(vb, args.batch_size), device):
+            out = S.pretrain_eval_step(state, tiles, valid, bf16=args.bf16)
             for k in sums:
                 sums[k] += out[k]
         count = float(sums["count"])

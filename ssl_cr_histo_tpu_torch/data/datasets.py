@@ -1,15 +1,20 @@
-"""Dataset readers for the fine-tune tasks: the port's own copy of the
-parts of ``ssl_cr_histo_tpu/data/datasets.py`` that the fine-tune slice
-uses (numpy, with cv2 and h5py imported where an image or an .h5 file is
-read, so importing this module needs neither).
+"""Dataset readers for the three downstream tasks: the port's own copy of
+the parts of ``ssl_cr_histo_tpu/data/datasets.py`` that fine-tuning and
+consistency training use (numpy, with cv2 and h5py imported where an image
+or an .h5 file is read, so importing this module needs neither).
 
 Readers return raw uint8 HWC arrays and labels; augmentation runs on the
 device inside the train step.  Contracts of the reference:
   * BreastPathQ  -- .h5 files with data['x'] float CHW in [0, 1] and
                     data['y'] cellularity scores (dataset.py:453-536)
+  * Camelyon16   -- pre-sampled '{idx}.png' patches indexed by list.txt
+                    lines 'pid,x_center,y_center'; labels from
+                    point-in-polygon tests against per-WSI JSON
+                    annotations (the port's ``data.annotations``);
+                    fine-tune split rule Tumor_>25 / Normal_>35
+                    (dataset.py:685-939)
   * Kather       -- folder-per-class patches, 9 classes ADI..TUM
                     (dataset.py:1002-1241)
-Camelyon16's patch and annotation loaders are not ported yet (ROADMAP.md).
 
 Labeled-fraction subsampling defaults to sampling WITHOUT replacement; the
 reference samples with replacement (eval_BreastPathQ_SSL.py:299):
@@ -26,6 +31,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ssl_cr_histo_tpu_torch.data.annotations import Annotation
 from ssl_cr_histo_tpu_torch.data.pipeline import epoch_indices
 
 KATHER_CLASSES = ("ADI", "BACK", "DEB", "LYM", "MUC", "MUS", "NORM", "STR", "TUM")
@@ -134,6 +140,105 @@ def load_breastpathq_h5(dataset_path: str, image_size: int = 256) -> ArrayDatase
             images.append(_resize(img, image_size))
             labels.append(float(score))
     return ArrayDataset(np.stack(images), np.asarray(labels, np.float32))
+
+
+def _camelyon_list(data_path: str) -> List[Tuple[int, str, int, int]]:
+    """Parse list.txt -> [(line_idx, pid, x, y)].  Patch files are named by
+    line index ('{idx}.png', reference dataset.py:737), so the pairing
+    depends on list order, which is kept; short lines are skipped."""
+    out = []
+    with open(os.path.join(data_path, "list.txt")) as f:
+        for i, line in enumerate(f):
+            parts = line.strip("\n").split(",")
+            if len(parts) < 3:
+                continue
+            out.append((i, parts[0], int(parts[1]), int(parts[2])))
+    return out
+
+
+_ANNS_CACHE: Dict[str, Tuple[tuple, Dict[str, Annotation]]] = {}
+
+
+def _load_annotations(json_path: str) -> Dict[str, Annotation]:
+    """Every per-WSI annotation JSON under ``json_path`` by slide id,
+    memoised on the directory's (filename, mtime) listing: the train and
+    validation loaders default to the same ``--json_path``
+    (``datasets.py:220-238``)."""
+    root = os.path.realpath(json_path)
+    files = sorted(p for p in os.listdir(json_path) if p.endswith(".json"))
+    stamp = tuple((p, os.path.getmtime(os.path.join(json_path, p))) for p in files)
+    cached = _ANNS_CACHE.get(root)
+    if cached is not None and cached[0] == stamp:
+        return cached[1]
+    anns = {p[: -len(".json")]: Annotation().from_json(os.path.join(json_path, p)) for p in files}
+    _ANNS_CACHE[root] = (stamp, anns)
+    return anns
+
+
+def _finetune_split(pid: str) -> bool:
+    """The reference's hard-coded rule (dataset.py:716-727): fine-tuning
+    uses Tumor_>25 and Normal_>35; the other slides pretrain."""
+    head, _, num = pid.partition("_")
+    if not num.isdigit():
+        return False
+    if head == "Tumor":
+        return int(num) > 25
+    if head == "Normal":
+        return int(num) > 35
+    return False
+
+
+def split_data_dirs(data_path: str) -> List[str]:
+    """The comma-separated directories of a ``--*_path`` value: Camelyon16's
+    tumor and normal patch directories, joined by ',' only (':' is legal in
+    a POSIX path)."""
+    return [d.strip() for d in data_path.split(",") if d.strip()]
+
+
+def load_camelyon16_patches(data_path: str, json_path: str, image_size: int = 256,
+                            split: Optional[str] = "finetune", lazy: "str | bool" = "auto",
+                            lazy_threshold: int = 20000):
+    """'{idx}.png' patches of one or more comma-separated directories, each
+    with its own list.txt, labelled 1 where the patch centre lies in a
+    positive polygon of its slide's annotation (``datasets.py:255-327``).
+
+    split: 'finetune' keeps the Tumor_>25 / Normal_>35 slides, 'pretrain'
+    the others, None all.  Every listed file's existence is checked here,
+    so a list.txt longer than the extracted patch set fails at load.
+    ``groups`` records each patch's directory index, the pool key of
+    balanced batching and per-class subsampling (``grouping_key``).
+    lazy=True (or 'auto' above ``lazy_threshold`` items) returns a
+    LazyImageDataset that decodes per batch."""
+    dirs = split_data_dirs(data_path)
+    if not dirs:
+        raise ValueError("empty Camelyon16 data_path (expected patch dir(s))")
+    anns = _load_annotations(json_path)
+    paths: List[str] = []
+    labels: List[int] = []
+    groups: List[int] = []
+    for dir_i, d in enumerate(dirs):
+        for idx, pid, x, y in _camelyon_list(d):
+            keep = (split is None or (split == "finetune" and _finetune_split(pid))
+                    or (split == "pretrain" and not _finetune_split(pid)))
+            if not keep:
+                continue
+            p = os.path.join(d, f"{idx}.png")
+            if not os.path.isfile(p):
+                raise FileNotFoundError(f"list.txt line {idx} of {d!r} names a missing patch "
+                                        f"file {p!r} (list longer than the extracted png set?)")
+            paths.append(p)
+            groups.append(dir_i)
+            ann = anns.get(pid)
+            labels.append(1 if (ann is not None and ann.inside_polygons((x, y), True)) else 0)
+    if not paths:
+        raise ValueError(
+            f"no Camelyon16 patches survived the split={split!r} slide rule "
+            f"{'(Tumor_>25/Normal_>35 fine-tune slides only)' if split == 'finetune' else ''} "
+            f"in {dirs}; check the list.txt slide ids or pass split=None")
+    ds = LazyImageDataset(paths, np.asarray(labels, np.int32), image_size, groups=np.asarray(groups, np.int32))
+    if lazy is True or (lazy == "auto" and len(ds) > lazy_threshold):
+        return ds
+    return ds.materialize()
 
 
 def load_kather_folder(dataset_path: str, image_size: int = 224,

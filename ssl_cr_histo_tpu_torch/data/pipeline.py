@@ -55,13 +55,31 @@ def pad_batches(it: Iterable, batch_size: int) -> Iterator:
         yield (parts if is_tuple else parts[0]), valid
 
 
-def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Copy a host array to ``device``: through pinned memory and without
-    blocking the host when the device is a GPU."""
-    t = torch.from_numpy(np.ascontiguousarray(array))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+def balanced_batch_iterator(ds, batch_size: int, seed: int = 0) -> Iterator:
+    """Pool-balanced batches, the reference's Camelyon16 dual loaders
+    (eval_Camelyon_SSL.py:50-75, :281-291; ``pipeline.py:198-240``):
+    ``batch_size`` items from each of the two pools of
+    ``datasets.grouping_key(ds)`` per step, so each batch has
+    ``2 * batch_size`` rows, concatenated and then shuffled.  An epoch is
+    the smaller pool's batch count.  The draws are the JAX package's
+    ``np.random.default_rng(seed)`` calls in its order, so both yield the
+    same batches for a seed.  Yields (images, polygon labels); a lazy
+    dataset decodes each batch."""
+    from ssl_cr_histo_tpu_torch.data.datasets import grouping_key  # datasets imports this module
+
+    rng = np.random.default_rng(seed)
+    key = grouping_key(ds)
+    classes = np.unique(key)
+    if len(classes) != 2:
+        raise ValueError("balanced_batch_iterator expects two pools (binary labels or two source dirs)")
+    idx_a = rng.permutation(np.where(key == classes[0])[0])
+    idx_b = rng.permutation(np.where(key == classes[1])[0])
+    gather = ds.decode if hasattr(ds, "decode") else (lambda sel: ds.images[sel])
+    for i in range(min(len(idx_a), len(idx_b)) // batch_size):
+        sel = np.concatenate([idx_a[i * batch_size: (i + 1) * batch_size],
+                              idx_b[i * batch_size: (i + 1) * batch_size]])
+        rng.shuffle(sel)
+        yield gather(sel), ds.labels[sel]
 
 
 def prefetch_iter(it: Iterable, size: int = 2, map_fn=None) -> Iterator:

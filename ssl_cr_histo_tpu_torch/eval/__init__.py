@@ -1,2 +1,3 @@
-"""Evaluation: metrics (``metrics``), the port's own numpy copy of the JAX
-package's module of the same name."""
+"""Evaluation: metrics (``metrics``), WSI heatmap serving (``heatmap``) and
+the Camelyon16 FROC (``froc``); ``metrics`` and ``froc`` are the port's own
+numpy copies of the JAX package's modules of the same names."""

@@ -80,6 +80,18 @@ def load_finetuned(state: FinetuneState, path: str) -> FinetuneState:
     return state
 
 
+def init_serving_state(model_name: str, num_classes: int, device: torch.device, path: str) -> FinetuneState:
+    """The serving model: a TripletNet and FinetuneHead loaded from a
+    fine-tune or consistency checkpoint (``load_finetuned``), on ``device``
+    in eval mode, without optimizer or schedule (the JAX heatmap CLI's
+    restored state, ``cli/heatmap.py:57-66``)."""
+    state = FinetuneState(TripletNet(model_name), FinetuneHead(feature_dim(model_name), num_classes), None, None)
+    load_finetuned(state, path)
+    state.model.to(device).eval()
+    state.head.to(device).eval()
+    return state
+
+
 def init_teacher(state: FinetuneState) -> Teacher:
     """A teacher equal to the student: copies of its TripletNet and head,
     parameters and BN buffers alike, in eval mode with ``requires_grad``

@@ -49,12 +49,13 @@ class FinetuneState:
     """Fine-tune state: the TripletNet (frozen tensors have
     ``requires_grad`` off, see ``train.freeze``), the head, the optimizer
     over the trainable tensors, the per-step LR schedule, and the optimizer
-    steps taken."""
+    steps taken.  A serving state (``train.init.init_serving_state``) has
+    neither optimizer nor schedule."""
 
     model: TripletNet
     head: FinetuneHead
-    optimizer: torch.optim.Optimizer
-    scheduler: torch.optim.lr_scheduler.LRScheduler
+    optimizer: Optional[torch.optim.Optimizer]
+    scheduler: Optional[torch.optim.lr_scheduler.LRScheduler]
     step: int = 0
 
     def payload(self) -> dict:

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the GPU:
 the photometric chain (``csrc/photometric_chain.cu``) and the fused v1
-augmentation (``csrc/rsp_augment.cu``); and the consistency views and step,
-which launch no kernel, on the card against the CPU.
+augmentation (``csrc/rsp_augment.cu``); and the consistency views and step
+and the serving map, which launch no kernel, on the card against the CPU.
 
 Every test here needs a card (marker ``cuda``) and skips where
 ``torch.cuda.is_available()`` is False.  The file imports nothing of JAX, so
@@ -315,3 +315,37 @@ def test_consistency_step_card_matches_cpu(cuda, monkeypatch):
     for k in l_cpu:
         np.testing.assert_allclose(l_gpu[k], l_cpu[k], rtol=1e-4)
     assert max((sd_gpu[k] - sd_cpu[k]).abs().max().item() for k in sd_cpu) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_serving_map_card_matches_cpu(cuda, monkeypatch, tmp_path):
+    """The serving loop (pinned reads, non-blocking copies both ways, each
+    batch drained one forward late) on the card against the CPU, float32,
+    TF32 off, from one 2-way checkpoint: a 512^2 slide, a 16 x 16 mask,
+    64^2 patches, batch 24 (the last batch short); maps within 1e-5, 0 off
+    the mask; no kernel launches."""
+    from ssl_cr_histo_tpu_torch.cli.common import make_optimizer
+    from ssl_cr_histo_tpu_torch.data.wsi import ArrayPyramid
+    from ssl_cr_histo_tpu_torch.eval import heatmap as H
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+    from ssl_cr_histo_tpu_torch.train.checkpoint import save_checkpoint
+    from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_serving_state
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    rng = np.random.default_rng(4)
+    slide = ArrayPyramid(rng.integers(0, 256, (512, 512, 3), dtype=np.uint8), levels=1)
+    mask = (rng.random((16, 16)) < 0.5).astype(np.uint8)
+    torch.manual_seed(0)
+    path = str(tmp_path / "best.pth")
+    save_checkpoint(path, init_finetune_state("resnet18", 2, torch.device("cpu"),
+                                              lambda ps: make_optimizer("sgd", ps, 5e-4)), {"epoch": 1})
+    PK.launches = RK.launches = 0
+    maps = {}
+    for dev in (torch.device("cpu"), cuda):
+        state = init_serving_state("resnet18", 2, dev, path)
+        maps[dev.type] = H.compute_probs_map(slide, mask, lambda x, s=state: S.forward(s, x), dev,
+                                             image_size=64, batch_size=24)
+    np.testing.assert_allclose(maps["cuda"], maps["cpu"], rtol=0, atol=1e-5)
+    assert not maps["cuda"][mask == 0].any() and (maps["cuda"][mask > 0] > 0).all()
+    assert PK.launches == RK.launches == 0

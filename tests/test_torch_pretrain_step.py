@@ -370,6 +370,63 @@ def test_cli_end_to_end_and_checkpoint_loads_in_jax(tmp_path):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3, atol=2e-4)
 
 
+def test_cli_prefetch_keeps_the_batches_and_the_state(tmp_path, monkeypatch):
+    """The CLI feeds its train and validation batches through the prefetch
+    thread (``data.pipeline.prefetch_to_device``, each epoch's two feeds);
+    a run with that feed swapped for an inline read and copy (the CLI's
+    feed before it prefetched) gives the same train and validation batches,
+    in the same order, and bit-equal checkpoints, on the CPU over 2 epochs
+    of 3 steps."""
+    from ssl_cr_histo_tpu_torch.cli import pretrain
+
+    slides = str(tmp_path / "wsis")
+    _write_slides(slides)
+    real_prefetch = pretrain.prefetch_to_device
+
+    def inline(it, device, size=2):
+        for batch in it:
+            yield tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in batch)
+
+    runs = {}
+    for name, feed in (("prefetch", real_prefetch), ("inline", inline)):
+        seen = {"train": [], "val": [], "feeds": 0}
+        real_step, real_eval = TS.pretrain_step, TS.pretrain_eval_step
+
+        def counted(it, device, size=2, feed=feed, seen=seen):
+            seen["feeds"] += 1
+            return feed(it, device, size)
+
+        def step(state, tiles, *a, seen=seen, real_step=real_step, **kw):
+            seen["train"].append(tiles.clone())
+            return real_step(state, tiles, *a, **kw)
+
+        def eval_step(state, tiles, valid, *a, seen=seen, real_eval=real_eval, **kw):
+            seen["val"].append((tiles.clone(), valid.clone()))
+            return real_eval(state, tiles, valid, *a, **kw)
+
+        monkeypatch.setattr(pretrain, "prefetch_to_device", counted)
+        monkeypatch.setattr(TS, "pretrain_step", step)
+        monkeypatch.setattr(TS, "pretrain_eval_step", eval_step)
+        run = tmp_path / name
+        pretrain.main(["--train_image_pth", slides, "--save_dir", str(run), "--device", "cpu",
+                       "--tile_h", "64", "--tile_w", "64", "--tile_stride", "32", "--batch_size", "4",
+                       "--num_epoch", "2", "--steps_per_epoch", "3", "--validation_size", "6",
+                       "--save_freq", "2", "--index_cache_dir", "", "--no-bf16"])
+        monkeypatch.setattr(TS, "pretrain_step", real_step)
+        monkeypatch.setattr(TS, "pretrain_eval_step", real_eval)
+        runs[name] = (seen, torch.load(run / "ckpt_2.pth", weights_only=False))
+    (a, ca), (b, cb) = runs["prefetch"], runs["inline"]
+    assert a["feeds"] == b["feeds"] == 4 and len(a["train"]) == 6 and len(a["val"]) == 2 * 2
+    for x, y in zip(a["train"], b["train"], strict=True):
+        assert torch.equal(x, y)
+    for (x, v), (y, w) in zip(a["val"], b["val"], strict=True):
+        assert torch.equal(x, y) and torch.equal(v, w)
+    for part in ("model", "classifier"):
+        for k, v in ca[part].items():
+            assert torch.equal(v, cb[part][k]), k
+    assert all(torch.equal(x, y) for x, y in zip(ca["slow"], cb["slow"]))
+
+
 def test_cli_rejects_unported_flags(tmp_path):
     from ssl_cr_histo_tpu_torch.cli import pretrain
 
