@@ -17,7 +17,10 @@ Phases (any failure exits non-zero and prints no result line):
   3. the photometric chain kernel vs its plain version, host-noise mode, at
      (192, 3, 256, 256) and at an odd shape (4, 3, 37, 37): max abs err
      <= 1e-4; Philox mode: deterministic, seed-sensitive, equal to the
-     plain Philox chain (<= 1e-4), and N(0, sigma) noise by moments
+     plain Philox chain (<= 1e-4), and N(0, sigma) noise by moments; both
+     modes at shapes the cluster launch covers unevenly (50 x 64, 13 x 20,
+     tiles smaller than the blur's halo, one 256^2 tile more than the card
+     runs clusters at once); a 260-pixel row refused, naming the shape
   4. the fused augmentation kernel vs its plain version at the main path's
      (64, 3, 256, 256, 3) and at (2, 3, 37, 37, 3), params drawn, all gates
      on and all gates off, host noise and Philox, with and without a
@@ -66,7 +69,8 @@ Phases (any failure exits non-zero and prints no result line):
      (plain warp + chain kernel + clip + normalize), the fused kernel
      against that composition alone, the plain versions; the fused kernel's
      time (torch.profiler) in both noise modes and by gate, beside its
-     wrapper called back to back; the chain kernel in both noise modes
+     wrapper called back to back; the chain kernel in both noise modes, its
+     launch plan, clusters at once and waves, and its time by gate
   9. Camelyon16, from phase 5's ``ckpt_1.pth`` to a scored heatmap: seeded
      tumor and normal patch dirs of 256^2 PNGs with list.txt and annotation
      JSONs, two 8192^2 slides (a tumor and a normal one) with tissue masks
@@ -260,6 +264,7 @@ def phase_kernel_vs_plain(PK, torch, dev) -> float:
     main_shape, odd_shape = (3 * MAIN[0], 3, MAIN[1], MAIN[1]), (2 * ODD[0], 3, ODD[1], ODD[1])
     gates = [3, 5, 10, 13]
     for shape in (main_shape, odd_shape):
+        print(f"  launch plan {shape}: (cluster, rows, shared bytes) {PK.chain_launch_plan(*shape[2:])}", flush=True)
         n = shape[0]
         drawn = PK.draw_params(gen, n)
         all_on = drawn.clone()
@@ -276,6 +281,38 @@ def phase_kernel_vs_plain(PK, torch, dev) -> float:
             compare(f"noise-input, {label}", shape, params, noise)
         compare("philox, drawn params", shape, drawn, None)
         compare("philox, all gates on", shape, all_on, None)
+        compare("philox, all gates off", shape, all_off, None)
+
+    # shapes the launch covers unevenly, one tile a case (all gates off, all
+    # on, each gate alone, the blur alone at k = 3, 5, 7), both noise modes:
+    # heights not a multiple of a CTA's rows or of the cluster, rows not a
+    # multiple of 4 pixels, tiles smaller than the blur's halo, and one tile
+    # more than the card runs clusters at once (a last wave of one cluster)
+    rows = [[], gates] + [[g] for g in gates] + [[10]] * 3
+    wave = PK.max_active_clusters(MAIN[1], MAIN[1]) + 1
+    print(f"  {wave - 1} clusters of {MAIN[1]}^2 tiles at once on this card", flush=True)
+    for n, hw in ((len(rows), (50, 64)), (len(rows), (13, 20)), (len(rows), (3, 3)), (len(rows), (2, 5)),
+                  (wave, (MAIN[1], MAIN[1]))):
+        params = PK.draw_params(gen, n)
+        for i, on in enumerate(rows[:n]):
+            params[i, gates] = 0.0
+            params[i, on] = 1.0
+        for i, k in zip(range(len(rows) - 3, n), (3.0, 5.0, 7.0)):
+            params[i, 9] = k
+        shape = (n, 3, *hw)
+        compare(f"noise-input, each case, plan {PK.chain_launch_plan(*hw)}", shape, params,
+                torch.randn(shape, generator=gen, device=dev))
+        compare("philox, each case", shape, params, None)
+
+    # a shape the launch cannot take: ValueError naming it, no launch
+    before = PK.launches
+    try:
+        PK.photometric_chain_cuda(torch.rand(1, 3, 16, 260, device=dev), torch.zeros(1, dtype=torch.int32,
+                                  device=dev), torch.zeros(1, PK.N_PARAMS, device=dev))
+        fail("the chain wrapper took (1, 3, 16, 260) tiles")
+    except ValueError as e:
+        check("(3, 16, 260)" in str(e) and PK.launches == before, f"the refusal does not name the shape: {e}")
+    print("  (1, 3, 16, 260): refused, naming the shape", flush=True)
 
     # Philox mode: same seeds -> same bits; other seeds -> other output
     n = main_shape[0]
@@ -1293,12 +1330,28 @@ def phase_timing(torch, dev, tiles, card) -> dict:
     c_ms, c_by = bound_ms(bytes_, chain_ops(params, s * s, philox=True))
     ni_kernel = profiled_kernel_ms(fns["kernel_ni"], "photometric_chain_kernel", 50)
     ni_ms, ni_by = bound_ms(bytes_ + noise.numel() * 4, chain_ops(params, s * s, philox=False))
-    print(f"phase 8: photometric chain {shape}: kernel {kernel * 1e3:.1f} us (profiler), "
-          f"{ms['kernel'] * 1e3:.1f} us (CUDA events), plain {ms['plain'] * 1e3:.1f} us (Philox mode, "
+    print(f"phase 8: photometric chain {shape}: kernel {kernel * 1e3:.1f} us (profiler; the design "
+          f"of one 32x32 patch and its halo a block: 265.1 on an H100 80GB HBM3 at 700 W), {ms['kernel'] * 1e3:.1f} us (CUDA events), plain {ms['plain'] * 1e3:.1f} us (Philox mode, "
           f"plain includes its noise), bound {c_ms * 1e3:.1f} us by {c_by}, {c_ms / kernel * 100:.1f}% of it; "
-          f"host-noise mode: kernel {ni_kernel * 1e3:.1f} us (profiler), {ms['kernel_ni'] * 1e3:.1f} us "
-          f"(CUDA events), plain {ms['plain_ni'] * 1e3:.1f} us, bound {ni_ms * 1e3:.1f} us by {ni_by}, "
-          f"{ni_ms / ni_kernel * 100:.1f}% of it [{card}]", flush=True)
+          f"host-noise mode: kernel {ni_kernel * 1e3:.1f} us (profiler; that design 227.0), "
+          f"{ms['kernel_ni'] * 1e3:.1f} us (CUDA events), plain {ms['plain_ni'] * 1e3:.1f} us, bound "
+          f"{ni_ms * 1e3:.1f} us by {ni_by}, {ni_ms / ni_kernel * 100:.1f}% of it [{card}]", flush=True)
+    cluster, rows, smem = PK.chain_launch_plan(s, s)
+    at_once = PK.max_active_clusters(s, s)
+    print(f"phase 8: photometric chain launch: a cluster of {cluster} CTAs of {rows} rows a tile, {smem} bytes of "
+          f"shared memory a CTA, {at_once} clusters at once = {math.ceil(n / at_once)} waves for {n} tiles "
+          f"(the last {n - (math.ceil(n / at_once) - 1) * at_once} clusters); stages 1-3 run "
+          f"{4 * math.ceil(s / 4) / s:.2f}x a tile's pixels (a 32x32 patch with its halo: 1.41x on blur tiles)", flush=True)
+    # where the chain kernel's time goes: each gate alone on every tile (blur at k = 7)
+    parts = []
+    for label, on in (("all gates off", []), ("HSV only", [3]), ("noise only", [5]), ("blur k=7 only", [10]),
+                      ("brightness/contrast only", [13]), ("all gates on, k=7", gates)):
+        p = params.clone()
+        p[:, gates], p[:, 9] = 0.0, 7.0
+        p[:, on] = 1.0
+        t_gate = profiled_kernel_ms(lambda: PK.photometric_chain_cuda(imgs, seeds, p), "photometric_chain_kernel", 20)
+        parts.append(f"{label} {t_gate * 1e3:.1f}")
+    print(f"phase 8: chain kernel by gate, Philox mode (us, profiler): {'; '.join(parts)} [{card}]", flush=True)
     warp_ms = cuda_ms(lambda: fused.pretrain_geo_warp_planar(imgs, mats), iters=5)
     print(f"phase 8: plain warp {shape}: {warp_ms * 1e3:.1f} us [{card}]", flush=True)
     out["photometric_chain"] = {"ms": kernel, "plain_ms": ms["plain"], "bound_ms": c_ms, "bound_by": c_by}
@@ -1387,8 +1440,10 @@ def main() -> int:
         log = build.build_log(name)
         print(log.rstrip(), flush=True)
         regs = sorted({int(v) for v in re.findall(r"Used (\d+) registers", log)})
+        smem = sorted({int(v) for v in re.findall(r"(\d+) bytes smem", log)})
         spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill stores", log))
-        print(f"phase 2: {name}: registers a thread {regs}, spill stores {spills} bytes", flush=True)
+        print(f"phase 2: {name}: registers a thread {regs}, static shared memory {smem} bytes, spill stores "
+              f"{spills} bytes", flush=True)
         check(spills == 0, f"{name}: ptxas reports {spills} bytes of spill stores")
 
     # phases 3-4: each kernel against its plain version

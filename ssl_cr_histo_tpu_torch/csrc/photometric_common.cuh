@@ -1,7 +1,8 @@
 // Device code shared by photometric_chain.cu and rsp_augment.cu: reflect101
 // folding, Philox4x32-10 and its Box-Muller normals, RGB<->HSV, the per-tile
 // parameters, and the chain's pointwise stages 1-3 (HSV shift, Gaussian
-// noise, HED shift).  Both kernels include it, so they draw the same noise
+// noise, HED shift), one function a stage and pointwise_stages over all
+// three.  Both kernels include it, so they draw the same noise
 // and apply the same arithmetic.  ops/photometric_kernel.py is the plain
 // PyTorch version of everything here.
 //
@@ -126,12 +127,19 @@ __device__ __forceinline__ float uniform_open(uint32_t bits) {
   return (static_cast<float>(bits >> 9) + 0.5f) * 1.1920928955078125e-07f;  // 2^-23
 }
 
-// The three channels' N(0, 1) noise of pixel (y, x) of tile n: one Philox
-// call keyed on (seed, 0) at counter (x, y, n, 0); Box-Muller on words 0-1
-// gives channels 0 (cos) and 1 (sin), on words 2-3 channel 2 (cos).
-__device__ __forceinline__ void philox_normal3(uint32_t seed, int n, int y, int x, float nz[3]) {
-  uint32_t ctr[4] = {static_cast<uint32_t>(x), static_cast<uint32_t>(y), static_cast<uint32_t>(n), 0u};
+// Philox4x32-10 keyed on (seed, 0) at counter (x, y, n, 0): the bits of
+// pixel (y, x) of tile n.
+__device__ __forceinline__ void philox_pixel(uint32_t seed, int n, int y, int x, uint32_t ctr[4]) {
+  ctr[0] = static_cast<uint32_t>(x);
+  ctr[1] = static_cast<uint32_t>(y);
+  ctr[2] = static_cast<uint32_t>(n);
+  ctr[3] = 0u;
   philox4x32_10(ctr, seed, 0u);
+}
+
+// Box-Muller on one Philox output: words 0-1 give channels 0 (cos) and 1
+// (sin), words 2-3 channel 2 (cos).
+__device__ __forceinline__ void box_muller3(const uint32_t ctr[4], float nz[3]) {
   const float r01 = sqrtf(-2.0f * logf(uniform_open(ctr[0])));
   const float r2 = sqrtf(-2.0f * logf(uniform_open(ctr[2])));
   float s, c;
@@ -139,6 +147,13 @@ __device__ __forceinline__ void philox_normal3(uint32_t seed, int n, int y, int 
   nz[0] = r01 * c;
   nz[1] = r01 * s;
   nz[2] = r2 * cospif(2.0f * uniform_open(ctr[3]));
+}
+
+// The three channels' N(0, 1) noise of pixel (y, x) of tile n.
+__device__ __forceinline__ void philox_normal3(uint32_t seed, int n, int y, int x, float nz[3]) {
+  uint32_t ctr[4];
+  philox_pixel(seed, n, y, x, ctr);
+  box_muller3(ctr, nz);
 }
 
 __device__ __forceinline__ void rgb2hsv(float r, float g, float b, float& h, float& s, float& v) {
@@ -167,6 +182,40 @@ __device__ __forceinline__ void hsv2rgb(float h, float s, float v, float& r, flo
   b = (i == 3 || i == 4) ? v : i == 2 ? t : i == 5 ? q : p;
 }
 
+// Stage 1, the HSV shift, on one pixel in place.
+__device__ __forceinline__ void hsv_shift(float& r, float& g, float& b, const TileParams& tp) {
+  float hh, ss, vv;
+  rgb2hsv(r, g, b, hh, ss, vv);
+  hh = wrap01(hh + tp.hue);
+  ss = clip01(ss + tp.sat);
+  vv = clip01(vv + tp.val);
+  hsv2rgb(hh, ss, vv, r, g, b);
+}
+
+// Stage 2, N(0, 1) noise scaled by sigma and clipped, on one pixel in place.
+__device__ __forceinline__ void add_noise(float& r, float& g, float& b, const float nz[3], float sigma) {
+  r = clip01(r + nz[0] * sigma);
+  g = clip01(g + nz[1] * sigma);
+  b = clip01(b + nz[2] * sigma);
+}
+
+// Stage 3, the HED shift: stains = -log(rgb + 2) @ HED_FROM_RGB; shift;
+// back through RGB_FROM_HED; clip((exp(.) - 1) / 2).  (r, g, b) in, rgb out.
+__device__ __forceinline__ void hed_shift(float r, float g, float b, const TileParams& tp, const HedMats& m,
+                                          float rgb[3]) {
+  const float l0 = -__logf(r + 2.0f), l1 = -__logf(g + 2.0f), l2 = -__logf(b + 2.0f);
+  const float* A = m.hed_from_rgb;
+  const float* B = m.rgb_from_hed;
+  const float hs = l0 * A[0] + l1 * A[3] + l2 * A[6] + tp.hed[0];
+  const float es = l0 * A[1] + l1 * A[4] + l2 * A[7] + tp.hed[1];
+  const float ds = l0 * A[2] + l1 * A[5] + l2 * A[8] + tp.hed[2];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float lc = (-hs) * B[c] + (-es) * B[3 + c] + (-ds) * B[6 + c];
+    rgb[c] = clip01((__expf(lc) - 1.0f) * 0.5f);
+  }
+}
+
 // Stages 1-3 on one pixel, in place: (y, x) is the pixel's folded
 // coordinate in tile n, which keys its noise.  With a non-null `noise`
 // ((n, 3, h, w) float32) the noise is read at noise[n, c, y, x] instead of
@@ -175,14 +224,7 @@ __device__ __forceinline__ void pointwise_stages(float rgb[3], const TileParams&
                                                  const float* __restrict__ noise, uint32_t seed,
                                                  int n, int h, int w, int y, int x) {
   float r = rgb[0], g = rgb[1], b = rgb[2];
-  if (tp.hsv) {
-    float hh, ss, vv;
-    rgb2hsv(r, g, b, hh, ss, vv);
-    hh = wrap01(hh + tp.hue);
-    ss = clip01(ss + tp.sat);
-    vv = clip01(vv + tp.val);
-    hsv2rgb(hh, ss, vv, r, g, b);
-  }
+  if (tp.hsv) hsv_shift(r, g, b, tp);
 
   if (tp.noise) {
     float nz[3];
@@ -195,24 +237,10 @@ __device__ __forceinline__ void pointwise_stages(float rgb[3], const TileParams&
     } else {
       philox_normal3(seed, n, y, x, nz);
     }
-    r = clip01(r + nz[0] * tp.sigma);
-    g = clip01(g + nz[1] * tp.sigma);
-    b = clip01(b + nz[2] * tp.sigma);
+    add_noise(r, g, b, nz, tp.sigma);
   }
 
-  // HED shift: stains = -log(rgb + 2) @ HED_FROM_RGB; shift; back through
-  // RGB_FROM_HED; clip((exp(.) - 1) / 2).
-  const float l0 = -__logf(r + 2.0f), l1 = -__logf(g + 2.0f), l2 = -__logf(b + 2.0f);
-  const float* A = m.hed_from_rgb;
-  const float* B = m.rgb_from_hed;
-  const float hs = l0 * A[0] + l1 * A[3] + l2 * A[6] + tp.hed[0];
-  const float es = l0 * A[1] + l1 * A[4] + l2 * A[7] + tp.hed[1];
-  const float ds = l0 * A[2] + l1 * A[5] + l2 * A[8] + tp.hed[2];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float lc = (-hs) * B[c] + (-es) * B[3 + c] + (-ds) * B[6 + c];
-    rgb[c] = clip01((__expf(lc) - 1.0f) * 0.5f);
-  }
+  hed_shift(r, g, b, tp, m, rgb);
 }
 
 }  // namespace photometric

@@ -208,15 +208,59 @@ def _hed_mats() -> "ctypes.Array":
     return (ctypes.c_float * 18)(*flat)
 
 
+# The kernel's launch limits (csrc/photometric_chain.cu): a cluster of at
+# most 8 CTAs a tile, rows of at most 256 pixels, and 227 KB of shared memory
+# a CTA less 1 KB for its static part.
+MAX_CLUSTER = 8
+MAX_WIDTH = 256
+MAX_SMEM = 231424
+
+
+def chain_launch_plan(h: int, w: int) -> tuple:
+    """The chain kernel's launch for (h, w) tiles: (cluster, rows, smem).
+
+    One cluster of ``cluster`` CTAs covers a tile, CTA q owning rows
+    [q rows, q rows + rows); each holds its rows' three float32 planes in
+    ``smem`` bytes of shared memory, a row padded to a multiple of 4 pixels
+    and 4 halo pixels on each side.  Every CTA owns at least one row.
+    Raises ValueError, naming the shape, for tiles the kernel does not
+    take."""
+    if h < 1 or w < 1 or w > MAX_WIDTH:
+        raise ValueError(f"the photometric chain kernel takes tiles of 1 to {MAX_WIDTH} pixels a row, "
+                         f"not (3, {h}, {w})")
+    cluster = min(MAX_CLUSTER, h)
+    rows = -(-h // cluster)
+    cluster = -(-h // rows)
+    smem = 3 * rows * (4 * (-(-w // 4)) + 8) * 4
+    if smem > MAX_SMEM:
+        raise ValueError(f"the photometric chain kernel cannot take (3, {h}, {w}) tiles: {rows} rows a CTA "
+                         f"need {smem} bytes of shared memory, more than {MAX_SMEM}")
+    return cluster, rows, smem
+
+
 def _library():
     from ssl_cr_histo_tpu_torch.csrc import build
 
     lib = build.load_library("photometric_chain")
     fn = lib.launch_photometric_chain
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
-    return fn
+        occ = lib.photometric_chain_max_clusters
+        occ.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        occ.restype = ctypes.c_int
+    return lib
+
+
+def max_active_clusters(h: int, w: int) -> int:
+    """How many tiles' clusters the current card runs at once (its occupancy
+    for the Philox mode at this tile shape)."""
+    lib = _library()
+    out = ctypes.c_int(0)
+    rc = lib.photometric_chain_max_clusters(h, w, *chain_launch_plan(h, w), ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"photometric_chain occupancy query failed for (3, {h}, {w}) tiles: CUDA error {rc}")
+    return out.value
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -234,7 +278,8 @@ def photometric_chain_cuda(imgs: torch.Tensor, seeds: torch.Tensor, params: torc
                            noise: "torch.Tensor | None" = None) -> torch.Tensor:
     """Launch the CUDA kernel on (N, 3, H, W) float32 CUDA tiles.  With
     ``noise`` None the kernel draws Philox noise from ``seeds``; otherwise it
-    reads ``noise`` (same shape as ``imgs``)."""
+    reads ``noise`` (same shape as ``imgs``).  Raises ValueError for a tile
+    shape the launch cannot take (``chain_launch_plan``)."""
     global launches
     if not imgs.is_cuda:
         raise ValueError("photometric_chain_cuda needs CUDA tensors")
@@ -247,14 +292,16 @@ def photometric_chain_cuda(imgs: torch.Tensor, seeds: torch.Tensor, params: torc
     _check(params, "params", torch.float32, (n, N_PARAMS), dev)
     if noise is not None:
         _check(noise, "noise", torch.float32, imgs.shape, dev)
-    fn = _library()
+    plan = chain_launch_plan(h, w)
+    fn = _library().launch_photometric_chain
     out = torch.empty_like(imgs)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = fn(imgs.data_ptr(), 0 if noise is None else noise.data_ptr(), seeds.data_ptr(),
-                params.data_ptr(), out.data_ptr(), n, h, w, ctypes.addressof(_HED_MATS), stream)
+                params.data_ptr(), out.data_ptr(), n, h, w, *plan, ctypes.addressof(_HED_MATS), stream)
     if rc != 0:
-        raise RuntimeError(f"photometric_chain kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"photometric_chain kernel launch failed for tiles of shape {tuple(imgs.shape)} "
+                           f"(cluster, rows, smem {plan}): CUDA error {rc}")
     launches += 1
     return out
 

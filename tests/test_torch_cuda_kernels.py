@@ -18,6 +18,8 @@ A bf16 output is held to the plain float32 result cast to bf16: within one
 bf16 ulp, or within 1e-4 where one ulp is smaller than that.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -80,6 +82,87 @@ def test_kernel_prng_matches_plain_philox(cuda):
     assert not torch.equal(got, PK.photometric_chain_cuda(imgs, seeds + 1, params))
     want = PK.reference_chain(imgs, params, PK.philox_normal(seeds, imgs.shape))
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+# Tile shapes the chain kernel's launch covers unevenly: heights that are not
+# a multiple of the rows a CTA owns (50 = 7 x 7 + 1, 13, 37) or that need
+# fewer CTAs than a full cluster (3, 2, 1), rows that are not a multiple of 4
+# pixels (20 is, 5 and 37 are not), and tiles smaller than the k = 7 blur's
+# halo, where reflect101 folds more than once (3 x 3, 2 x 5, 1 x 1).
+EDGE_SHAPES = [(50, 64), (13, 20), (37, 37), (9, 256), (224, 224), (3, 3), (2, 5), (1, 1)]
+
+
+def _chain_case(device, hw, philox, seed, n=None):
+    """Tiles, seeds, params (_cases, then drawn gates up to n tiles) and the
+    noise (None in Philox mode) for one chain comparison."""
+    rng = np.random.default_rng(seed)
+    params = _cases(device, seed)
+    if n is not None:
+        extra = PK.draw_params(torch.Generator(device=device).manual_seed(seed), n - params.shape[0])
+        params = torch.cat([params, extra])
+    n = params.shape[0]
+    imgs = torch.from_numpy(rng.random((n, 3, *hw)).astype(np.float32)).to(device)
+    noise = None if philox else torch.from_numpy(rng.normal(size=(n, 3, *hw)).astype(np.float32)).to(device)
+    seeds = torch.arange(seed, seed + n, dtype=torch.int32, device=device)
+    return imgs, seeds, params, noise
+
+
+def _chain_want(imgs, seeds, params, noise):
+    return PK.reference_chain(imgs, params, PK.philox_normal(seeds, imgs.shape) if noise is None else noise)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", EDGE_SHAPES)
+@pytest.mark.parametrize("philox", [False, True], ids=["host-noise", "philox"])
+def test_chain_kernel_edges_match_plain(cuda, hw, philox):
+    """All gates off, all on, each gate alone and the blur alone at k = 3, 5,
+    7, in both noise modes, at shapes the launch covers unevenly; Philox mode
+    bit-equal for equal seeds and different for other seeds."""
+    imgs, seeds, params, noise = _chain_case(cuda, hw, philox, seed=hw[0] * 1000 + hw[1])
+    got = PK.photometric_chain_cuda(imgs, seeds, params, noise)
+    torch.testing.assert_close(got, _chain_want(imgs, seeds, params, noise), rtol=0, atol=1e-4)
+    if philox:
+        assert torch.equal(got, PK.photometric_chain_cuda(imgs, seeds.clone(), params))
+        assert not torch.equal(got, PK.photometric_chain_cuda(imgs, seeds + 1, params))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("philox", [False, True], ids=["host-noise", "philox"])
+def test_chain_kernel_partial_last_wave(cuda, philox):
+    """One 256^2 tile more than the card runs clusters at once, so the last
+    wave holds a single cluster."""
+    n = PK.max_active_clusters(256, 256) + 1
+    imgs, seeds, params, noise = _chain_case(cuda, (256, 256), philox, seed=11, n=n)
+    got = PK.photometric_chain_cuda(imgs, seeds, params, noise)
+    torch.testing.assert_close(got, _chain_want(imgs, seeds, params, noise), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("philox", [False, True], ids=["host-noise", "philox"])
+def test_chain_kernel_unaligned_tensors(cuda, philox):
+    """Tiles 4 bytes past a 16-byte boundary (rows a multiple of 4 pixels):
+    the kernel reads and writes them with scalar accesses, same numbers."""
+    imgs, seeds, params, noise = _chain_case(cuda, (32, 32), philox, seed=5)
+    shift = lambda t: torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+    imgs = shift(imgs)
+    noise = None if noise is None else shift(noise)
+    assert imgs.data_ptr() % 16 != 0
+    got = PK.photometric_chain_cuda(imgs, seeds, params, noise)
+    torch.testing.assert_close(got, _chain_want(imgs, seeds, params, noise), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(16, 260), (1024, 256)])
+def test_chain_wrapper_raises_for_shapes_the_launch_cannot_take(cuda, hw):
+    """Rows wider than 256 pixels, or more rows a CTA than shared memory
+    holds: ValueError naming the shape, and no launch."""
+    imgs = torch.rand(1, 3, *hw, device=cuda)
+    seeds = torch.zeros(1, dtype=torch.int32, device=cuda)
+    params = torch.zeros(1, PK.N_PARAMS, device=cuda)
+    before = PK.launches
+    with pytest.raises(ValueError, match=re.escape(f"(3, {hw[0]}, {hw[1]})")):
+        PK.photometric_chain_cuda(imgs, seeds, params)
+    assert PK.launches == before
 
 
 @pytest.mark.cuda

@@ -7,6 +7,8 @@ against this plain chain is tests/test_torch_cuda_kernels.py (GPU only) and
 phases 3-4 of chip_smoke.py.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -125,3 +127,35 @@ def test_philox_noise_deterministic_and_normal():
     assert not torch.equal(a[0], a[1])  # tiles differ
     assert abs(a.mean().item()) < 0.02 and abs(a.std().item() - 1.0) < 0.02
     assert torch.isfinite(a).all()
+
+
+@pytest.mark.parametrize("hw, want", [
+    ((256, 256), (8, 32, 101376)),  # the main path: 8 CTAs of 32 rows, 99 KB each
+    ((224, 224), (8, 28, 77952)),
+    ((37, 37), (8, 5, 2880)),      # 7 x 5 + 2 rows; rows padded to 40 pixels
+    ((50, 64), (8, 7, 6048)),      # the last CTA holds one row
+    ((3, 3), (3, 1, 144)),         # fewer rows than a cluster: one CTA a row
+    ((1, 1), (1, 1, 144)),
+])
+def test_chain_launch_plan(hw, want):
+    assert PK.chain_launch_plan(*hw) == want
+
+
+def test_chain_launch_plan_covers_every_row_once():
+    """Every CTA of the cluster owns at least one row, the CTAs together own
+    all of them, and the shared bytes hold three planes of the CTA's rows at
+    a pitch of ceil(w / 4) * 4 floats and 4 halo floats on each side."""
+    for h in range(1, 300):
+        for w in (1, 3, 4, 37, 256):
+            cluster, rows, smem = PK.chain_launch_plan(h, w)
+            assert 1 <= cluster <= PK.MAX_CLUSTER
+            assert (cluster - 1) * rows < h <= cluster * rows
+            assert smem == 3 * rows * (-(-w // 4) * 4 + 8) * 4 <= PK.MAX_SMEM
+
+
+@pytest.mark.parametrize("hw", [(16, 257), (1024, 256), (0, 8)])
+def test_chain_launch_plan_refuses_and_names_the_shape(hw):
+    """Rows wider than 256 pixels, more rows a CTA than shared memory holds,
+    or no rows: ValueError naming the tile shape."""
+    with pytest.raises(ValueError, match=re.escape(f"(3, {hw[0]}, {hw[1]})")):
+        PK.chain_launch_plan(*hw)

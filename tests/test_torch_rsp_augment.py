@@ -132,7 +132,57 @@ def test_plain_matches_jax_composition(s, norm):
     got = _plain(d, mean, std)
     assert got.shape == (4, 3, 3, s, s) and got.dtype == torch.float32
     want = _jax_composition(d, mean, std)
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 / min(std))
+    atol = 1e-5 / min(std)
+    err = np.abs(got.numpy() - want)
+    report = "" if (err <= atol).all() else _mismatch_report(d, mean, std, got.numpy(), want, err, atol)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=atol, err_msg=report)
+
+
+def _jax_fixups(mats, s):
+    """The JAX warp's lattice fix-up flags (rot90, transpose) for each
+    matrix of s x s tiles, as ``warp_affine_mxu_planar`` decides them in
+    float32."""
+    def flags(m):
+        rot = jnp.abs(m[0, 0]) + jnp.abs(m[1, 1]) < jnp.abs(m[0, 1]) + jnp.abs(m[1, 0])
+        m = jnp.where(rot, jnp.asarray(JG._rot90_matrix(s, s)) @ m, m)
+        return rot, jnp.abs(m[0, 0]) > jnp.abs(m[1, 1])
+    rot, swap = jax.vmap(flags)(jnp.asarray(mats))
+    return np.asarray(rot), np.asarray(swap)
+
+
+def _mismatch_report(d, mean, std, got, want, err, atol):
+    """What a failure of the parity test needs: the largest error and where
+    it is, the tiles over the bound with their gates, blur size and both
+    warps' fix-up flags, each tile's largest error, and whether the same
+    computation repeated in this process gives the same numbers (a state of
+    the process, or of the inputs, rather than the arithmetic)."""
+    s = d["tiles"].shape[2]
+    err = np.where(np.isnan(err), np.inf, err)
+    b, t, c, y, x = (int(i) for i in np.unravel_index(np.argmax(err), err.shape))
+    port = TG.warp_pass_coefficients(torch.from_numpy(d["mats"]), s).numpy()
+    jrot, jswap = _jax_fixups(d["mats"], s)
+    per_tile = err.reshape(len(d["mats"]), -1).max(1)
+    tiles = [
+        f"tile {i}: max err {per_tile[i]:.3e}, gates (hsv, noise, blur, bc) "
+        f"{tuple(int(v) for v in d['params'][i, list(GATES)])}, k {int(d['params'][i, 9])}, "
+        f"rot/swap port {int(port[i, 6])}/{int(port[i, 7])} JAX {int(jrot[i])}/{int(jswap[i])}"
+        for i in np.flatnonzero(per_tile > atol)]
+    again = _plain(d, mean, std).numpy()
+    try:
+        import ctypes
+        rounding = ctypes.CDLL("libm.so.6").fegetround()  # FE_TONEAREST is 0 on x86-64
+    except OSError:
+        rounding = "unknown"
+    return "\n".join([
+        f"largest error {err[b, t, c, y, x]:.3e} at (triplet {b}, tile {3 * b + t}, channel {c}, y {y}, x {x}): "
+        f"port {float(got[b, t, c, y, x])!r}, JAX {float(want[b, t, c, y, x])!r}; "
+        f"{int((~(err <= atol)).sum())} of {err.size} over {atol:.2e}",
+        *tiles,
+        f"every tile's largest error: {np.array2string(per_tile, precision=3)}",
+        f"the port's side computed again: max change {np.abs(again - got).max():.3e}, "
+        f"against JAX {np.abs(again - want).max():.3e}; rounding mode {rounding}; torch threads "
+        f"{torch.get_num_threads()}, pid {os.getpid()}",
+    ])
 
 
 @pytest.mark.parametrize("noise", [True, False], ids=["host-noise", "philox"])
