@@ -4,7 +4,8 @@ kernels, checks each against its plain PyTorch version, drives the
 pretraining CLI for one short epoch at the config of record, the
 fine-tuning and consistency CLIs from its checkpoint for Kather and then
 Camelyon16, the heatmap CLI and the FROC from the Camelyon16 checkpoint,
-and times the steps, the serving forward and the kernels.
+the CLIs' resume, the pretrain flags and evaluation, and times the steps,
+the serving forward, evaluation and the kernels.
 
     python3 chip_smoke.py                    # from the root of a checkout, on a GPU machine
     python3 chip_smoke.py --profile DIR      # also write torch.profiler tables of the steps
@@ -90,7 +91,27 @@ Phases (any failure exits non-zero and prints no result line):
      events, and each map's wall time as patches/s against the sum of its
      forwards (``--profile``: the map's device busy share and
      ``heatmap_profile.txt``)
- 10. the kernels line, then ``{"ok": true, "device": {...}}`` as the last line
+ 10. the stage CLIs' remaining modes, on phases 5-9's checkpoints and data:
+     ``cli.pretrain`` for 2 epochs of 2 steps (batch 64, 256^2, bf16) against
+     1 epoch and ``--resume auto`` for the second, with cuDNN's deterministic
+     algorithms: ckpt_2.pth bit-equal (weights, optimizer, Lookahead,
+     step, generator, best value); ``--expand_orderings --cache_tiles
+     --tsne`` for 2 full epochs: the fused kernel launched once a step (6x
+     a plain epoch's), each triplet position read once, the features'
+     shapes; ``--mode evaluation`` of ``cli.finetune`` for Kather (phase
+     6's best.pth, a seeded test folder of 576 images: the report's keys,
+     float32 logits card vs CPU within 1e-4; predict_all's images/s warm
+     over 7180 images, beside its feed alone and its forward alone),
+     BreastPathQ through the report function on numpy data (two raters)
+     and Camelyon16 (phase 9's best.pth on its VALID patches); ``cli.
+     consistency --mode evaluation`` on phase 7's best.pth, and a run with
+     ``--ema`` resumed for a second epoch, its teacher restored bit-equal to
+     teacher_ckpt_1.pth.  Neither kernel may launch on an evaluation path.
+     Where matplotlib or scikit-learn is missing, the plots are recorded,
+     not drawn, and the phase prints which it did not draw
+ 11. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
+     line.  A kernel's ``launches`` is phase 5's count (the main path);
+     ``launches_by_path`` adds each path of phase 10, each counted from 0
 
 Imports nothing of JAX and nothing of the JAX package.  Tolerance 1e-4
 (phases 3-4) on outputs in [0, 1]: the kernels and PyTorch's CUDA ops
@@ -103,6 +124,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -1184,6 +1206,327 @@ def phase_camelyon(torch, dev, tmp: str, pretrain_ckpt: str, card: str, profile_
                   f"[{card}]", flush=True)
 
 
+@contextlib.contextmanager
+def plot_recorders(RP, label: str):
+    """Where matplotlib (or, for the t-SNE plot, scikit-learn) is missing,
+    the reporting module's plot writers are swapped for recorders for the
+    block, and the plots not drawn are printed; the arrays they were given
+    are kept (``calls``).  Nothing else is swapped."""
+    import importlib.util
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "sklearn")}
+    needs = {"save_confusion_matrix_plot": ("matplotlib",), "save_scatter_plot": ("matplotlib",),
+             "save_bland_altman_plot": ("matplotlib",), "save_tsne_plot": ("matplotlib", "sklearn")}
+    calls, real = [], {}
+    for name, mods in needs.items():
+        if not all(have[m] for m in mods):
+            real[name] = getattr(RP, name)
+            setattr(RP, name, lambda *a, _name=name, **kw: calls.append((_name, a, kw)))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(RP, name, fn)
+        if calls:
+            missing = [m for m, ok in have.items() if not ok]
+            print(f"{label}: not drawn (no {' or '.join(missing)} on this machine): "
+                  f"{', '.join(sorted({os.path.basename(str(a[-1])) for _, a, _ in calls}))}", flush=True)
+
+
+def phase_remaining_modes(torch, dev, tmp: str, slides: str, card: str, profile_dir: str) -> dict:
+    """Phase 10: the stage CLIs' remaining modes, on the checkpoints and data
+    of phases 5-9.  Returns each path's launches of each kernel, every count
+    set to 0 just before its path and read just after.
+
+    1. pretrain --resume: 2 epochs of 2 steps straight, against 1 epoch and
+       then --resume auto for the second, cuDNN deterministic; ckpt_2.pth
+       bit-equal (weights, optimizer, slow weights, la_count, step,
+       generator, best value);
+    2. pretrain --expand_orderings --cache_tiles --tsne, 2 full epochs: the
+       fused kernel launches once a step (6x the steps of a plain epoch),
+       the reader once a position, the features' shapes and finiteness;
+    3-5. --mode evaluation of the fine-tune CLI (Kather, from phase 6's
+       best.pth, on a seeded test folder), BreastPathQ through the report
+       function on numpy data (two raters), Camelyon16 from phase 9's
+       best.pth: the report's keys; for Kather the card's float32 logits
+       against the CPU's on 64 of the images, and predict_all's images/s,
+       warm, over a set the size of Kather's test set (7180), beside its
+       feed alone and its forward alone (``--profile``: one call traced);
+    6. the consistency CLI's --mode evaluation, and --resume auto --ema for
+       a second epoch with the teacher restored bit-equal.
+    Neither kernel may launch on an evaluation path."""
+    import warnings
+
+    import numpy as np
+
+    from ssl_cr_histo_tpu_torch.cli import consistency, finetune, pretrain
+    from ssl_cr_histo_tpu_torch.cli.common import TASKS
+    from ssl_cr_histo_tpu_torch.data import RSPTripletSampler
+    from ssl_cr_histo_tpu_torch.data import datasets as D
+    from ssl_cr_histo_tpu_torch.eval import reporting as RP
+    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
+    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+    from ssl_cr_histo_tpu_torch.train.init import init_serving_state
+
+    tile, stride, expand_stride, batch, image, patch = 256, 16, 80, 64, 224, 256
+    sync = torch.cuda.synchronize
+    common = ["--device", dev.type, "--model", "resnet18"]
+    load = lambda p: torch.load(p, map_location="cpu", weights_only=False)
+    launches = {}
+
+    def read_launches(path: str) -> dict:
+        launches[path] = {"photometric_chain": PK.launches, "rsp_augment": RK.launches}
+        return launches[path]
+
+    # 1. pretrain --resume, bit for bit
+    base = ["--train_image_pth", slides, "--batch_size", str(batch), "--tile_h", str(tile), "--tile_w", str(tile),
+            "--tile_stride", str(stride), "--steps_per_epoch", "2", "--validation_size", str(batch), "--save_freq", "1",
+            "--index_cache_dir", os.path.join(tmp, "rsp_index")] + common
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    walls = {}
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for name, extra in (("straight", ["--num_epoch", "2"]), ("first", ["--num_epoch", "1"]),
+                                ("resumed", ["--num_epoch", "2", "--resume", "auto"])):
+                run = os.path.join(tmp, "resume", "resumed" if name != "straight" else "straight")
+                PK.launches = RK.launches = 0
+                t0 = time.time()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    pretrain.main(base + ["--save_dir", run] + extra)
+                sync()
+                walls[name] = time.time() - t0
+                steps = 4 if name == "straight" else 2
+                n = read_launches(f"pretrain_resume_{name}")
+                check(n["rsp_augment"] == steps and n["photometric_chain"] == 0,
+                      f"pretrain {name} run: fused kernel launched {n['rsp_augment']} times in {steps} steps, "
+                      f"chain kernel {n['photometric_chain']}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+        torch.use_deterministic_algorithms(False)
+    a, b = (load(os.path.join(tmp, "resume", d, "ckpt_2.pth")) for d in ("straight", "resumed"))
+    for k in ("step", "la_count"):
+        check(a[k] == b[k], f"resumed pretrain run: {k} {b[k]} against {a[k]}")
+    check(a["meta"]["best_val"] == b["meta"]["best_val"], "resumed pretrain run: best value differs")
+    check(torch.equal(a["generators"]["gen"], b["generators"]["gen"]), "resumed pretrain run: generator state")
+    tensors = lambda c: ([(f"{part}.{k}", v) for part in ("model", "classifier") for k, v in c[part].items()]
+                         + [(f"slow.{i}", v) for i, v in enumerate(c["slow"])]
+                         + [(f"momentum.{i}", s["momentum_buffer"]) for i, s in c["optimizer"]["state"].items()])
+    diffs = [(k, (x.double() - y.double()).abs().max().item()) for (k, x), (_, y) in zip(tensors(a), tensors(b))]
+    worst = max(diffs, key=lambda kv: kv[1])
+    ops = sorted({str(w.message).split(" does not have a deterministic")[0] for w in caught
+                  if "deterministic" in str(w.message)})
+    check(worst[1] == 0.0, f"resumed pretrain run: weights differ, largest {worst[1]:.3e} at {worst[0]}; ops "
+                           f"PyTorch names non-deterministic on this path: {ops or 'none'}")
+    print(f"phase 10: pretrain --resume: ckpt_2.pth of 1 epoch + --resume auto bit-equal to 2 epochs straight "
+          f"({len(diffs)} tensors: weights, slow weights, momentum; step {b['step']}, la_count "
+          f"{b['la_count']}, generator, best value {b['meta']['best_val']:.6f}); walls straight "
+          f"{walls['straight']:.2f} s, first {walls['first']:.2f} s, resumed {walls['resumed']:.2f} s "
+          f"[{card}]", flush=True)
+
+    # 2. --expand_orderings --cache_tiles --tsne, two full epochs (at stride 80, 72 positions: 64 train, 8 val)
+    n_pos = sum(len(i.coords) for i in RSPTripletSampler(tile=tile, stride=expand_stride).index_directory(
+        slides, cache_dir=None))
+    n_train = n_pos - min(8, n_pos // 5)
+    reads = []
+    real_read = RSPTripletSampler.read_triplet
+    RSPTripletSampler.read_triplet = lambda self, r, x, y: reads.append((id(r), x, y)) or real_read(self, r, x, y)
+    run = os.path.join(tmp, "expand")
+    argv = ["--train_image_pth", slides, "--batch_size", str(batch), "--tile_h", str(tile), "--tile_w", str(tile),
+            "--tile_stride", str(expand_stride), "--validation_size", "8", "--num_epoch", "2", "--save_freq", "0",
+            "--index_cache_dir", "", "--expand_orderings", "--cache_tiles", "--tsne", "--save_dir", run] + common
+    PK.launches = RK.launches = 0
+    t0 = time.time()
+    try:
+        with plot_recorders(RP, "phase 10: pretrain --tsne") as plots, contextlib.redirect_stdout(io.StringIO()):
+            pretrain.main(argv)
+        sync()
+    finally:
+        RSPTripletSampler.read_triplet = real_read
+    wall = time.time() - t0
+    steps = 2 * (6 * n_train // batch)
+    n = read_launches("pretrain_expand_orderings_cache_tiles_tsne")
+    check(n["rsp_augment"] == steps and n["photometric_chain"] == 0,
+          f"--expand_orderings: fused kernel launched {n['rsp_augment']} times, expected {steps} (6x "
+          f"{n_train // batch} a plain epoch, 2 epochs); chain kernel {n['photometric_chain']}")
+    check(len(reads) == len(set(reads)) == n_pos,
+          f"--cache_tiles: {len(reads)} reads of {len(set(reads))} positions ({n_pos} indexed) over two epochs")
+    feats = np.load(os.path.join(run, "best_pre_trained_feats_1.npy"))
+    targets = np.load(os.path.join(run, "best_pre_trained_targets_1.npy"))
+    check(feats.shape == (6 * n_train // batch * batch, 768) and np.isfinite(feats).all()
+          and targets.shape == feats.shape[:1] and set(np.unique(targets)) <= set(range(6)),
+          f"--tsne best-epoch features {feats.shape}, targets {targets.shape}")
+    val = [a for name, a, _ in plots if name == "save_tsne_plot" and a[-1].endswith(f"{os.sep}tsne.png")]
+    n_val = 6 * (n_pos - n_train)
+    if val:
+        check(val[0][0].shape == (n_val, 768) and np.isfinite(val[0][0]).all(), "--tsne validation features")
+    else:
+        check(np.load(os.path.join(run, "tsne_feats.npy")).shape == (n_val, 768), "--tsne validation features")
+    print(f"phase 10: pretrain --expand_orderings --cache_tiles --tsne, 2 epochs: {steps} steps (6x "
+          f"{n_train // batch} a plain epoch), fused kernel launches {n['rsp_augment']}, {len(reads)} reads of {n_pos} "
+          f"positions; best-epoch features {feats.shape}, finite; wall {wall:.2f} s [{card}]", flush=True)
+
+    # 3. fine-tune --mode evaluation, Kather from phase 6's best.pth on a seeded test folder
+    kather_cfg = dataclasses.replace(TASKS["kather"], image_size=image)
+    test_dir = write_kather(os.path.join(tmp, "kather_test"), 64, image)
+    ckpt = os.path.join(tmp, "finetune", "best.pth")
+    argv = ["--task", "kather", "--mode", "evaluation", "--test_path", test_dir, "--finetune_ckpt", ckpt,
+            "--save_dir", os.path.join(tmp, "eval_kather"), "--eval_batch_size", str(batch),
+            "--image_size", str(image)] + common
+    PK.launches = RK.launches = 0
+    with plot_recorders(RP, "phase 10: Kather evaluation"), contextlib.redirect_stdout(io.StringIO()):
+        report = finetune.main(argv)
+    launches["finetune_evaluation_kather"] = check_no_launch(PK, RK, "Kather evaluation")
+    check(list(report) == ["confusion", "per_class", "weighted_f1", "accuracy", "ovr_auc"]
+          and int(np.sum(report["confusion"])) == 9 * 64, f"Kather report keys {list(report)}")
+    ds = D.load_kather_folder(test_dir, image)
+    states = {d: init_serving_state("resnet18", 9, torch.device(d), ckpt) for d in ("cpu", dev.type)}
+    some = ds.subset(np.arange(0, len(ds), 9))
+    logits = {d: finetune.predict_all(states[d], some, kather_cfg, torch.device(d), batch_size=batch)
+              for d in states}
+    lerr = float(np.abs(logits[dev.type] - logits["cpu"]).max())
+    check(lerr <= 1e-4, f"Kather evaluation logits, card vs CPU float32: max abs err {lerr}")
+    print(f"phase 10: Kather --mode evaluation from phase 6's best.pth on {len(ds)} images of {image}^2: accuracy "
+          f"{report['accuracy']:.4f}, weighted F1 {report['weighted_f1']:.4f}, OvR AUC {report['ovr_auc']}; "
+          f"float32 logits card vs CPU on {len(some)} of them max abs err {lerr:.2e} [{card}]", flush=True)
+    phase_eval_rate(torch, finetune, states[dev.type], ds, kather_cfg, dev, batch, profile_dir, card)
+
+    # 4. BreastPathQ through the report function on numpy data, two raters, from phase 6's checkpoint
+    bpq_cfg = dataclasses.replace(TASKS["breastpathq"], image_size=patch)
+    rng = np.random.default_rng(5)
+    bpq = D.ArrayDataset(rng.integers(0, 256, (48, patch, patch, 3), dtype=np.uint8),
+                         rng.random(48).astype(np.float32))
+    labels_b = np.clip(bpq.labels + rng.normal(0, 0.1, 48), 0, 1).astype(np.float32)
+    state = init_serving_state("resnet18", 1, dev, os.path.join(tmp, "bpq", "final.pth"))
+    PK.launches = RK.launches = 0
+    with plot_recorders(RP, "phase 10: BreastPathQ evaluation"), contextlib.redirect_stdout(io.StringIO()):
+        out = finetune.predict_all(state, bpq, bpq_cfg, dev, batch_size=16, bf16=True)
+        report = finetune.eval_report(bpq_cfg, bpq.labels, out, labels_b)
+        path = finetune.write_eval(os.path.join(tmp, "eval_bpq"), bpq_cfg, report, bpq.labels, out, labels_b)
+    launches["finetune_evaluation_breastpathq"] = check_no_launch(PK, RK, "BreastPathQ evaluation")
+    check(list(report) == ["icc_MA", "icc_MB", "icc_AB", "tau_MA", "mse_MA"] and out.shape == (48,)
+          and os.path.exists(path) and math.isfinite(report["mse_MA"]), f"BreastPathQ report {list(report)}")
+    print(f"phase 10: BreastPathQ evaluation (48 patches of {patch}^2, two raters): ICC2 MA "
+          f"{report['icc_MA']['ICC2']:.4f}, AB {report['icc_AB']['ICC2']:.4f}, tau MA {report['tau_MA']:.4f}, "
+          f"MSE MA {report['mse_MA']:.4f}", flush=True)
+
+    # 5. Camelyon16 --mode evaluation from phase 9's fine-tune best.pth on its VALID patches
+    c16 = os.path.join(tmp, "c16_finetune", "best.pth")
+    test = ",".join(os.path.join(tmp, k) for k in ("tumor_valid", "normal_valid"))
+    argv = ["--task", "camelyon16", "--mode", "evaluation", "--test_path", test, "--json_path",
+            os.path.join(tmp, "json"), "--finetune_ckpt", c16, "--save_dir", os.path.join(tmp, "eval_c16"),
+            "--eval_batch_size", str(batch), "--image_size", str(patch)] + common
+    PK.launches = RK.launches = 0
+    with plot_recorders(RP, "phase 10: Camelyon16 evaluation"), contextlib.redirect_stdout(io.StringIO()):
+        report = finetune.main(argv)
+    launches["finetune_evaluation_camelyon16"] = check_no_launch(PK, RK, "Camelyon16 evaluation")
+    check(list(report) == ["confusion", "per_class", "weighted_f1", "accuracy", "auc"]
+          and int(np.sum(report["confusion"])) == 32, f"Camelyon16 report {list(report)}")
+    print(f"phase 10: Camelyon16 --mode evaluation from phase 9's best.pth on 32 VALID patches: accuracy "
+          f"{report['accuracy']:.4f}, AUC {report['auc']}, confusion {report['confusion']}", flush=True)
+
+    # 6. consistency: --mode evaluation on phase 7's best.pth, then --resume auto --ema for a second epoch
+    cr = os.path.join(tmp, "consistency", "best.pth")
+    argv = ["--task", "kather", "--mode", "evaluation", "--test_path", test_dir, "--eval_ckpt", cr, "--save_dir",
+            os.path.join(tmp, "eval_cr"), "--eval_batch_size", str(batch), "--image_size", str(image)] + common
+    PK.launches = RK.launches = 0
+    with plot_recorders(RP, "phase 10: consistency evaluation"), contextlib.redirect_stdout(io.StringIO()):
+        report = consistency.main(argv)
+    launches["consistency_evaluation"] = check_no_launch(PK, RK, "consistency evaluation")
+    check(int(np.sum(report["confusion"])) == 9 * 64, "consistency evaluation report")
+    run = os.path.join(tmp, "cr_ema")
+    argv = ["--task", "kather", "--train_path", os.path.join(tmp, "kather"), "--finetune_ckpt",
+            os.path.join(tmp, "finetune", "best.pth"), "--save_dir", run, "--batch_size", "8", "--mu", "7",
+            "--NAug", "7", "--save_freq", "1", "--ema", "0.99", "--image_size", str(image)] + common
+    restored, real_resume = [], consistency.resume_teacher
+
+    def resume_teacher(args, teacher, state, path):
+        real_resume(args, teacher, state, path)
+        restored.append({k: v.detach().cpu().clone() for k, v in
+                         list(teacher.model.state_dict().items()) + list(teacher.head.state_dict().items())})
+
+    walls = {}
+    consistency.resume_teacher = resume_teacher
+    PK.launches = RK.launches = 0
+    try:
+        for name, extra in (("first", ["--num_epoch", "1"]), ("resumed", ["--num_epoch", "2", "--resume", "auto"])):
+            t0 = time.time()
+            with contextlib.redirect_stdout(io.StringIO()):
+                consistency.main(argv + extra)
+            sync()
+            walls[name] = time.time() - t0
+    finally:
+        consistency.resume_teacher = real_resume
+    launches["consistency_ema_first_then_resumed"] = check_no_launch(PK, RK, "consistency --ema and --resume")
+    saved = load(os.path.join(run, "teacher_ckpt_1.pth"))
+    want = {**saved["model"], **saved["classifier"]}
+    check(len(restored) == 1 and set(restored[0]) == set(want)
+          and all(torch.equal(restored[0][k], v) for k, v in want.items()),
+          "--resume --ema: the restored teacher is not teacher_ckpt_1.pth")
+    final = load(os.path.join(run, "final.pth"))
+    check(final["meta"]["epoch"] == 2 and set(final["generators"]) == {"gen", "host_gen"}
+          and os.path.exists(os.path.join(run, "teacher_ckpt_2.pth")), "--resume --ema: the second epoch's files")
+    print(f"phase 10: consistency --mode evaluation (phase 7's best.pth): accuracy {report['accuracy']:.4f}; "
+          f"--ema run 1 epoch {walls['first']:.2f} s, then --resume auto --ema epoch 2 {walls['resumed']:.2f} s, "
+          f"the restored teacher bit-equal to teacher_ckpt_1.pth ({len(want)} tensors) [{card}]", flush=True)
+    return launches
+
+
+def phase_eval_rate(torch, finetune, state, ds, cfg, dev, batch: int, profile_dir: str, card: str) -> None:
+    """predict_all's images/s in bf16, warm, over a set the size of Kather's
+    test set (CRC-VAL-HE-7K, 7180 images; ``ds``'s images repeated), beside
+    the same batches fed to the card with no forward, and the forward alone
+    on a batch already there.  ``--profile``: one call traced, its device
+    busy share and ``eval_profile.txt``."""
+    import numpy as np
+
+    from ssl_cr_histo_tpu_torch.data import datasets as D
+    from ssl_cr_histo_tpu_torch.data.pipeline import prefetch_to_device
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+
+    n = 7180
+    big = D.ArrayDataset(np.resize(ds.images, (n,) + ds.images.shape[1:]), np.resize(ds.labels, n))
+    call = lambda: finetune.predict_all(state, big, cfg, dev, batch_size=batch, bf16=True)
+    finetune.predict_all(state, ds, cfg, dev, batch_size=batch, bf16=True)  # cold: left out
+    rates = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        call()
+        torch.cuda.synchronize()
+        rates.append(n / (time.time() - t0))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in prefetch_to_device(big.batches(batch, shuffle=False, drop_last=False), dev):
+        pass
+    torch.cuda.synchronize()
+    feed = n / (time.time() - t0)
+    x = torch.from_numpy(ds.images[:batch]).to(dev)
+    fwd = batch / cuda_ms(lambda: S.forward(state, x, bf16=True), 20) * 1e3
+    print(f"phase 10: predict_all bf16 batch {batch}, warm, on {n} images of {ds.images.shape[1]}^2: "
+          f"{', '.join(f'{r:.1f}' for r in rates)} images/s; the same batches fed to the card with no forward "
+          f"{feed:.1f} images/s; the forward alone on a batch on the card {fwd:.1f} images/s [{card}]", flush=True)
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            call()
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t0) * 1e3
+        device_ms = sum(e.self_device_time_total for e in device_events(prof)) / 1e3
+        table = prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=30)
+        os.makedirs(profile_dir, exist_ok=True)
+        with open(os.path.join(profile_dir, "eval_profile.txt"), "w") as f:
+            f.write(f"{card}\npredict_all over {n} images: device {device_ms:.3f} ms, wall {wall_ms:.3f} ms "
+                    f"(profiled)\n{table}\n")
+        print(f"profile: predict_all over {n} images, device time {device_ms:.3f} ms against {wall_ms:.3f} ms of "
+              f"wall ({device_ms / wall_ms * 100:.1f}% busy, profiled); table in {profile_dir}/eval_profile.txt "
+              f"[{card}]", flush=True)
+
+
 def in_turns(fns: dict, order: list, iters: dict, warmup: int = 2) -> dict:
     """CUDA-event ms of each named function, run in the given order;
     returns every run's time per name."""
@@ -1541,6 +1884,11 @@ def main() -> int:
         # phase 9: Camelyon16 from the pretrain checkpoint to a heatmap and its FROC
         phase_camelyon(torch, dev, tmp, os.path.join(run, "ckpt_1.pth"), card, opts.profile)
 
+        # phase 10: the stage CLIs' remaining modes (resume, the pretrain flags, evaluation)
+        t0 = time.time()
+        by_path = {"pretrain_cli": launches, **phase_remaining_modes(torch, dev, tmp, slides, card, opts.profile)}
+        print(f"phase 10: {time.time() - t0:.1f} s [{card}]", flush=True)
+
     replaces = {"photometric_chain": "ssl_cr_histo_tpu/ops/pallas_photometric.py:199",
                 "rsp_augment": "ssl_cr_histo_tpu/ops/pallas_photometric.py:199"}
     kernels = [{
@@ -1549,6 +1897,7 @@ def main() -> int:
         "source": f"ssl_cr_histo_tpu_torch/csrc/{name}.cu",
         "replaces": replaces[name],
         "launches": launches[name],
+        "launches_by_path": {path: n[name] for path, n in by_path.items()},
         "max_abs_err": worst[name],
         **timing[name],
         "library_ms": None,

@@ -1,26 +1,30 @@
 """Shared CLI plumbing: common flags, seeding, device selection, the task
-configs of record, the optimizer factory.
+configs of record, the optimizer factory, ``--resume``.
 
-Counterpart of ``ssl_cr_histo_tpu/cli/common.py:16-151`` and ``:219-223``,
-with these differences:
+Counterpart of ``ssl_cr_histo_tpu/cli/common.py:16-151``, ``:219-223`` and
+``:260-286``, with these differences:
   * no ``--photometric``: the device decides (the CUDA kernel on a GPU, the
     plain PyTorch chain on the CPU);
   * ``--device`` (default ``cuda``): a missing GPU is an error, never a
     silent run on the CPU; the CPU tests pass ``--device cpu``;
   * ``--aug_mode fast|masked|exact``, ``--reference_exact`` and ``--remat``
-    exit with a "not yet ported" error.
+    exit with a "not yet ported" error;
+  * a resumed run's random draws continue from the generators' states saved
+    in its checkpoint, where the JAX CLIs advance their key chain.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import random
 
 import numpy as np
 import torch
 
 from ssl_cr_histo_tpu_torch.train import optim
+from ssl_cr_histo_tpu_torch.train.checkpoint import Generators, latest_checkpoint, restore_checkpoint
 
 
 @dataclasses.dataclass
@@ -123,11 +127,10 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--reference_exact", action="store_true", help="not ported yet")
 
 
-def reject_unported(args, stage_flags: dict) -> None:
-    """Exit with a clear error for each flag this port does not carry yet.
-    ``stage_flags`` maps a flag's dest to its human name."""
-    flags = {"remat": "--remat", "reference_exact": "--reference_exact", **stage_flags}
-    for dest, name in flags.items():
+def reject_unported(args) -> None:
+    """Exit with a clear error for each common flag this port does not carry
+    yet."""
+    for dest, name in (("remat", "--remat"), ("reference_exact", "--reference_exact")):
         if getattr(args, dest, False):
             raise SystemExit(f"{name} is not yet ported to the PyTorch package (see ROADMAP.md)")
     if args.aug_mode != "fused":
@@ -155,3 +158,28 @@ def seed_everything(seed: int, device: torch.device) -> torch.Generator:
     np.random.seed(seed)
     torch.manual_seed(seed)
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def resume_training(args, state, best, generators: Generators) -> tuple:
+    """The stage CLIs' ``--resume`` (``common.py:260-286``): 'auto' is the
+    latest ``ckpt_<N>.pth`` under ``--save_dir`` (none: a fresh start); a
+    path loads that checkpoint.  Restores ``state`` in place (optimizer,
+    schedule and Lookahead included), the best value into ``best`` (the
+    meta's ``best_val``, else ``best``, else ``val_metric``), and each of
+    the run's ``generators``, so the resumed epochs draw what the
+    uninterrupted run would have.  Returns (start epoch, the checkpoint's
+    path or "")."""
+    path = args.resume
+    if path == "auto":
+        path = latest_checkpoint(args.save_dir) or ""
+    if not path:
+        return 1, ""
+    if not os.path.isfile(path):
+        raise SystemExit(f"--resume {path}: no such checkpoint file")
+    _, meta = restore_checkpoint(path, state, generators=generators)
+    start_epoch = int(meta.get("epoch", 0)) + 1
+    value = meta.get("best_val", meta.get("best", meta.get("val_metric")))
+    if value is not None:
+        best.restore(float(value))
+    print(f"==> resumed from {path} (epoch {start_epoch - 1})")
+    return start_epoch, path

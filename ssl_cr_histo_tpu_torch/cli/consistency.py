@@ -1,7 +1,8 @@
 """Teacher/student consistency training (SSL_CR stage 3) on a GPU.
 
 Counterpart of ``ssl_cr_histo_tpu/cli/consistency.py:45-349``, ``--mode
-fine-tuning`` for the Kather, BreastPathQ and Camelyon16 tasks.  Kather's
+fine-tuning`` and ``--mode evaluation`` for the Kather, BreastPathQ and
+Camelyon16 tasks.  Kather's
 CR config of record (reference eval_Kather_SSL_CR.py:267;
 ``cli.common.TASKS``): 9 classes at 224^2, 8 labeled images a step (24
 views after the 3-view stack), mu 7 (56 unlabeled images a step, each with
@@ -22,9 +23,12 @@ Writes ``consistency_results.csv``, ``best.pth``, ``ckpt_<epoch>.pth`` and
 ``final.pth`` under ``--save_dir`` in the fine-tune layout (the student's
 TripletNet under ``'model'``, its head under ``'classifier'``), and with
 ``--ema`` the teacher's own ``teacher_best.pth``, ``teacher_ckpt_<epoch>.pth``
-and ``teacher_final.pth``.  ``--mode evaluation``, ``--resume``, ``--aug_mode
-fast|masked|exact`` and ``--reference_exact`` exit with "not yet ported"
-(ROADMAP.md); ``--multi_step`` is not carried.
+and ``teacher_final.pth``.  ``--resume ckpt_<N>.pth|auto`` continues a run
+from its checkpoint (under ``--ema`` the teacher from its ``teacher_``
+file).  ``--mode evaluation`` scores ``--eval_ckpt`` (else
+``--finetune_ckpt``) on ``--test_path`` as the fine-tune CLI does.
+``--aug_mode fast|masked|exact`` and ``--reference_exact`` exit with "not
+yet ported" (ROADMAP.md); ``--multi_step`` is not carried.
 """
 
 from __future__ import annotations
@@ -42,9 +46,11 @@ from ssl_cr_histo_tpu_torch.cli.common import (
     make_optimizer,
     reject_unported,
     resolve_device,
+    resume_training,
     seed_everything,
 )
 from ssl_cr_histo_tpu_torch.cli.finetune import (
+    evaluate,
     load_train_val,
     steps_per_epoch,
     subsample_labeled,
@@ -53,7 +59,7 @@ from ssl_cr_histo_tpu_torch.cli.finetune import (
 )
 from ssl_cr_histo_tpu_torch.data.pipeline import prefetch_to_device
 from ssl_cr_histo_tpu_torch.parallel import steps as S
-from ssl_cr_histo_tpu_torch.train.checkpoint import save_checkpoint
+from ssl_cr_histo_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_teacher, load_finetuned
 from ssl_cr_histo_tpu_torch.train.loop import BestTracker, CsvLogger
 from ssl_cr_histo_tpu_torch.train.state import FinetuneState
@@ -62,8 +68,7 @@ from ssl_cr_histo_tpu_torch.train.state import FinetuneState
 def parse_args(argv=None):
     p = argparse.ArgumentParser("SSL_CR consistency training (PyTorch / CUDA)")
     p.add_argument("--task", required=True, choices=list(TASKS))
-    p.add_argument("--mode", default="fine-tuning", choices=["fine-tuning", "evaluation"],
-                   help="evaluation is not ported yet")
+    p.add_argument("--mode", default="fine-tuning", choices=["fine-tuning", "evaluation"])
     p.add_argument("--train_path", default="",
                    help="train data dir: the labeled fraction supervises, the whole train split is "
                         "the unlabeled pool; Camelyon16 takes two comma-joined patch dirs, tumor and normal")
@@ -75,9 +80,14 @@ def parse_args(argv=None):
                    help="annotation JSON dir for --val_path (defaults to --json_path)")
     p.add_argument("--with_replacement", action="store_true",
                    help="reproduce the reference's labeled subsampling with replacement")
+    p.add_argument("--test_path", default="", help="eval data dir (mode=evaluation)")
+    p.add_argument("--test_path_b", default="", help="BreastPathQ second-rater dir")
     p.add_argument("--finetune_ckpt", default="",
                    help="stage-2 checkpoint (.pth with 'model' and 'classifier') initializing "
                         "teacher and student")
+    p.add_argument("--eval_ckpt", default="",
+                   help="trained consistency checkpoint to evaluate (mode=evaluation; default "
+                        "--finetune_ckpt)")
     p.add_argument("--mu", type=int, default=7, help="unlabeled batch multiplier")
     p.add_argument("--NAug", type=int, default=7, help="strong-augmentation stages")
     p.add_argument("--lambda_u", type=float, default=1.0, help="weight of the consistency loss")
@@ -92,15 +102,34 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=0.0, help="0 = task default")
     p.add_argument("--weight_decay", type=float, default=1e-4,
                    help="L2 added to grads before the update (torch semantics)")
-    p.add_argument("--resume", default="", help="not ported yet")
+    p.add_argument("--resume", default="",
+                   help="a ckpt_<N>.pth to resume from, or 'auto' for the latest under --save_dir")
     p.add_argument("--save_freq", type=int, default=10,
                    help="epochs between periodic ckpt_N checkpoints (0 = off)")
     p.add_argument("--ema", type=float, default=0.0,
                    help=">0: EMA teacher (weights and BN statistics) after every step instead of the "
                         "per-epoch refresh (not the reference's semantics)")
-    p.add_argument("--eval_batch_size", type=int, default=64, help="batch of per-epoch validation")
+    p.add_argument("--eval_batch_size", type=int, default=64,
+                   help="batch of per-epoch validation and --mode evaluation")
     add_common_args(p)
     return p.parse_args(argv)
+
+
+def resume_teacher(args, teacher, state: FinetuneState, resume_path: str) -> None:
+    """The teacher of a resumed run: with the per-epoch refresh it equals the
+    student at an epoch's end; under ``--ema`` it is its own
+    ``teacher_<name>`` beside the resumed checkpoint, or, when that file is
+    missing, the student again, with a warning (``cli/consistency.py:
+    221-246``)."""
+    rdir, rbase = os.path.split(resume_path)
+    teacher_path = os.path.join(rdir, f"teacher_{rbase}")
+    if args.ema > 0 and os.path.isfile(teacher_path):
+        restore_checkpoint(teacher_path, teacher, restore_opt=False)
+        return
+    if args.ema > 0:
+        print(f"WARNING: --ema {args.ema} but no teacher checkpoint at {teacher_path}; resetting the EMA teacher "
+              f"to the student (accumulated EMA state from the interrupted run is lost)")
+    S.refresh_teacher(teacher, state)
 
 
 def run(args, cfg, labeled, train, val) -> FinetuneState:
@@ -113,7 +142,11 @@ def run(args, cfg, labeled, train, val) -> FinetuneState:
     end of the epoch (or EMA-updated after each step under ``--ema``);
     validation of the student, the CSV row, ``best.pth``, and every
     ``--save_freq`` epochs ``ckpt_<epoch>.pth``; ``final.pth`` at the end.
-    Returns the student."""
+    Every checkpoint holds both generators; ``--resume`` restores them with
+    the student and starts at the epoch after the checkpoint's, the teacher
+    refreshed from the student, or under ``--ema`` loaded from its own
+    ``teacher_<name>`` file (``cli/consistency.py:221-246``).  Returns the
+    student."""
     device = resolve_device(args)
     gen = seed_everything(args.seed, device)
     # the augmentation tables' host generator (ops.batch.draw_transform_fix)
@@ -143,10 +176,14 @@ def run(args, cfg, labeled, train, val) -> FinetuneState:
     os.makedirs(args.save_dir, exist_ok=True)
     log = CsvLogger(os.path.join(args.save_dir, "consistency_results.csv"),
                     "epoch, train_loss, sup_loss, cons_loss, val_metric")
-    best = BestTracker(args.save_dir, mode="min")
+    gens = {"gen": gen, "host_gen": host_gen}
+    best = BestTracker(args.save_dir, mode="min", generators=gens)
     save_teacher = lambda name, meta: save_checkpoint(os.path.join(args.save_dir, f"teacher_{name}"), teacher,
                                                       dict(meta, role="teacher"))
-    for epoch in range(1, args.num_epoch + 1):
+    start_epoch, resume_path = resume_training(args, state, best, gens)
+    if resume_path:
+        resume_teacher(args, teacher, state, resume_path)
+    for epoch in range(start_epoch, args.num_epoch + 1):
         t0 = time.time()
         # the sums stay on the device; reading them synchronises
         sums = torch.zeros(3, device=device)
@@ -179,13 +216,13 @@ def run(args, cfg, labeled, train, val) -> FinetuneState:
                 save_teacher("best.pth", {"epoch": epoch})
         if args.save_freq and epoch % args.save_freq == 0:
             meta["best_val"] = best.best_value
-            save_checkpoint(os.path.join(args.save_dir, f"ckpt_{epoch}.pth"), state, meta)
+            save_checkpoint(os.path.join(args.save_dir, f"ckpt_{epoch}.pth"), state, meta, gens)
             if args.ema > 0:
                 save_teacher(f"ckpt_{epoch}.pth", {"epoch": epoch})
     # with the per-epoch refresh the teacher equals the student here
     save_checkpoint(os.path.join(args.save_dir, "final.pth"), state,
                     {"epoch": args.num_epoch, "best_val": best.best_value,
-                     "teacher": "ema (teacher_final.pth)" if args.ema > 0 else "equals the student"})
+                     "teacher": "ema (teacher_final.pth)" if args.ema > 0 else "equals the student"}, gens)
     if args.ema > 0:
         save_teacher("final.pth", {"epoch": args.num_epoch})
     return state
@@ -193,12 +230,17 @@ def run(args, cfg, labeled, train, val) -> FinetuneState:
 
 def main(argv=None):
     args = parse_args(argv)
-    reject_unported(args, {"resume": "--resume"})
-    if args.mode != "fine-tuning":
-        raise SystemExit(f"--mode {args.mode} is not yet ported to the PyTorch package (see ROADMAP.md)")
+    reject_unported(args)
+    cfg = apply_task_overrides(args, TASKS[args.task])
+    if args.mode == "evaluation":
+        # the reference CR scripts' own --mode evaluation (eval_Kather_SSL_CR.py:643-666), through the
+        # fine-tune CLI's evaluator (``cli/consistency.py:127-143``)
+        ckpt = args.eval_ckpt or args.finetune_ckpt
+        if not ckpt:
+            raise SystemExit("--eval_ckpt required for evaluation")
+        return evaluate(args, cfg, ckpt)
     if not args.train_path or not args.finetune_ckpt:
         raise SystemExit("--train_path and --finetune_ckpt required for fine-tuning")
-    cfg = apply_task_overrides(args, TASKS[args.task])
     resolve_device(args)  # a missing GPU fails before the data loads
     train, val = load_train_val(args, cfg)
     return run(args, cfg, subsample_labeled(train, args, cfg), train, val)

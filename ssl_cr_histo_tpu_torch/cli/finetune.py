@@ -1,7 +1,8 @@
 """Supervised fine-tuning (SSL stage 2) on a GPU.
 
-Counterpart of ``ssl_cr_histo_tpu/cli/finetune.py:44-330``, ``--mode
-fine-tuning`` for the Kather, BreastPathQ and Camelyon16 tasks.  Config of
+Counterpart of ``ssl_cr_histo_tpu/cli/finetune.py:44-417``, ``--mode
+fine-tuning`` and ``--mode evaluation`` for the Kather, BreastPathQ and
+Camelyon16 tasks.  Config of
 record per task (``cli.common.TASKS``); Kather's (reference
 eval_Kather_SSL.py:231-238): 9 classes at 224^2, batch 64 images (192 views
 a step after the 3-view stack), Adam 1e-5 with L2 1e-4 added to the
@@ -18,16 +19,22 @@ iterator's epochs.
         --json_path JSONS/ --val_path TUMOR_VALID,NORMAL_VALID --model_path PRETRAIN_RUN/ckpt_1.pth \\
         --save_dir RUN/
 
+    python -m ssl_cr_histo_tpu_torch.cli.finetune --task kather --mode evaluation --test_path TEST_DIRS/ \
+        --finetune_ckpt RUN/best.pth --save_dir EVAL/
+
 Writes ``fine_tuned_results.csv``, ``best.pth``, ``ckpt_<epoch>.pth`` and
 ``final.pth`` under ``--save_dir``: the TripletNet under ``'model'`` and the
 head under ``'classifier'`` (``classifier.0.*``), the reference's layout.
-``--mode evaluation`` and ``--resume`` exit with "not yet ported"
-(ROADMAP.md); ``--multi_step`` is not carried.
+``--resume ckpt_<N>.pth|auto`` continues a run from its checkpoint.
+``--mode evaluation`` scores ``--finetune_ckpt`` on ``--test_path`` (and
+BreastPathQ's second rater ``--test_path_b``) and writes ``<task>_eval.json``
+and the task's plots.  ``--multi_step`` is not carried.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 
@@ -42,14 +49,16 @@ from ssl_cr_histo_tpu_torch.cli.common import (
     make_optimizer,
     reject_unported,
     resolve_device,
+    resume_training,
     seed_everything,
 )
 from ssl_cr_histo_tpu_torch.data import datasets as D
 from ssl_cr_histo_tpu_torch.data.pipeline import balanced_batch_iterator, prefetch_to_device
 from ssl_cr_histo_tpu_torch.eval import metrics as M
+from ssl_cr_histo_tpu_torch.eval import reporting as RP
 from ssl_cr_histo_tpu_torch.parallel import steps as S
 from ssl_cr_histo_tpu_torch.train.checkpoint import save_checkpoint
-from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, load_backbone
+from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_serving_state, load_backbone
 from ssl_cr_histo_tpu_torch.train.loop import BestTracker, CsvLogger
 from ssl_cr_histo_tpu_torch.train.state import FinetuneState
 
@@ -57,8 +66,7 @@ from ssl_cr_histo_tpu_torch.train.state import FinetuneState
 def parse_args(argv=None):
     p = argparse.ArgumentParser("SSL supervised fine-tuning (PyTorch / CUDA)")
     p.add_argument("--task", required=True, choices=list(TASKS))
-    p.add_argument("--mode", default="fine-tuning", choices=["fine-tuning", "evaluation"],
-                   help="evaluation is not ported yet")
+    p.add_argument("--mode", default="fine-tuning", choices=["fine-tuning", "evaluation"])
     p.add_argument("--train_path", default="",
                    help="train data dir (h5 dir / class folders / patch dirs); Camelyon16 takes two "
                         "comma-joined patch dirs, tumor and normal (or one dir with polygon labels)")
@@ -68,8 +76,11 @@ def parse_args(argv=None):
                         "and --validation_split is ignored")
     p.add_argument("--val_json_path", default="",
                    help="annotation JSON dir for --val_path (defaults to --json_path)")
+    p.add_argument("--test_path", default="", help="eval data dir (mode=evaluation)")
+    p.add_argument("--test_path_b", default="", help="BreastPathQ second-rater dir")
     p.add_argument("--model_path", default="",
                    help="stage-1 pretraining checkpoint (.pth with a 'model' state_dict)")
+    p.add_argument("--finetune_ckpt", default="", help="checkpoint to evaluate (mode=evaluation)")
     p.add_argument("--modules", type=int, default=0,
                    help="freeze the first N torch-ordered tensors "
                         "(0 full FT / 15 from-layer2 / 30 / 45 / 60 head-only / 64)")
@@ -83,10 +94,12 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=0.0, help="0 = task default")
     p.add_argument("--weight_decay", type=float, default=1e-4,
                    help="L2 added to grads before the update (torch semantics)")
-    p.add_argument("--resume", default="", help="not ported yet")
+    p.add_argument("--resume", default="",
+                   help="a ckpt_<N>.pth to resume from, or 'auto' for the latest under --save_dir")
     p.add_argument("--save_freq", type=int, default=10,
                    help="epochs between periodic ckpt_N checkpoints (0 = off)")
-    p.add_argument("--eval_batch_size", type=int, default=64, help="batch of per-epoch validation")
+    p.add_argument("--eval_batch_size", type=int, default=64,
+                   help="batch of per-epoch validation and --mode evaluation")
     add_common_args(p)
     return p.parse_args(argv)
 
@@ -163,20 +176,124 @@ def build_state(args, cfg, device: torch.device, n_steps_per_epoch: int) -> Fine
     )
 
 
+def forward_all(state: FinetuneState, ds, batch_size: int, device: torch.device, bf16: bool = False):
+    """Eval-mode outputs (N, num_classes) float32 of every sample of ``ds``
+    in order, the last batch short, and the labels, as numpy
+    (``cli/finetune.py:297-317``)."""
+    outs, labels = [], []
+    it = ds.batches(batch_size, shuffle=False, drop_last=False)
+    for imgs, lab in prefetch_to_device(it, device):
+        outs.append(S.forward(state, imgs, bf16=bf16))
+        labels.append(lab)
+    return torch.cat(outs).cpu().numpy(), torch.cat(labels).cpu().numpy()
+
+
 def validate(cfg, state: FinetuneState, val, batch_size: int, device: torch.device,
              bf16: bool = False) -> float:
     """Validation error (1 - accuracy) or MSE over the whole set, in order,
     with the eval-mode forward (``cli/finetune.py:320-330``)."""
-    outs, labels = [], []
-    it = val.batches(batch_size, shuffle=False, drop_last=False)
-    for imgs, lab in prefetch_to_device(it, device):
-        outs.append(S.forward(state, imgs, bf16=bf16))
-        labels.append(lab)
-    out = torch.cat(outs).cpu().numpy()
-    lab = torch.cat(labels).cpu().numpy()
+    out, lab = forward_all(state, val, batch_size, device, bf16)
     if cfg.task == "regression":
         return float(np.mean((out[:, 0] - lab) ** 2))
     return 1.0 - M.accuracy(lab, out.argmax(-1))
+
+
+def predict_all(state: FinetuneState, ds, cfg, device: torch.device, raw: bool = False, batch_size: int = 64,
+                bf16: bool = False) -> np.ndarray:
+    """Every sample's output in order (``cli/finetune.py:411-417``): the
+    (N, num_classes) logits, or a regression task's (N,) scores unless
+    ``raw``."""
+    out, _ = forward_all(state, ds, batch_size, device, bf16)
+    return out[:, 0] if cfg.task == "regression" and not raw else out
+
+
+def load_test_set(args, cfg):
+    """The test set and, for BreastPathQ, the second rater's labels
+    (``--test_path_b``, else ``--test_path`` again); None for the other
+    tasks (``cli/finetune.py:341-378``)."""
+    if cfg.name == "breastpathq":
+        return D.load_breastpathq_eval_pair(args.test_path, args.test_path_b or args.test_path, cfg.image_size)
+    if cfg.name == "camelyon16":
+        return D.load_camelyon16_patches(args.test_path, args.json_path, cfg.image_size, split=None), None
+    return D.load_kather_folder(args.test_path, cfg.image_size), None
+
+
+def eval_report(cfg, labels: np.ndarray, out: np.ndarray, labels_b: "np.ndarray | None" = None) -> dict:
+    """The task's test metrics from ``predict_all``'s output, key for key as
+    the JAX CLI's (``cli/finetune.py:344-395``).  BreastPathQ: the ICC
+    tables and Kendall's tau of the predictions (M) against rater A's
+    ``labels`` and rater B's ``labels_b``, and A against B, and the MSE
+    against A.  Kather and Camelyon16: the confusion matrix, per-class
+    sensitivity / specificity / accuracy, weighted F1, accuracy, and the
+    one-vs-rest (Kather) or binary (Camelyon16) AUC of the softmax, None
+    where the test set lacks a class."""
+    if cfg.task == "regression":
+        return {
+            "icc_MA": M.icc_two_raters(out, labels),
+            "icc_MB": M.icc_two_raters(out, labels_b),
+            "icc_AB": M.icc_two_raters(labels, labels_b),
+            "tau_MA": M.kendall_tau(out, labels),
+            "mse_MA": float(np.mean((out - labels) ** 2)),
+        }
+    preds = out.argmax(-1)
+    cm = M.confusion_matrix(labels, preds, cfg.num_classes)
+    probs = np.exp(out - out.max(-1, keepdims=True))
+    probs = probs / probs.sum(-1, keepdims=True)
+    report = {
+        "confusion": cm.tolist(),
+        "per_class": {k: v.tolist() for k, v in M.per_class_sens_spec_acc(cm).items()},
+        "weighted_f1": M.weighted_f1(labels, preds),
+        "accuracy": M.accuracy(labels, preds),
+    }
+    auc_key = "auc" if cfg.num_classes == 2 else "ovr_auc"
+    try:
+        report[auc_key] = M.binary_auc(labels, probs[:, 1]) if cfg.num_classes == 2 else M.multiclass_ovr_auc(
+            labels, probs)
+    except ValueError:
+        report[auc_key] = None  # the test set lacks a class
+    return report
+
+
+def write_eval(save_dir: str, cfg, report: dict, labels: np.ndarray, out: np.ndarray,
+               labels_b: "np.ndarray | None" = None) -> str:
+    """``<task>_eval.json`` under ``save_dir`` first, then the task's plots
+    (``eval.reporting``, which needs matplotlib): BreastPathQ's scatter and
+    Bland-Altman plots for each pairing of predictions (M) and raters (A, B),
+    the other tasks' confusion matrix.  Returns the JSON's path."""
+    os.makedirs(save_dir, exist_ok=True)
+    path = os.path.join(save_dir, f"{cfg.name}_eval.json")
+    with open(path, "w") as f:
+        json.dump(report, f, indent=2, default=float)
+    print(json.dumps(report, indent=2, default=float))
+    print(f"==> wrote {path}")
+    if cfg.task == "regression":
+        # reference eval_BreastPathQ_SSL.py:504-544
+        for tag, x, y in (("MA", labels, out), ("MB", labels_b, out), ("AB", labels, labels_b)):
+            RP.save_scatter_plot(x, y, "Pathologist", "Automated Method",
+                                 os.path.join(save_dir, f"BreastPathQ_Eval_2way_{tag}_plot.png"))
+            RP.save_bland_altman_plot(x, y, os.path.join(save_dir, f"BDPlot_Eval_2way_{tag}_plot.png"))
+    else:
+        names = list(D.KATHER_CLASSES) if cfg.name == "kather" else ["normal", "tumor"]
+        RP.save_confusion_matrix_plot(np.asarray(report["confusion"]), names,
+                                      os.path.join(save_dir, f"{cfg.name}_confusion.png"))
+    return path
+
+
+def evaluate(args, cfg, ckpt: str) -> dict:
+    """``--mode evaluation`` (``cli/finetune.py:333-408``): ``ckpt`` (a
+    fine-tune or consistency checkpoint) loaded for serving on the run's
+    device, the test set through ``predict_all`` at ``--eval_batch_size``,
+    its report, and the artifacts under ``--save_dir``.  Returns the
+    report."""
+    device = resolve_device(args)
+    if not args.test_path:
+        raise SystemExit("--test_path required for evaluation")
+    state = init_serving_state(args.model, cfg.num_classes, device, ckpt)
+    ds, labels_b = load_test_set(args, cfg)
+    out = predict_all(state, ds, cfg, device, batch_size=args.eval_batch_size, bf16=args.bf16)
+    report = eval_report(cfg, ds.labels, out, labels_b)
+    write_eval(args.save_dir, cfg, report, ds.labels, out, labels_b)
+    return report
 
 
 def run(args, cfg, train, val) -> FinetuneState:
@@ -184,7 +301,9 @@ def run(args, cfg, train, val) -> FinetuneState:
     161-294``): per epoch, the train steps over a seeded shuffle (balanced
     tumor/normal batches for Camelyon16) fed one batch ahead by a thread,
     validation, the CSV row, ``best.pth``, and every ``--save_freq`` epochs
-    ``ckpt_<epoch>.pth``; ``final.pth`` at the end."""
+    ``ckpt_<epoch>.pth``; ``final.pth`` at the end.  Every checkpoint holds
+    the generator of the steps' draws; ``--resume`` restores it with the
+    state and starts at the epoch after the checkpoint's."""
     device = resolve_device(args)
     gen = seed_everything(args.seed, device)
     batch_size = args.batch_size or cfg.batch_size
@@ -201,8 +320,10 @@ def run(args, cfg, train, val) -> FinetuneState:
 
     os.makedirs(args.save_dir, exist_ok=True)
     log = CsvLogger(os.path.join(args.save_dir, "fine_tuned_results.csv"), "epoch, train_loss, val_metric")
-    best = BestTracker(args.save_dir, mode="min")
-    for epoch in range(1, args.num_epoch + 1):
+    gens = {"gen": gen}
+    best = BestTracker(args.save_dir, mode="min", generators=gens)
+    start_epoch, _ = resume_training(args, state, best, gens)
+    for epoch in range(start_epoch, args.num_epoch + 1):
         t0 = time.time()
         # the sum stays on the device; reading it synchronises
         loss_sum = torch.zeros((), device=device)
@@ -225,18 +346,20 @@ def run(args, cfg, train, val) -> FinetuneState:
             print(f"==> new best {val_metric:.4f}")
         if args.save_freq and epoch % args.save_freq == 0:
             meta["best_val"] = best.best_value
-            save_checkpoint(os.path.join(args.save_dir, f"ckpt_{epoch}.pth"), state, meta)
+            save_checkpoint(os.path.join(args.save_dir, f"ckpt_{epoch}.pth"), state, meta, gens)
     save_checkpoint(os.path.join(args.save_dir, "final.pth"), state,
-                    {"epoch": args.num_epoch, "best_val": best.best_value})
+                    {"epoch": args.num_epoch, "best_val": best.best_value}, gens)
     return state
 
 
 def main(argv=None):
     args = parse_args(argv)
-    reject_unported(args, {"resume": "--resume"})
-    if args.mode != "fine-tuning":
-        raise SystemExit(f"--mode {args.mode} is not yet ported to the PyTorch package (see ROADMAP.md)")
+    reject_unported(args)
     cfg = apply_task_overrides(args, TASKS[args.task])
+    if args.mode == "evaluation":
+        if not args.finetune_ckpt:
+            raise SystemExit("--finetune_ckpt required for evaluation")
+        return evaluate(args, cfg, args.finetune_ckpt)
     resolve_device(args)  # a missing GPU fails before the data loads
     train, val = load_train_val(args, cfg)
     return run(args, cfg, subsample_labeled(train, args, cfg), val)

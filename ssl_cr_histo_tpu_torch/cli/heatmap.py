@@ -48,7 +48,7 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     """Returns {wsi_id: probability map} of the slides written."""
     args = parse_args(argv)
-    reject_unported(args, {})
+    reject_unported(args)
     device = resolve_device(args)
     seed_everything(args.seed, device)
     image_size = args.image_size or 256

@@ -10,7 +10,12 @@ SGD-Nesterov lr 0.01 wd 1e-4, Lookahead(5, 0.5) stepped per epoch.
 
 Writes ``train_results.csv``, ``best.pth`` and ``ckpt_<epoch>.pth`` (the
 reference's torch checkpoint layout, see ``train.checkpoint``) under
-``--save_dir``.
+``--save_dir``.  ``--resume ckpt_<N>.pth|auto`` continues a run from its
+checkpoint; ``--expand_orderings`` takes the reference's strict epoch (every
+triplet under each of the 6 orderings), ``--cache_tiles`` keeps every read
+triplet in host memory across epochs, and ``--tsne`` writes the best epoch's
+train features with their t-SNE plot and, at the end, ``tsne.png`` of the
+validation features under all 6 orderings.
 """
 
 from __future__ import annotations
@@ -23,7 +28,13 @@ import time
 import numpy as np
 import torch
 
-from ssl_cr_histo_tpu_torch.cli.common import add_common_args, reject_unported, resolve_device, seed_everything
+from ssl_cr_histo_tpu_torch.cli.common import (
+    add_common_args,
+    reject_unported,
+    resolve_device,
+    resume_training,
+    seed_everything,
+)
 from ssl_cr_histo_tpu_torch.data import ReaderCache, RSPTripletSampler, TripletIndex
 from ssl_cr_histo_tpu_torch.data.pipeline import pad_batches, prefetch_to_device
 from ssl_cr_histo_tpu_torch.parallel import steps as S
@@ -57,21 +68,28 @@ def parse_args(argv=None):
                    help="thumbnail level for foreground stats, counted from the bottom "
                         "of the pyramid (1 BreastPathQ / 5 Camelyon16)")
     p.add_argument("--no_augment", action="store_true", help="train on raw tiles (ablation)")
-    p.add_argument("--expand_orderings", action="store_true", help="not ported yet")
-    p.add_argument("--cache_tiles", action="store_true", help="not ported yet")
+    p.add_argument("--expand_orderings", action="store_true",
+                   help="strict reference epochs: every triplet once under each of the 6 orderings, "
+                        "shuffled (6x the steps of an epoch)")
+    p.add_argument("--cache_tiles", action="store_true",
+                   help="keep every read triplet in host RAM across epochs (the reference's all-in-RAM "
+                        "dataset; ~590 KB a 256^2 position)")
     p.add_argument("--read_workers", type=int, default=0, help="triplet-read threads per batch")
     p.add_argument("--index_cache_dir", default="auto",
                    help="persistent slide-index cache ('auto' = <train_image_pth>/.rsp_index; "
                         "'' disables)")
     p.add_argument("--index_workers", type=int, default=0)
-    p.add_argument("--resume", default="", help="not ported yet")
+    p.add_argument("--resume", default="",
+                   help="a ckpt_<N>.pth to resume from, or 'auto' for the latest under --save_dir")
     p.add_argument("--steps_per_epoch", type=int, default=0,
                    help="0 = full pass over the sampled index")
     p.add_argument("--joint_encode", action="store_true", default=True,
                    help="one backbone pass over the 3 views (BN statistics pooled "
                         "across them); on by default")
     p.add_argument("--no_joint_encode", dest="joint_encode", action="store_false")
-    p.add_argument("--tsne", action="store_true", help="not ported yet")
+    p.add_argument("--tsne", action="store_true",
+                   help="at each new best, save the epoch's train features and their t-SNE plot; at the "
+                        "end, tsne.png of the validation features under all 6 orderings")
     add_common_args(p)
     return p.parse_args(argv)
 
@@ -100,10 +118,40 @@ def split_validation(indices, args):
     return train, val
 
 
+def save_best_features(save_dir: str, epoch: int, feats: list, targets: list) -> None:
+    """The reference's best-epoch artifacts (pretrain_BreastPathQ.py:322-340,
+    ``cli/pretrain.py:319-333``): the train epoch's features and orderings
+    as ``best_pre_trained_{feats,targets}_<epoch>.npy`` and their t-SNE plot
+    ``best_tsne_feats_<epoch>.png``."""
+    from ssl_cr_histo_tpu_torch.eval.reporting import save_tsne_plot
+
+    f, t = np.concatenate(feats), np.concatenate(targets)
+    np.save(os.path.join(save_dir, f"best_pre_trained_feats_{epoch}.npy"), f)
+    np.save(os.path.join(save_dir, f"best_pre_trained_targets_{epoch}.npy"), t)
+    save_tsne_plot(f, t, os.path.join(save_dir, f"best_tsne_feats_{epoch}.png"))
+
+
+def save_val_tsne(args, state, sampler, val_positions, readers, tile_cache, device) -> None:
+    """``tsne.png`` of every validation triplet's features under each of the
+    6 orderings, labelled by ordering (``cli/pretrain.py:339-361``)."""
+    from ssl_cr_histo_tpu_torch.eval.reporting import save_tsne_plot
+
+    feats, targets = [], []
+    vb = sampler.iter_batches(val_positions, args.batch_size, seed=0, drop_last=False, readers=readers,
+                              tile_cache=tile_cache, read_workers=args.read_workers)
+    for tiles, valid in prefetch_to_device(pad_batches(vb, args.batch_size), device):
+        f = S.pretrain_eval_step(state, tiles, valid, bf16=args.bf16, return_feats=True)["feats"]
+        keep = valid.bool()
+        for label in range(6):
+            feats.append(f[label][keep].float().cpu().numpy())
+            targets.append(np.full(int(keep.sum()), label, np.int32))
+    save_tsne_plot(np.concatenate(feats), np.concatenate(targets), os.path.join(args.save_dir, "tsne.png"))
+    print("==> saved t-SNE plot")
+
+
 def main(argv=None):
     args = parse_args(argv)
-    reject_unported(args, {"tsne": "--tsne", "expand_orderings": "--expand_orderings",
-                           "cache_tiles": "--cache_tiles", "resume": "--resume"})
+    reject_unported(args)
     if args.variant != "v1":
         raise SystemExit("--variant v2 is not yet ported to the PyTorch package (see ROADMAP.md)")
     if args.image_size:
@@ -126,33 +174,49 @@ def main(argv=None):
 
     state = init_triplet_state(args.model, device, lr=args.lr, weight_decay=args.weight_decay)
     step_kwargs = dict(augment=None if args.no_augment else args.variant,
-                       joint_encode=args.joint_encode, bf16=args.bf16)
+                       joint_encode=args.joint_encode, bf16=args.bf16, return_feats=args.tsne)
 
     os.makedirs(args.save_dir, exist_ok=True)
     log = CsvLogger(os.path.join(args.save_dir, "train_results.csv"),
                     "epoch, train_loss, train_acc, val_loss, val_acc")
-    best = BestTracker(args.save_dir, mode="min", gate_epoch=args.best_gate_epoch)
+    gens = {"gen": gen}
+    best = BestTracker(args.save_dir, mode="min", gate_epoch=args.best_gate_epoch, generators=gens)
+    # restores the state, Lookahead's slow weights, the best value (so a
+    # resumed epoch that is not better cannot overwrite best.pth) and the
+    # ordering and augmentation generator (``cli/pretrain.py:209-213``)
+    start_epoch, _ = resume_training(args, state, best, gens)
 
     readers = ReaderCache(capacity=64)
-    for epoch in range(1, args.num_epoch + 1):
+    tile_cache = {} if args.cache_tiles else None
+    for epoch in range(start_epoch, args.num_epoch + 1):
         t0 = time.time()
         # sums stay on the device; reading them synchronises, so only the
         # progress prints and the epoch's end do
         loss_sum = torch.zeros((), device=device)
         acc_sum = torch.zeros((), device=device)
         seen = 0
+        epoch_feats, epoch_targets = [], []
         batches = sampler.iter_batches(train_indices, args.batch_size, seed=args.seed + epoch,
-                                       readers=readers, read_workers=args.read_workers)
+                                       readers=readers, expand_orderings=args.expand_orderings,
+                                       tile_cache=tile_cache, read_workers=args.read_workers)
+        if not args.expand_orderings:
+            batches = ((t,) for t in batches)
         if args.steps_per_epoch:
             batches = itertools.islice(batches, args.steps_per_epoch)
         # a thread reads and pins the next batches while the card runs this
-        # one (``cli/pretrain.py:302-304``); the order and seeds are the sampler's
-        for bi, (tiles,) in enumerate(prefetch_to_device(((t,) for t in batches), device)):
-            m = S.pretrain_step(state, tiles, gen, **step_kwargs)
+        # one (``cli/pretrain.py:302-304``); the order and seeds are the
+        # sampler's, and under --expand_orderings its labels ride along
+        for bi, (tiles, *labels) in enumerate(prefetch_to_device(batches, device)):
+            m = S.pretrain_step(state, tiles, gen, labels=labels[0] if labels else None, **step_kwargs)
             n = tiles.shape[0]
             loss_sum += m["loss"] * n
             acc_sum += m["acc"] * n
             seen += n
+            if args.tsne:
+                # the reference keeps every train batch's features for the
+                # best-epoch dump (pretrain_BreastPathQ.py:71-89)
+                epoch_feats.append(m["feats"].float().cpu().numpy())
+                epoch_targets.append(m["labels"].cpu().numpy().astype(np.int32))
             if (bi + 1) % args.print_freq == 0:
                 print(f"Train: [{epoch}][{bi + 1}] loss {float(m['loss']):.3f} "
                       f"({float(loss_sum) / seen:.3f}) acc {float(acc_sum) / seen:.3f}")
@@ -165,7 +229,7 @@ def main(argv=None):
         # the prefetch thread (``cli/pretrain.py:274``)
         sums = {k: torch.zeros((), device=device) for k in ("loss_sum", "correct", "count")}
         vb = sampler.iter_batches(val_positions, args.batch_size, seed=0, drop_last=False,
-                                  readers=readers, read_workers=args.read_workers)
+                                  readers=readers, tile_cache=tile_cache, read_workers=args.read_workers)
         for tiles, valid in prefetch_to_device(pad_batches(vb, args.batch_size), device):
             out = S.pretrain_eval_step(state, tiles, valid, bf16=args.bf16)
             for k in sums:
@@ -179,9 +243,13 @@ def main(argv=None):
         meta = {"epoch": epoch, "args": vars(args), "train_loss": train_loss, "val_loss": val_loss}
         if best.update(val_loss, epoch, state, meta):
             print(f"==> new best val loss {val_loss:.4f}")
+            if args.tsne and epoch_feats:
+                save_best_features(args.save_dir, epoch, epoch_feats, epoch_targets)
         if args.save_freq and epoch % args.save_freq == 0:
             meta["best_val"] = best.best_value
-            save_checkpoint(os.path.join(args.save_dir, f"ckpt_{epoch}.pth"), state, meta)
+            save_checkpoint(os.path.join(args.save_dir, f"ckpt_{epoch}.pth"), state, meta, gens)
+    if args.tsne and val_positions:
+        save_val_tsne(args, state, sampler, val_positions, readers, tile_cache, device)
     readers.close()
     print("done.")
 

@@ -142,6 +142,18 @@ def load_breastpathq_h5(dataset_path: str, image_size: int = 256) -> ArrayDatase
     return ArrayDataset(np.stack(images), np.asarray(labels, np.float32))
 
 
+def load_breastpathq_eval_pair(dir_a: str, dir_b: str, image_size: int = 256) -> Tuple[ArrayDataset, np.ndarray]:
+    """Two-rater eval set (``datasets.py:177-190``; reference
+    dataset.py:539-599: TestSetSherine + TestSetSharon hold the same patches
+    scored by two raters): the dataset labeled by rater A and rater B's
+    label vector.  Sets of unequal size raise ValueError."""
+    a = load_breastpathq_h5(dir_a, image_size)
+    b = load_breastpathq_h5(dir_b, image_size)
+    if len(a) != len(b):
+        raise ValueError(f"rater sets differ in size: {len(a)} vs {len(b)}")
+    return a, b.labels
+
+
 def _camelyon_list(data_path: str) -> List[Tuple[int, str, int, int]]:
     """Parse list.txt -> [(line_idx, pid, x, y)].  Patch files are named by
     line index ('{idx}.png', reference dataset.py:737), so the pairing

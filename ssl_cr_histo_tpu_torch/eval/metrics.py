@@ -1,6 +1,9 @@
 """Evaluation metrics: the port's own copy of
-``ssl_cr_histo_tpu/eval/metrics.py`` (numpy; scipy and scikit-learn are
-imported inside the functions that use them).
+``ssl_cr_histo_tpu/eval/metrics.py`` (numpy; scipy is imported inside the
+function that uses it).  Where the original calls scikit-learn (weighted F1,
+the ROC-AUCs), this copy computes the same numbers in numpy, raising
+ValueError where scikit-learn does, so that evaluation runs where
+scikit-learn is not installed.
 
 Covers everything the reference computes inline in its eval scripts:
   * ICC table (Shrout & Fleiss ICC1/2/3 and their k-rater forms) — the
@@ -134,22 +137,51 @@ def per_class_sens_spec_acc(cm: np.ndarray) -> Dict[str, np.ndarray]:
 
 
 def weighted_f1(y_true: np.ndarray, y_pred: np.ndarray) -> float:
-    from sklearn.metrics import f1_score
+    """scikit-learn's ``f1_score(average='weighted')``: each label of either
+    vector scores 2 tp / (true + predicted), weighted by its count in
+    ``y_true`` (a label never true weighs 0; no true label at all gives 0)."""
+    y_true, y_pred = np.asarray(y_true).ravel(), np.asarray(y_pred).ravel()
+    labels = np.union1d(y_true, y_pred)
+    true = np.array([np.sum(y_true == c) for c in labels], np.float64)
+    pred = np.array([np.sum(y_pred == c) for c in labels], np.float64)
+    tp = np.array([np.sum((y_true == c) & (y_pred == c)) for c in labels], np.float64)
+    f1 = 2.0 * tp / np.maximum(true + pred, 1.0)
+    return float(np.average(f1, weights=true)) if true.sum() else 0.0
 
-    return float(f1_score(y_true, y_pred, average="weighted"))
 
-
-def multiclass_ovr_auc(y_true: np.ndarray, probs: np.ndarray) -> float:
-    """One-vs-rest ROC-AUC (reference eval_Kather_SSL_CR.py:658)."""
-    from sklearn.metrics import roc_auc_score
-
-    return float(roc_auc_score(y_true, probs, multi_class="ovr"))
+def _midranks(x: np.ndarray) -> np.ndarray:
+    """1-based ranks of ``x``, ties given the mean of their ranks."""
+    _, inv, counts = np.unique(x, return_inverse=True, return_counts=True)
+    last = np.cumsum(counts)
+    return ((last - counts + 1 + last) / 2.0)[inv.ravel()]
 
 
 def binary_auc(y_true: np.ndarray, scores: np.ndarray) -> float:
-    from sklearn.metrics import roc_auc_score
+    """ROC-AUC of ``scores`` for the greater of the two labels of ``y_true``
+    (scikit-learn's ``roc_auc_score``): the Mann-Whitney statistic, ties
+    counted one half, which is the area under the ROC curve's steps."""
+    y, s = np.asarray(y_true).ravel(), np.asarray(scores, np.float64).ravel()
+    classes = np.unique(y)
+    if len(classes) != 2:
+        raise ValueError("Only one class present in y_true. ROC AUC score is not defined in that case.")
+    pos = y == classes[1]
+    n_pos, n_neg = float(pos.sum()), float((~pos).sum())
+    return float((_midranks(s)[pos].sum() - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
 
-    return float(roc_auc_score(y_true, scores))
+
+def multiclass_ovr_auc(y_true: np.ndarray, probs: np.ndarray) -> float:
+    """One-vs-rest ROC-AUC, the mean over classes (reference
+    eval_Kather_SSL_CR.py:658; scikit-learn's ``roc_auc_score(...,
+    multi_class='ovr')``): ValueError unless each row of ``probs`` sums to 1
+    and ``y_true`` holds one label per column."""
+    y, probs = np.asarray(y_true).ravel(), np.asarray(probs)
+    if not np.allclose(1, probs.sum(axis=1)):
+        raise ValueError("Target scores need to be probabilities for multiclass roc_auc, i.e. they should sum up "
+                         "to 1.0 over classes")
+    classes = np.unique(y)
+    if len(classes) != probs.shape[1]:
+        raise ValueError("Number of classes in y_true not equal to the number of columns in 'y_score'")
+    return float(np.mean([binary_auc(y == c, probs[:, k]) for k, c in enumerate(classes)]))
 
 
 def accuracy(y_true: np.ndarray, y_pred: np.ndarray) -> float:

@@ -53,6 +53,7 @@ def pretrain_step(
     augment: Optional[str] = "v1",
     joint_encode: bool = True,
     bf16: bool = False,
+    return_feats: bool = False,
 ) -> dict:
     """One RSP pretraining step on (B, 3, H, W, 3) uint8 triplets in
     [HR, LR1, LR2] order, on the device of ``tiles_u8``.
@@ -63,7 +64,10 @@ def pretrain_step(
     augmentation draws (``ops.batch.draw_rsp_v1``'s dict) for tests.
     bf16: the augmentation writes bfloat16 and the backbone and heads run
     under bfloat16 autocast; the loss is float32.
-    Returns {'loss', 'acc'} as device tensors (reading them synchronises).
+    Returns {'loss', 'acc'} as device tensors (reading them synchronises);
+    with ``return_feats`` also 'feats', the (B, 768) TripletNet features
+    the classifier read, and 'labels', the (B,) orderings
+    (``steps.py:74-80``, ``:170``), still on the device.
     """
     model, clf = state.model, state.classifier
     model.train()
@@ -101,7 +105,10 @@ def pretrain_step(
     state.optimizer.step()
     state.step += 1
     acc = (logits.detach().argmax(-1) == labels).float().mean()
-    return {"loss": loss.detach(), "acc": acc}
+    out = {"loss": loss.detach(), "acc": acc}
+    if return_feats:
+        out.update(feats=feats.detach(), labels=labels)
+    return out
 
 
 @torch.no_grad()
@@ -111,10 +118,13 @@ def pretrain_eval_step(
     valid: torch.Tensor,
     *,
     bf16: bool = False,
+    return_feats: bool = False,
 ) -> dict:
     """Validation: no augmentation, running BN statistics, every triplet under
     all 6 orderings (``steps.py:271-315``).  ``valid`` (B,) weights padded
-    rows to zero.  Returns weighted sums {'loss_sum', 'correct', 'count'}.
+    rows to zero.  Returns weighted sums {'loss_sum', 'correct', 'count'};
+    with ``return_feats`` also 'feats', the (6, B, 768) TripletNet features
+    under each ordering.
 
     In eval mode each view's embedding does not depend on the ordering, so
     the backbone runs once over the B*3 views and only the pairwise head and
@@ -129,15 +139,21 @@ def pretrain_eval_step(
     w = valid.to(tiles.device).float()
     loss_sum = torch.zeros((), device=tiles.device)
     correct = torch.zeros((), device=tiles.device)
+    feats = []
     with _autocast(tiles.device, bf16):
         emb = model.model(tiles.reshape(b * 3, *tiles.shape[2:])).reshape(b, 3, -1)
         for label in range(6):
             labels = torch.full((b,), label, dtype=torch.long, device=tiles.device)
             e = permute_triplets(emb, labels)
-            logits = clf(model.pair_features(e[:, 0], e[:, 1], e[:, 2])).float()
+            f = model.pair_features(e[:, 0], e[:, 1], e[:, 2])
+            logits = clf(f).float()
             loss_sum += (F.cross_entropy(logits, labels, reduction="none") * w).sum()
             correct += ((logits.argmax(-1) == labels).float() * w).sum()
-    return {"loss_sum": loss_sum, "correct": correct, "count": 6.0 * w.sum()}
+            feats.append(f)
+    out = {"loss_sum": loss_sum, "correct": correct, "count": 6.0 * w.sum()}
+    if return_feats:
+        out["feats"] = torch.stack(feats)
+    return out
 
 
 def finetune_step(

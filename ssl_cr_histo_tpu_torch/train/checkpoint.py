@@ -8,28 +8,83 @@ whose ``'classifier'`` entry is the head's: the pretraining Classifier's
 the reference's layout, which the JAX package reads with
 ``train.checkpoint.load_torch_triplet_checkpoint`` and
 ``load_torch_linear_head``.  The optimizer, the Lookahead state or the LR
-schedule, the step and a ``meta`` dict ride along under their own keys, for
-a resume that is not ported yet.
+schedule, the step, the run's random generators and a ``meta`` dict ride
+along under their own keys, so that ``restore_checkpoint`` resumes a run
+where it stopped (``ssl_cr_histo_tpu/train/checkpoint.py:58-118``).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple
+import re
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ssl_cr_histo_tpu_torch.train.state import FinetuneState, TrainState
+from ssl_cr_histo_tpu_torch.train.state import FinetuneState, Teacher, TrainState
+
+Generators = Dict[str, torch.Generator]
 
 
-def save_checkpoint(path: str, state: "TrainState | FinetuneState", meta: dict) -> None:
+def save_checkpoint(path: str, state: "TrainState | FinetuneState | Teacher", meta: dict,
+                    generators: Optional[Generators] = None) -> None:
     """Write ``path`` (a ``.pth`` file) atomically: the state's
-    ``payload()`` and ``meta``."""
+    ``payload()``, ``meta``, and under ``'generators'`` the state of each
+    named generator of the run (its augmentation and ordering draws), which
+    ``restore_checkpoint`` puts back."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
-    torch.save({**state.payload(), "meta": meta}, tmp)
+    payload = {**state.payload(), "meta": meta}
+    if generators:
+        payload["generators"] = {name: g.get_state() for name, g in generators.items()}
+    torch.save(payload, tmp)
     os.replace(tmp, path)
+
+
+def latest_checkpoint(base_dir: str) -> Optional[str]:
+    """The ``ckpt_<N>.pth`` under ``base_dir`` with the highest epoch N,
+    compared as numbers (``ckpt_10`` after ``ckpt_9``), or None
+    (``checkpoint.py:107-118``)."""
+    if not os.path.isdir(base_dir):
+        return None
+    epochs = [int(m.group(1)) for m in map(re.compile(r"ckpt_(\d+)\.pth").fullmatch, os.listdir(base_dir)) if m]
+    return os.path.join(base_dir, f"ckpt_{max(epochs)}.pth") if epochs else None
+
+
+def restore_checkpoint(path: str, state: "TrainState | FinetuneState | Teacher", restore_opt: bool = True,
+                       generators: Optional[Generators] = None) -> Tuple["TrainState | FinetuneState | Teacher", dict]:
+    """Load a checkpoint of ``save_checkpoint`` into ``state`` in place and
+    return (state, meta) (``checkpoint.py:58-104``).
+
+    The TripletNet (``'model'``) and the head (``'classifier'``) always
+    load, and the step where the state has one.  With ``restore_opt`` the
+    optimizer, the LR schedule and Lookahead's slow weights and epoch count
+    load too (a teacher, which has none, takes ``restore_opt=False``).  The
+    state of each generator in ``generators`` is set from the checkpoint's
+    entry of the same name, so the draws go on where the saved run stopped.
+    """
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    state.model.load_state_dict(raw["model"])
+    (state.classifier if isinstance(state, TrainState) else state.head).load_state_dict(raw["classifier"])
+    if hasattr(state, "step"):
+        state.step = int(raw.get("step", 0))
+    if restore_opt:
+        state.optimizer.load_state_dict(raw["optimizer"])
+        if getattr(state, "scheduler", None) is not None:
+            state.scheduler.load_state_dict(raw["scheduler"])
+        if getattr(state, "slow", None) is not None and raw.get("slow") is not None:
+            with torch.no_grad():
+                for s, v in zip(state.slow, raw["slow"], strict=True):
+                    s.copy_(v)
+            state.la_count = int(raw.get("la_count", 0))
+    saved = raw.get("generators", {})
+    for name, gen in (generators or {}).items():
+        if name in saved:
+            gen.set_state(saved[name])
+        else:
+            print(f"WARNING: {path} holds no state of the generator {name!r}; its draws restart from the seed")
+    return state, raw.get("meta", {})
 
 
 def _leaves(tree: dict, path: tuple = ()):

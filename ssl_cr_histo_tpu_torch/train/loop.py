@@ -12,7 +12,7 @@ import os
 from dataclasses import dataclass, field
 
 from ssl_cr_histo_tpu_torch.train import optim
-from ssl_cr_histo_tpu_torch.train.checkpoint import save_checkpoint
+from ssl_cr_histo_tpu_torch.train.checkpoint import Generators, save_checkpoint
 from ssl_cr_histo_tpu_torch.train.state import FinetuneState, TrainState
 
 
@@ -45,18 +45,23 @@ def lookahead_epoch(state: TrainState, la_steps: int = 5, la_alpha: float = 0.5)
 class BestTracker:
     """Best-validation checkpoint (``best.pth``) of either stage, optionally
     gated to epochs after ``gate_epoch`` (80 for Camelyon16,
-    pretrain_Camelyon16.py:307)."""
+    pretrain_Camelyon16.py:307), with the run's ``generators`` in it."""
 
     save_dir: str
     mode: str = "min"
     gate_epoch: int = 0
     best: float = field(default=math.inf)
+    generators: Generators = field(default_factory=dict)
 
     @property
     def best_value(self) -> "float | None":
         if not math.isfinite(self.best):
             return None
         return self.best if self.mode == "min" else -self.best
+
+    def restore(self, value: float) -> None:
+        """Re-arm from a saved best value on resume (``loop.py:73-75``)."""
+        self.best = value if self.mode == "min" else -value
 
     def update(self, value: float, epoch: int, state: "TrainState | FinetuneState", meta: dict) -> bool:
         if not math.isfinite(value):
@@ -67,5 +72,5 @@ class BestTracker:
             return False
         self.best = v
         save_checkpoint(os.path.join(self.save_dir, "best.pth"), state,
-                        dict(meta, best=value, best_val=value))
+                        dict(meta, best=value, best_val=value), self.generators)
         return True

@@ -398,15 +398,37 @@ def test_cli_ema_teacher_checkpoints(tmp_path):
     assert not torch.equal(student["model"]["model.conv1.weight"], teacher["model"]["model.conv1.weight"])
 
 
-@pytest.mark.parametrize("extra", [["--remat"], ["--mode", "evaluation"], ["--resume", "x.pth"],
-                                   ["--aug_mode", "fast"], ["--aug_mode", "masked"], ["--aug_mode", "exact"],
-                                   ["--reference_exact"]])
+@pytest.mark.parametrize("extra", [["--remat"], ["--aug_mode", "fast"], ["--aug_mode", "masked"],
+                                   ["--aug_mode", "exact"], ["--reference_exact"]])
 def test_cli_rejects_unported(tmp_path, extra):
     from ssl_cr_histo_tpu_torch.cli import consistency
 
     argv = ["--task", "kather", "--train_path", str(tmp_path), "--finetune_ckpt", "x.pth", "--device", "cpu"]
     with pytest.raises(SystemExit, match="not yet ported"):
         consistency.main(argv + extra)
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--mode", "evaluation"], "--eval_ckpt required for evaluation"),
+    (["--resume", "missing/ckpt_3.pth"], "--resume missing/ckpt_3.pth: no such checkpoint"),
+])
+def test_cli_fails_naming_what_is_missing(tmp_path, extra, message):
+    """Evaluation with neither --eval_ckpt nor --finetune_ckpt exits with
+    the JAX CLI's message; a --resume file that is not there exits naming
+    it, before any epoch."""
+    from ssl_cr_histo_tpu_torch.cli import consistency
+
+    data, ft = str(tmp_path / "kather"), str(tmp_path / "ft" / "best.pth")
+    _write_kather(data)
+    _finetune_checkpoint(ft)
+    argv = ["--task", "kather", "--train_path", data, "--device", "cpu", "--image_size", "32", "--batch_size", "2",
+            "--mu", "2", "--labeled_train", "0.5", "--save_dir", str(tmp_path / "run")]
+    if extra[0] == "--resume":
+        argv += ["--finetune_ckpt", ft]
+    with pytest.raises(SystemExit, match=message):
+        consistency.main(argv + extra)
+    assert not (tmp_path / "run" / "consistency_results.csv").exists() or \
+        len((tmp_path / "run" / "consistency_results.csv").read_text().splitlines()) == 1
 
 
 def test_cli_needs_a_gpu_by_default(tmp_path, monkeypatch):

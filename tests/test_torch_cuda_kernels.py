@@ -432,3 +432,31 @@ def test_serving_map_card_matches_cpu(cuda, monkeypatch, tmp_path):
     np.testing.assert_allclose(maps["cuda"], maps["cpu"], rtol=0, atol=1e-5)
     assert not maps["cuda"][mask == 0].any() and (maps["cuda"][mask > 0] > 0).all()
     assert PK.launches == RK.launches == 0
+
+
+@pytest.mark.cuda
+def test_evaluation_logits_card_match_cpu(cuda, monkeypatch, tmp_path):
+    """--mode evaluation's predict_all on the card against the CPU, float32,
+    TF32 off, from one 9-way checkpoint: 70 images of 64^2 at batch 32 (the
+    last batch short), logits within 1e-4, in order; no kernel launches."""
+    from ssl_cr_histo_tpu_torch.cli import finetune
+    from ssl_cr_histo_tpu_torch.cli.common import TASKS, make_optimizer
+    from ssl_cr_histo_tpu_torch.data.datasets import ArrayDataset
+    from ssl_cr_histo_tpu_torch.train.checkpoint import save_checkpoint
+    from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_serving_state
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    rng = np.random.default_rng(6)
+    ds = ArrayDataset(rng.integers(0, 256, (70, 64, 64, 3), dtype=np.uint8), rng.integers(0, 9, 70))
+    torch.manual_seed(0)
+    path = str(tmp_path / "best.pth")
+    save_checkpoint(path, init_finetune_state("resnet18", 9, torch.device("cpu"),
+                                              lambda ps: make_optimizer("adam", ps, 1e-5)), {"epoch": 1})
+    PK.launches = RK.launches = 0
+    out = {dev.type: finetune.predict_all(init_serving_state("resnet18", 9, dev, path), ds, TASKS["kather"], dev,
+                                          batch_size=32)
+           for dev in (torch.device("cpu"), cuda)}
+    assert out["cuda"].shape == (70, 9)
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=1e-4)
+    assert PK.launches == RK.launches == 0

@@ -521,14 +521,33 @@ def test_load_backbone_keeps_the_head_and_strips_module_prefix(tmp_path):
     assert all(torch.equal(state.head.state_dict()[k], v) for k, v in head.items())
 
 
-@pytest.mark.parametrize("extra", [["--aug_mode", "fast"], ["--mode", "evaluation"], ["--resume", "x.pth"],
-                                   ["--reference_exact"], ["--remat"], ["--aug_mode", "exact"]])
+@pytest.mark.parametrize("extra", [["--aug_mode", "fast"], ["--aug_mode", "masked"], ["--reference_exact"],
+                                   ["--remat"], ["--aug_mode", "exact"]])
 def test_cli_rejects_unported(tmp_path, extra):
     from ssl_cr_histo_tpu_torch.cli import finetune
 
     argv = ["--task", "kather", "--train_path", str(tmp_path), "--device", "cpu"]
     with pytest.raises(SystemExit, match="not yet ported"):
         finetune.main(argv + extra)
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--mode", "evaluation"], "--finetune_ckpt required for evaluation"),
+    (["--resume", "missing/ckpt_3.pth"], "--resume missing/ckpt_3.pth: no such checkpoint"),
+])
+def test_cli_fails_naming_what_is_missing(tmp_path, extra, message):
+    """Evaluation without a checkpoint exits with the JAX CLI's message; a
+    --resume file that is not there exits naming it, before any epoch."""
+    from ssl_cr_histo_tpu_torch.cli import finetune
+
+    data = str(tmp_path / "kather")
+    _write_kather(data)
+    argv = ["--task", "kather", "--train_path", data, "--device", "cpu", "--image_size", "32", "--batch_size", "4",
+            "--save_dir", str(tmp_path / "run")]
+    with pytest.raises(SystemExit, match=message):
+        finetune.main(argv + extra)
+    assert not (tmp_path / "run" / "fine_tuned_results.csv").exists() or \
+        len((tmp_path / "run" / "fine_tuned_results.csv").read_text().splitlines()) == 1
 
 
 def test_cli_needs_a_gpu_by_default(tmp_path, monkeypatch):

@@ -428,21 +428,29 @@ def test_cli_prefetch_keeps_the_batches_and_the_state(tmp_path, monkeypatch):
 
 
 def test_cli_rejects_unported_flags(tmp_path):
+    """v2, the other augmentation modes, --reference_exact and --remat exit
+    "not yet ported"; a --resume file that is not there exits naming it."""
     from ssl_cr_histo_tpu_torch.cli import pretrain
 
     base = ["--train_image_pth", str(tmp_path), "--device", "cpu"]
-    for extra in (["--variant", "v2"], ["--aug_mode", "exact"], ["--reference_exact"], ["--tsne"],
-                  ["--expand_orderings"], ["--cache_tiles"], ["--resume", "x.pth"], ["--remat"]):
+    for extra in (["--variant", "v2"], ["--aug_mode", "fast"], ["--aug_mode", "masked"], ["--aug_mode", "exact"],
+                  ["--reference_exact"], ["--remat"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             pretrain.main(base + extra)
+    slides = str(tmp_path / "wsis")
+    _write_slides(slides)
+    with pytest.raises(SystemExit, match="--resume missing/ckpt_3.pth: no such checkpoint"):
+        pretrain.main(["--train_image_pth", slides, "--device", "cpu", "--tile_h", "64", "--tile_w", "64",
+                       "--tile_stride", "32", "--index_cache_dir", "", "--save_dir", str(tmp_path / "run"),
+                       "--resume", "missing/ckpt_3.pth"])
 
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import without jax,
     flax, optax or chex, and without any module of the JAX package
     (``ssl_cr_histo_tpu``, even its numpy-only ones); nor do they load cv2,
-    h5py or matplotlib, which the GPU machine may lack (the functions that
-    read images or .h5 files import them).  A subprocess: this test process
+    h5py, matplotlib or scikit-learn, which the GPU machine may lack (the
+    functions that read images or .h5 files, or draw, import them).  A subprocess: this test process
     has jax loaded (tests/conftest.py)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -454,7 +462,7 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "jax_pkg = sorted(k for k in sys.modules if k.split('.')[0] == 'ssl_cr_histo_tpu')\n"
         "assert not jax_pkg, jax_pkg\n"
-        "optional = sorted(k for k in sys.modules if k.split('.')[0] in ('cv2', 'h5py', 'matplotlib'))\n"
+        "optional = sorted(k for k in sys.modules if k.split('.')[0] in ('cv2', 'h5py', 'matplotlib', 'sklearn'))\n"
         "assert not optional, optional\n"
         "print('ok', len([k for k in sys.modules if k.startswith('ssl_cr_histo_tpu_torch')]))\n"
     )

@@ -9,6 +9,8 @@ The CUDA kernel against this plain version is tests/test_torch_cuda_kernels.py
 
 import os
 import shutil
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -372,3 +374,30 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
         f.write("\n// edited\n")
     assert build.library_path("rsp_augment") != mid["rsp_augment"]
     assert build.library_path("photometric_chain") == mid["photometric_chain"]
+
+
+def test_port_import_sets_up_mkl_before_a_parallel_log():
+    """The cause of test_plain_matches_jax_composition (and of
+    test_torch_consistency_aug.py's colour test) failing in one worker of a
+    run in a few: PyTorch's CPU log hands each 2048-element chunk of a
+    parallel loop to MKL's vector math library, which sets itself up on its
+    first call, and when several threads make that first call at once one
+    chunk can come out off by up to 4e-5 (in about one fresh process in ten
+    on an 8-core host, tests/mkl_first_call_race.py).  Importing the port first makes one such call on one
+    thread (``ssl_cr_histo_tpu_torch/__init__.py``).  Eight fresh processes
+    that import the port and then take a parallel log of 16384 values: every
+    value within 1e-6 of float64."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import numpy as np, torch\n"
+        "import ssl_cr_histo_tpu_torch\n"
+        "x = np.random.default_rng(0).random(16384).astype(np.float32) + 2.0\n"
+        "print(float(np.abs(torch.log(torch.from_numpy(x)).numpy() - np.log(x.astype(np.float64))).max()))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=repo, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for _ in range(8)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [err for _, err in outs]
+    errs = [float(out) for out, _ in outs]
+    assert max(errs) <= 1e-6, errs
