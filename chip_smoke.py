@@ -4,7 +4,8 @@ kernels, checks each against its plain PyTorch version, drives the
 pretraining CLI for one short epoch at the config of record, the
 fine-tuning and consistency CLIs from its checkpoint for Kather and then
 Camelyon16, the heatmap CLI and the FROC from the Camelyon16 checkpoint,
-the CLIs' resume, the pretrain flags and evaluation, and times the steps,
+the CLIs' resume, the pretrain flags and evaluation, every augmentation
+mode, v2 pretraining, --reference_exact and --remat, and times the steps,
 the serving forward, evaluation and the kernels.
 
     python3 chip_smoke.py                    # from the root of a checkout, on a GPU machine
@@ -109,9 +110,28 @@ Phases (any failure exits non-zero and prints no result line):
      teacher_ckpt_1.pth.  Neither kernel may launch on an evaluation path.
      Where matplotlib or scikit-learn is missing, the plots are recorded,
      not drawn, and the phase prints which it did not draw
- 11. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
+ 11. the augmentation modes and the last stage-CLI flags: each new op
+     (the gather warp, rot90, the PIL ops, autocontrast, equalize, the HED
+     and HSB augmenters) card vs CPU in float32 within 1e-4, equalize,
+     autocontrast and PIL's gray level equal exactly; each new policy (v1
+     pretraining op by op, v2 fused / masked / exact, the consistency views
+     under fast / masked / exact) card vs CPU, within 1e-4 (a v2 policy at
+     its 99.9th percentile); ``cli.pretrain`` with ``--variant v2`` (batch
+     64, 256^2, bf16, 4 steps; neither kernel), ``--aug_mode fast`` (the
+     fused kernel once a step) and ``--reference_exact`` (no kernel,
+     float32, per-view BN, the x6 orderings), and ``cli.consistency`` at
+     Kather's CR config under ``--aug_mode fast``, ``masked`` and
+     ``exact`` (no kernel), each with every launch counter set to 0 just
+     before and read just after; a float32 ``--remat`` step card vs CPU and
+     against the step without it; resnet50 at 64 triplets of 256^2, bf16,
+     with and without ``--remat`` in turns: peak memory and step time; the
+     v2 (fused, masked) and v1 exact pretrain steps and the Kather CR
+     consistency step under each mode timed, with the views' share and the
+     kernel launches a step (``--profile``: each mode's profile table)
+ 12. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
      line.  A kernel's ``launches`` is phase 5's count (the main path);
-     ``launches_by_path`` adds each path of phase 10, each counted from 0
+     ``launches_by_path`` adds each CLI path of phases 10 and 11, each
+     counted from 0
 
 Imports nothing of JAX and nothing of the JAX package.  Tolerance 1e-4
 (phases 3-4) on outputs in [0, 1]: the kernels and PyTorch's CUDA ops
@@ -487,7 +507,7 @@ def write_slides(root: str) -> str:
 
 
 def old_augment(gen, triplets_u8, mode="fused", draws=None, mean=IDENTITY[0], std=IDENTITY[1],
-                out_dtype=None, order=None):
+                out_dtype=None, order=None, host_gen=None):
     """The unfused composition of the augmentation, kept here to time the step
     against: the uint8 triplet permutation (a gather), uint8 -> float32
     planar copy, the plain two-pass warp, the chain kernel, clip, normalize;
@@ -1749,6 +1769,320 @@ def phase_profile(torch, dev, tiles, out_dir: str, card: str) -> None:
     print(f"profile: device kernels named gather in 3 pretrain steps: {gathers or 'none'}", flush=True)
 
 
+def phase_modes_ops(torch) -> None:
+    """Phase 11: each op the augmentation modes add, on the card against the
+    CPU in float32 on the same inputs and parameters (16 images of 224^2:
+    random, two-level, one-level, dark and uint8 ones): the gather warp
+    (nearest and bilinear x constant, reflect-101, edge padding), rot90 per
+    image, the PIL ops, autocontrast, equalize, the HED and HSB augmenters,
+    within 1e-4; equalize, autocontrast and PIL's gray level equal
+    exactly."""
+    from ssl_cr_histo_tpu_torch.ops import geometry as G
+    from ssl_cr_histo_tpu_torch.ops import photometric as P
+    from ssl_cr_histo_tpu_torch.ops import stain as ST
+
+    g = torch.Generator().manual_seed(11)
+    n, s = 16, 224
+    x = torch.rand(n, 3, s, s, generator=g)
+    x[1] = (torch.rand(3, s, s, generator=g) < 0.5).float() * 0.6 + 0.2
+    x[2] = 0.5
+    x[3] *= 0.1
+    x[4] = torch.randint(0, 256, (3, s, s), generator=g).float() / 255.0
+    u = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(*(shape or (n,)), generator=g)
+    f, k = u(0.1, 1.9), torch.randint(0, 4, (n,), generator=g)
+    mats = (G.rotation_matrix(u(-60.0, 60.0), s, s) @ G.shear_x_matrix(u(-0.3, 0.3)) @ G.shear_y_matrix(u(-0.3, 0.3))
+            @ G.translation_matrix(u(-20.0, 20.0), u(-20.0, 20.0)))
+    sig, bias, hsb = u(-0.1, 0.1, n, 3), u(-0.1, 0.1, n, 3), u(-1.2, 1.2, n, 3)
+    cases = {f"warp_affine {i} {p}": (lambda t, d, i=i, p=p: G.warp_affine(t, mats.to(d), interp=i, pad_mode=p,
+                                                                          fill=0.25), False)
+             for i in ("nearest", "bilinear") for p in ("constant", "reflect101", "edge")}
+    cases.update({
+        "rot90": (lambda t, d: G.rot90(t, k.to(d)), True),
+        "_pil_gray255": (lambda t, d: P._pil_gray255(t), True),
+        "autocontrast": (lambda t, d: P.autocontrast(t), True),
+        "equalize": (lambda t, d: P.equalize(t), True),
+        **{name: (lambda t, d, name=name: getattr(P, name)(t, f.to(d)), False)
+           for name in ("pil_brightness", "pil_contrast", "pil_color", "pil_sharpness")},
+        "hed_color_augment": (lambda t, d: ST.hed_color_augment(t, sig.to(d), bias.to(d)), False),
+        "hsb_color_augment": (lambda t, d: ST.hsb_color_augment(t, hsb.to(d)), False),
+    })
+    errs = {name: (fn(x.cuda(), "cuda").cpu() - fn(x, "cpu")).abs().max().item()
+            for name, (fn, _) in cases.items()}
+    print("phase 11: the new ops, card vs CPU (float32, 16 x 224^2), max abs err: "
+          + "; ".join(f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+    for name, (_, exact) in cases.items():
+        check(errs[name] == 0.0 if exact else errs[name] <= TOL, f"{name}: card vs CPU differ by {errs[name]}")
+
+
+def phase_modes_policies(torch) -> None:
+    """Phase 11: each new policy on the card against the CPU in float32 on
+    the same inputs and draws: the v1 pretraining pool op by op and the v2
+    pool (fused, masked, exact) on 16 triplets of 256^2 with an ordering,
+    and the consistency views under fast, masked and exact on 56 images of
+    224^2 (NAug 7).  A policy without a quantized op is held to max abs err
+    1e-4; a v2 policy (PIL's gray level, equalize and nearest warps can
+    take another integer level after one float op differs by an ulp) to
+    its 99.9th percentile of abs err <= 1e-4, beside its max and the share
+    of values above 1e-4."""
+    import numpy as np
+
+    from ssl_cr_histo_tpu_torch.ops import batch as TB
+    from ssl_cr_histo_tpu_torch.ops import randaugment as RA
+
+    g = torch.Generator().manual_seed(12)
+    b, s = 16, 256
+    tiles = torch.randint(0, 256, (b, 3, s, s, 3), dtype=torch.uint8, generator=g)
+    order = torch.randint(0, 6, (b,), generator=g)
+    imgs = torch.randint(0, 256, (56, 224, 224, 3), dtype=torch.uint8, generator=g)
+    to = lambda d, dev: {k: v.to(dev) for k, v in d.items()}
+    runs = {"v1 exact": (RA.draw_pretrain_v1(g, b, s, host_gen=g),
+                         lambda d, dev: TB.augment_rsp_batch_v1(None, tiles.to(dev), mode="exact", draws=d,
+                                                                order=order.to(dev)))}
+    for mode in ("fused", "masked", "exact"):
+        runs[f"v2 {mode}"] = (RA.draw_v2(g, b * 3, 2, 3.0, masked=mode == "masked"),
+                              lambda d, dev, mode=mode: TB.augment_rsp_batch_v2(None, tiles.to(dev), 2, 3.0,
+                                                                               mode=mode, draws=d,
+                                                                               order=order.to(dev)))
+    for mode in ("fast", "masked", "exact"):
+        runs[f"transform_fix_batch {mode}"] = (
+            TB.draw_transform_fix(g, 56, 224, 7, 10, host_gen=g, mode=mode),
+            lambda d, dev, mode=mode: torch.cat(TB.transform_fix_batch(None, imgs.to(dev), 7, 10, mode=mode,
+                                                                       draws=d)))
+    stats = {}
+    for name, (d, fn) in runs.items():
+        err = (fn(to(d, "cuda"), "cuda").float().cpu() - fn(d, "cpu").float()).abs().numpy().ravel()
+        stats[name] = float(err.max()), float(np.percentile(err, 99.9)), float((err > TOL).mean())
+    print("phase 11: the new policies, card vs CPU (float32): " + "; ".join(
+        f"{k} max {w:.2e}, p99.9 {p:.2e}, share > 1e-4 {f:.2e}" for k, (w, p, f) in stats.items()), flush=True)
+    for name, (worst, p999, _) in stats.items():
+        if name.startswith("v2"):
+            check(p999 <= TOL, f"{name}: 99.9th percentile of card vs CPU abs err {p999}")
+        else:
+            check(worst <= TOL, f"{name}: card vs CPU differ by {worst}")
+
+
+@contextlib.contextmanager
+def recorded(module, name: str):
+    """``module.<name>`` with the keyword arguments of each call recorded
+    (labels included) for the block; yields the list."""
+    calls, real = [], getattr(module, name)
+
+    def wrapped(*a, **kw):
+        calls.append(kw)
+        return real(*a, **kw)
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def phase_modes_remat(torch, dev, card: str) -> None:
+    """Phase 11: ``--remat``.  One float32 pretrain step with the blocks
+    recomputed (batch 4 at 64^2, injected draws) on the card against the
+    CPU, held as phase 5 holds its step (1e-4), and against the card's step
+    without it (weights and BN statistics within 2e-5, the batch counts
+    equal); then resnet50 at batch 64 triplets of 256^2, bf16, with and
+    without it in turns (plain, remat, remat, plain): the peak memory
+    (``max_memory_allocated``) and the step time."""
+    from ssl_cr_histo_tpu_torch.ops import batch as TB
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+    from ssl_cr_histo_tpu_torch.train.init import init_triplet_state
+
+    g = torch.Generator().manual_seed(13)
+    b, s = 4, 64
+    tiles = torch.randint(0, 256, (b, 3, s, s, 3), dtype=torch.uint8, generator=g)
+    labels = torch.randint(0, 6, (b,), generator=g)
+    draws = TB.draw_rsp_v1(g, b * 3, s)
+    draws["noise"] = torch.randn(b * 3, 3, s, s, generator=g)
+    out = {}
+    for d, remat in (("cpu", True), ("cuda", True), ("cuda", False)):
+        torch.manual_seed(0)
+        state = init_triplet_state("resnet18", torch.device(d), remat=remat)
+        S.pretrain_step(state, tiles.to(d), torch.Generator(device=d).manual_seed(0), labels.to(d),
+                        {k: v.to(d) for k, v in draws.items()})
+        out[(d, remat)] = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    diff = lambda a, c: max((a[k].double() - c[k].double()).abs().max().item() for k in a)
+    vs_cpu, vs_plain = diff(out[("cuda", True)], out[("cpu", True)]), diff(out[("cuda", True)], out[("cuda", False)])
+    check(vs_cpu <= 1e-4, f"remat step card vs CPU differs by {vs_cpu}")
+    check(vs_plain <= 2e-5, f"remat step vs the plain step on the card differs by {vs_plain}")
+    tracked = [k for k in out[("cpu", True)] if k.endswith("num_batches_tracked")]
+    check(all(int(out[key][k]) == 1 for key in out for k in tracked), "a BatchNorm counted other than one batch")
+    print(f"phase 11: float32 pretrain step with --remat (batch 4 at 64^2): card vs CPU max abs err {vs_cpu:.2e}; "
+          f"against the card's step without it {vs_plain:.2e}; every num_batches_tracked 1", flush=True)
+
+    big = torch.randint(0, 256, (64, 3, 256, 256, 3), dtype=torch.uint8, generator=g).to(dev)
+    states, peaks = {}, {}
+    for remat in (False, True):
+        torch.manual_seed(0)
+        states[remat] = init_triplet_state("resnet50", dev, remat=remat)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step = lambda remat: lambda: S.pretrain_step(states[remat], big, gen, bf16=True)
+    for remat in (False, True):  # the peak of each, after its warm-up
+        step(remat)()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(remat)()
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2**30
+    t = in_turns({"plain": step(False), "remat": step(True)}, ["plain", "remat", "remat", "plain"],
+                 {"plain": 10, "remat": 10}, warmup=2)
+    mean = {k: sum(v) / len(v) for k, v in t.items()}
+    print(f"phase 11: resnet50 pretrain step, 64 triplets of 256^2, bf16, in turns plain/remat/remat/plain: without "
+          f"--remat {', '.join(f'{v:.3f}' for v in t['plain'])} ms, peak {peaks[False]:.3f} GiB; with --remat "
+          f"{', '.join(f'{v:.3f}' for v in t['remat'])} ms, peak {peaks[True]:.3f} GiB; remat/plain time "
+          f"{mean['remat'] / mean['plain']:.3f}, memory {peaks[True] / peaks[False]:.3f} [{card}]", flush=True)
+    del states
+
+
+def launches_per_step(torch, step) -> int:
+    """The CUDA kernels one warm call of ``step`` launches (torch.profiler;
+    copies and memsets left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    return sum(e.count for e in device_events(prof) if not e.key.startswith(("Memcpy", "Memset")))
+
+
+def phase_modes_timing(torch, dev, tiles, card: str, profile_dir: str) -> None:
+    """Phase 11 timings (CUDA events, two means of 10 steps after 3 warm-up
+    calls): the v2 pretrain step (64 triplets of 256^2, resnet18, bf16, n 2,
+    m 3) fused and masked; the v1 exact pretrain step (float32, one
+    backbone pass a view, as under --reference_exact); the Kather CR
+    consistency step (8 + 56 images at 224^2, NAug 7, bf16) under fused,
+    fast, masked and exact, each beside its views alone and its kernel
+    launches a step (``--profile``: each step's profile table and busy
+    share)."""
+    from ssl_cr_histo_tpu_torch.cli.common import TASKS, make_optimizer
+    from ssl_cr_histo_tpu_torch.ops import batch as TB
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+    from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_teacher, init_triplet_state
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    host_gen = torch.Generator().manual_seed(1)
+    losses = []
+    torch.manual_seed(0)
+    state = init_triplet_state("resnet18", dev)
+    pre = {f"v2 {m}": dict(augment="v2", aug_mode=m, bf16=True) for m in ("fused", "masked")}
+    pre["v1 exact float32 per-view"] = dict(aug_mode="exact", bf16=False, joint_encode=False)
+    for name, kw in pre.items():
+        step = lambda kw=kw: losses.append(S.pretrain_step(state, tiles, gen, host_gen=host_gen, **kw)["loss"])
+        ms = [cuda_ms(step, 10, warmup=3) for _ in range(2)]
+        print(f"phase 11: pretrain step {name}, resnet18, 64 triplets of 256^2: {ms[0]:.3f}, {ms[1]:.3f} ms = "
+              f"{3 * 64 / (sum(ms) / 2) * 1e3:.1f} patches/s; {launches_per_step(torch, step)} kernel launches a "
+              f"step [{card}]", flush=True)
+    del state
+    cfg, b, mu = TASKS["kather"], TASKS["kather"].cr_batch, 7
+    torch.manual_seed(0)
+    state = init_finetune_state("resnet18", cfg.num_classes, dev,
+                                lambda ps: make_optimizer(cfg.optimizer, ps, cfg.lr), modules=60)
+    teacher = init_teacher(state)
+    size = cfg.image_size
+    x_l = torch.randint(0, 256, (b, size, size, 3), dtype=torch.uint8, generator=gen, device=dev)
+    x_u = torch.randint(0, 256, (b * mu, size, size, 3), dtype=torch.uint8, generator=gen, device=dev)
+    y_l = torch.randint(0, cfg.num_classes, (b,), generator=gen, device=dev)
+    for mode in ("fused", "fast", "masked", "exact"):
+        step = lambda mode=mode: losses.append(S.consistency_step(state, teacher, x_l, y_l, x_u, gen, cfg.task,
+                                                                  host_gen=host_gen, aug_mode=mode, bf16=True)["loss"])
+        ms = [cuda_ms(step, 10, warmup=3) for _ in range(2)]
+        views = lambda mode=mode: TB.transform_fix_batch(gen, x_u, mode=mode, host_gen=host_gen)
+        view_ms = [cuda_ms(views, 10) for _ in range(2)]
+        mean = sum(ms) / 2
+        print(f"phase 11: consistency step --aug_mode {mode}, Kather CR (8 + 56 at 224^2, NAug 7, bf16): "
+              f"{ms[0]:.3f}, {ms[1]:.3f} ms = {(b + b * mu) / mean * 1e3:.1f} images/s; views alone {view_ms[0]:.3f}, "
+              f"{view_ms[1]:.3f} ms = {min(view_ms) / mean * 100:.1f}% of the step; {launches_per_step(torch, step)} "
+              f"kernel launches a step, {launches_per_step(torch, views)} for the views [{card}]", flush=True)
+        if profile_dir:
+            profile_steps(torch, step, profile_dir, f"consistency_{mode}_profile.txt", f"consistency {mode}", card)
+    check(all(math.isfinite(float(v)) for v in losses), "non-finite loss in phase 11's timed steps")
+
+
+def phase_modes(torch, dev, tmp: str, slides: str, tiles, card: str, profile_dir: str) -> dict:
+    """Phase 11: the augmentation modes and the last stage-CLI flags: the
+    new ops and policies card vs CPU, the CLIs (``phase_modes_clis``),
+    --remat, the timings.  Returns each CLI path's launches."""
+    phase_modes_ops(torch)
+    phase_modes_policies(torch)
+    launches = phase_modes_clis(torch, tmp, slides, card)
+    phase_modes_remat(torch, dev, card)
+    phase_modes_timing(torch, dev, tiles, card, profile_dir)
+    return launches
+
+
+def phase_modes_clis(torch, tmp: str, slides: str, card: str) -> dict:
+    """Phase 11's CLI runs on phases 5-6's data, every launch counter set to
+    0 before each run and read after: the pretrain CLI (batch 64, 256^2,
+    bf16) with --variant v2 (4 steps; neither kernel), with --aug_mode fast
+    (4 steps; the fused kernel once a step) and with --reference_exact (2
+    steps; no kernel, float32, one backbone pass a view, the x6
+    orderings); the consistency CLI at Kather's CR config from phase 6's
+    best.pth under --aug_mode fast, masked and exact (no kernel).  Returns
+    each path's launches."""
+    from ssl_cr_histo_tpu_torch.cli import consistency, pretrain
+    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
+    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+
+    launches = {}
+    common = ["--device", "cuda", "--model", "resnet18"]
+    base = ["--train_image_pth", slides, "--batch_size", "64", "--tile_h", "256", "--tile_w", "256", "--num_epoch",
+            "1", "--validation_size", "64", "--save_freq", "0", "--index_cache_dir", os.path.join(tmp, "rsp_index")]
+    runs = {"pretrain_v2_cli": ["--variant", "v2", "--tile_stride", "32", "--steps_per_epoch", "4"],
+            "pretrain_fast_cli": ["--aug_mode", "fast", "--tile_stride", "16", "--steps_per_epoch", "4"],
+            "pretrain_reference_exact_cli": ["--reference_exact", "--tile_stride", "16", "--steps_per_epoch", "2"]}
+    for path, extra in runs.items():
+        PK.launches = RK.launches = 0
+        t0 = time.time()
+        with recorded(S, "pretrain_step") as calls, contextlib.redirect_stdout(io.StringIO()):
+            pretrain.main(base + common + extra + ["--save_dir", os.path.join(tmp, path)])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches[path] = n = {"photometric_chain": PK.launches, "rsp_augment": RK.launches}
+        steps = int(extra[-1])
+        check(len(calls) == steps, f"{path}: {len(calls)} steps, not {steps}")
+        with open(os.path.join(tmp, path, "train_results.csv")) as f:
+            row = f.read().splitlines()[1]
+        check(all(math.isfinite(float(v)) for v in row.split(",")[1:]), f"{path}: CSV row {row}")
+        kw = calls[0]
+        if path == "pretrain_v2_cli":
+            check(kw["augment"] == "v2" and (kw["n_aug"], kw["m_aug"]) == (2, 3.0) and kw["bf16"],
+                  f"{path}: step arguments {kw}")
+            check(n["rsp_augment"] == n["photometric_chain"] == 0, f"{path}: a kernel launched: {n}")
+        elif path == "pretrain_fast_cli":
+            check(kw["aug_mode"] == "fast" and n["rsp_augment"] == steps and n["photometric_chain"] == 0,
+                  f"{path}: launches {n} in {steps} steps")
+        else:
+            check(kw["aug_mode"] == "exact" and not kw["bf16"] and not kw["joint_encode"]
+                  and kw["labels"] is not None, f"{path}: step arguments {kw}")
+            check(n["rsp_augment"] == n["photometric_chain"] == 0, f"{path}: a kernel launched: {n}")
+        print(f"phase 11: pretrain CLI {' '.join(extra)}: {steps} steps, wall {wall:.2f} s, launches {n}, CSV {row} "
+              f"[{card}]", flush=True)
+    for mode in ("fast", "masked", "exact"):
+        path = f"consistency_{mode}_cli"
+        argv = ["--task", "kather", "--train_path", os.path.join(tmp, "kather"), "--finetune_ckpt",
+                os.path.join(tmp, "finetune", "best.pth"), "--save_dir", os.path.join(tmp, path), "--batch_size", "8",
+                "--mu", "7", "--NAug", "7", "--num_epoch", "1", "--save_freq", "0", "--aug_mode", mode] + common
+        PK.launches = RK.launches = 0
+        t0 = time.time()
+        with recorded(S, "consistency_step") as calls, contextlib.redirect_stdout(io.StringIO()):
+            consistency.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches[path] = check_no_launch(PK, RK, path)
+        check(len(calls) >= 3 and all(c["aug_mode"] == mode for c in calls), f"{path}: {len(calls)} steps")
+        with open(os.path.join(tmp, path, "consistency_results.csv")) as f:
+            row = f.read().splitlines()[1]
+        check(all(math.isfinite(float(v)) for v in row.split(",")[1:]), f"{path}: CSV row {row}")
+        print(f"phase 11: consistency CLI --aug_mode {mode}: {len(calls)} steps, wall {wall:.2f} s, launches "
+              f"{launches[path]}, CSV {row} [{card}]", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke test of the PyTorch port on one NVIDIA GPU")
     ap.add_argument("--profile", default="", help="also profile the steps; write the tables to this directory")
@@ -1888,6 +2222,13 @@ def main() -> int:
         t0 = time.time()
         by_path = {"pretrain_cli": launches, **phase_remaining_modes(torch, dev, tmp, slides, card, opts.profile)}
         print(f"phase 10: {time.time() - t0:.1f} s [{card}]", flush=True)
+
+        # phase 11: the augmentation modes and the last stage-CLI flags
+        t0 = time.time()
+        tiles = torch.from_numpy(np.ascontiguousarray(tiles_np)).to(dev)
+        by_path.update(phase_modes(torch, dev, tmp, slides, tiles, card, opts.profile))
+        del tiles
+        print(f"phase 11: {time.time() - t0:.1f} s [{card}]", flush=True)
 
     replaces = {"photometric_chain": "ssl_cr_histo_tpu/ops/pallas_photometric.py:199",
                 "rsp_augment": "ssl_cr_histo_tpu/ops/pallas_photometric.py:199"}

@@ -1,14 +1,13 @@
 """Shared CLI plumbing: common flags, seeding, device selection, the task
-configs of record, the optimizer factory, ``--resume``.
+configs of record, the optimizer factory, the ``--reference_exact`` preset,
+``--resume``.
 
-Counterpart of ``ssl_cr_histo_tpu/cli/common.py:16-151``, ``:219-223`` and
+Counterpart of ``ssl_cr_histo_tpu/cli/common.py:16-204``, ``:219-223`` and
 ``:260-286``, with these differences:
   * no ``--photometric``: the device decides (the CUDA kernel on a GPU, the
-    plain PyTorch chain on the CPU);
+    plain PyTorch chain on the CPU), so the preset has no such key;
   * ``--device`` (default ``cuda``): a missing GPU is an error, never a
     silent run on the CPU; the CPU tests pass ``--device cpu``;
-  * ``--aug_mode fast|masked|exact``, ``--reference_exact`` and ``--remat``
-    exit with a "not yet ported" error;
   * a resumed run's random draws continue from the generators' states saved
     in its checkpoint, where the JAX CLIs advance their key chain.
 """
@@ -23,6 +22,7 @@ import random
 import numpy as np
 import torch
 
+from ssl_cr_histo_tpu_torch.ops.batch import AUG_MODES
 from ssl_cr_histo_tpu_torch.train import optim
 from ssl_cr_histo_tpu_torch.train.checkpoint import Generators, latest_checkpoint, restore_checkpoint
 
@@ -119,22 +119,50 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--no-bf16", dest="bf16", action="store_false")
     parser.add_argument("--device", default="cuda",
                         help="torch device; 'cuda' fails when no GPU is present")
-    parser.add_argument("--aug_mode", default="fused", choices=["fused", "fast", "masked", "exact"],
-                        help="fused = single-warp policy; fast, masked and exact are not ported yet")
+    parser.add_argument("--aug_mode", default="fused", choices=AUG_MODES,
+                        help="fused = one composed warp a tile (v1 pretraining: the fused kernel); fast = "
+                             "batch-shared strong op sequence (consistency); masked = each strong op once, "
+                             "where drawn (consistency; v2); exact = op-by-op reference semantics.  v1 "
+                             "pretraining maps fast and masked to fused")
     parser.add_argument("--image_size", type=int, default=0,
                         help="override the input resolution (0 = default)")
-    parser.add_argument("--remat", action="store_true", help="not ported yet")
-    parser.add_argument("--reference_exact", action="store_true", help="not ported yet")
+    parser.add_argument("--remat", action="store_true",
+                        help="recompute each backbone block in the backward pass (torch.utils.checkpoint): "
+                             "more compute for less activation memory; BN statistics as without it")
+    parser.add_argument("--reference_exact", action="store_true",
+                        help="strict-parity preset: every deviation default with a flag back to the "
+                             "reference's behaviour (per-view BN, with-replacement subsampling, eager x6 "
+                             "orderings, op-by-op exact augmentation, float32; REFERENCE_EXACT_PRESET). "
+                             "Overrides the individual flags")
 
 
-def reject_unported(args) -> None:
-    """Exit with a clear error for each common flag this port does not carry
-    yet."""
-    for dest, name in (("remat", "--remat"), ("reference_exact", "--reference_exact")):
-        if getattr(args, dest, False):
-            raise SystemExit(f"{name} is not yet ported to the PyTorch package (see ROADMAP.md)")
-    if args.aug_mode != "fused":
-        raise SystemExit(f"--aug_mode {args.aug_mode} is not yet ported to the PyTorch package (see ROADMAP.md)")
+# The strict-parity preset (``common.py:156-204``), keys argparse dests, the
+# JAX package's table without its ``photometric`` entry (the port has no
+# such flag: the device picks the photometric path, and the exact mode runs
+# no kernel):
+#   bf16=False             the reference trains in float32
+#   aug_mode="exact"       op-by-op reference augmentation
+#   joint_encode=False     per-view BN statistics (pretrain)
+#   expand_orderings=True  every triplet under all 6 orderings an epoch
+#   with_replacement=True  the reference's np.random.choice subsampling
+REFERENCE_EXACT_PRESET = {
+    "common": {"bf16": False, "aug_mode": "exact"},
+    "pretrain": {"joint_encode": False, "expand_orderings": True},
+    "finetune": {"with_replacement": True},
+    "consistency": {"with_replacement": True},
+}
+
+
+def apply_reference_exact(args, stage: str):
+    """Resolve ``--reference_exact`` for a stage CLI, straight after parsing
+    (``common.py:188-204``): the preset's common and ``stage`` entries
+    override the individual flags the CLI has."""
+    if not getattr(args, "reference_exact", False):
+        return args
+    for dest, value in {**REFERENCE_EXACT_PRESET["common"], **REFERENCE_EXACT_PRESET.get(stage, {})}.items():
+        if hasattr(args, dest):
+            setattr(args, dest, value)
+    return args
 
 
 def resolve_device(args) -> torch.device:

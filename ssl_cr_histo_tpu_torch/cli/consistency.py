@@ -27,8 +27,11 @@ and ``teacher_final.pth``.  ``--resume ckpt_<N>.pth|auto`` continues a run
 from its checkpoint (under ``--ema`` the teacher from its ``teacher_``
 file).  ``--mode evaluation`` scores ``--eval_ckpt`` (else
 ``--finetune_ckpt``) on ``--test_path`` as the fine-tune CLI does.
-``--aug_mode fast|masked|exact`` and ``--reference_exact`` exit with "not
-yet ported" (ROADMAP.md); ``--multi_step`` is not carried.
+``--aug_mode`` picks the strong views' policy (``ops.batch.
+transform_fix_batch``: fused, fast, masked or exact), ``--remat``
+recomputes the student's blocks in the backward pass, ``--reference_exact``
+applies the strict-parity preset (float32, exact views, with-replacement
+subsampling).  ``--multi_step`` is not carried.
 """
 
 from __future__ import annotations
@@ -42,9 +45,9 @@ import torch
 from ssl_cr_histo_tpu_torch.cli.common import (
     TASKS,
     add_common_args,
+    apply_reference_exact,
     apply_task_overrides,
     make_optimizer,
-    reject_unported,
     resolve_device,
     resume_training,
     seed_everything,
@@ -168,6 +171,7 @@ def run(args, cfg, labeled, train, val) -> FinetuneState:
         modules=args.modules_student,
         milestones_steps=[m * n_steps for m in cfg.milestones],
         gamma=cfg.gamma,
+        remat=args.remat,
     )
     load_finetuned(state, args.finetune_ckpt)
     print(f"==> teacher and student from {args.finetune_ckpt}")
@@ -194,7 +198,8 @@ def run(args, cfg, labeled, train, val) -> FinetuneState:
         pairs = zip(prefetch_to_device(lab_it, device), prefetch_to_device(unlab_it, device))
         for bi, ((x_l, y_l), (x_u,)) in enumerate(pairs):
             m = S.consistency_step(state, teacher, x_l, y_l, x_u, gen, cfg.task, args.lambda_u, args.NAug,
-                                   labeled_views=args.labeled_views, host_gen=host_gen, bf16=args.bf16)
+                                   labeled_views=args.labeled_views, host_gen=host_gen, aug_mode=args.aug_mode,
+                                   bf16=args.bf16)
             sums += torch.stack([m["loss"], m["sup"], m["cons"]]) * len(y_l)
             seen += len(y_l)
             if args.ema > 0:
@@ -229,8 +234,7 @@ def run(args, cfg, labeled, train, val) -> FinetuneState:
 
 
 def main(argv=None):
-    args = parse_args(argv)
-    reject_unported(args)
+    args = apply_reference_exact(parse_args(argv), "consistency")
     cfg = apply_task_overrides(args, TASKS[args.task])
     if args.mode == "evaluation":
         # the reference CR scripts' own --mode evaluation (eval_Kather_SSL_CR.py:643-666), through the

@@ -28,7 +28,11 @@ head under ``'classifier'`` (``classifier.0.*``), the reference's layout.
 ``--resume ckpt_<N>.pth|auto`` continues a run from its checkpoint.
 ``--mode evaluation`` scores ``--finetune_ckpt`` on ``--test_path`` (and
 BreastPathQ's second rater ``--test_path_b``) and writes ``<task>_eval.json``
-and the task's plots.  ``--multi_step`` is not carried.
+and the task's plots.  ``--remat`` recomputes the backbone's blocks in the
+backward pass; ``--reference_exact`` applies the strict-parity preset
+(float32, with-replacement subsampling); ``--aug_mode`` is accepted as the
+JAX CLI accepts it, and the 3-view stack has no modes.  ``--multi_step`` is
+not carried.
 """
 
 from __future__ import annotations
@@ -44,10 +48,10 @@ import torch
 from ssl_cr_histo_tpu_torch.cli.common import (
     TASKS,
     add_common_args,
+    apply_reference_exact,
     apply_task_overrides,
     balanced_epoch_len,
     make_optimizer,
-    reject_unported,
     resolve_device,
     resume_training,
     seed_everything,
@@ -173,6 +177,7 @@ def build_state(args, cfg, device: torch.device, n_steps_per_epoch: int) -> Fine
         modules=args.modules,
         milestones_steps=[m * n_steps_per_epoch for m in cfg.milestones],
         gamma=cfg.gamma,
+        remat=args.remat,
     )
 
 
@@ -353,8 +358,7 @@ def run(args, cfg, train, val) -> FinetuneState:
 
 
 def main(argv=None):
-    args = parse_args(argv)
-    reject_unported(args)
+    args = apply_reference_exact(parse_args(argv), "finetune")
     cfg = apply_task_overrides(args, TASKS[args.task])
     if args.mode == "evaluation":
         if not args.finetune_ckpt:

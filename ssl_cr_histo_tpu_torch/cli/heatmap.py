@@ -13,8 +13,10 @@ what the JAX CLI writes (``eval.heatmap.save_heatmap_artifacts``):
 
 ``--finetune_ckpt`` is a fine-tune or consistency ``.pth`` of the port or
 the reference (``'model'`` and ``'classifier'``), whose 2-way head is
-loaded (the reference leaves it random, test_Camelyon16.py:126-127).  The
-JAX CLI's mesh is not carried: one device (ROADMAP.md).
+loaded (the reference leaves it random, test_Camelyon16.py:126-127).
+``--reference_exact`` turns bf16 off; ``--remat`` and ``--aug_mode`` are
+accepted as the JAX CLI accepts them: an eval forward keeps no activations
+for a backward pass and augments nothing.  The JAX CLI's mesh is not carried: one device (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import time
 
 import numpy as np
 
-from ssl_cr_histo_tpu_torch.cli.common import add_common_args, reject_unported, resolve_device, seed_everything
+from ssl_cr_histo_tpu_torch.cli.common import add_common_args, apply_reference_exact, resolve_device, seed_everything
 from ssl_cr_histo_tpu_torch.data.wsi import open_slide
 from ssl_cr_histo_tpu_torch.eval.heatmap import compute_probs_map, pair_wsi_masks, save_heatmap_artifacts
 from ssl_cr_histo_tpu_torch.parallel import steps as S
@@ -47,8 +49,7 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     """Returns {wsi_id: probability map} of the slides written."""
-    args = parse_args(argv)
-    reject_unported(args)
+    args = apply_reference_exact(parse_args(argv), "heatmap")
     device = resolve_device(args)
     seed_everything(args.seed, device)
     image_size = args.image_size or 256

@@ -1,10 +1,18 @@
 """RSP self-supervised pretraining on a GPU.
 
-Counterpart of ``ssl_cr_histo_tpu/cli/pretrain.py:124-363`` for the v1
-variant.  Config of record (reference pretrain_BreastPathQ.py:151-196,
+Counterpart of ``ssl_cr_histo_tpu/cli/pretrain.py:124-363``, both
+variants.  Config of record (reference pretrain_BreastPathQ.py:151-196,
 :245-247): ResNet18, batch 64 triplets of 256x256 tiles, fused v1
 augmentation with the photometric kernel, joint encode, bf16 autocast,
 SGD-Nesterov lr 0.01 wd 1e-4, Lookahead(5, 0.5) stepped per epoch.
+``--variant v2`` is the paper's v2 script (Pretraining_v2/pretrain_RSP.py,
+``--tile_stride 768``): the v2 sampler geometry and RandAugment(``--NAug``,
+``--Magn``) per tile, in PyTorch ops (``--aug_mode`` fused, masked or
+exact).  v1's ``--aug_mode exact`` runs the pool op by op; fast and masked
+are the fused kernel, as in the JAX package.  ``--reference_exact``
+applies the strict-parity preset (float32, per-view BN, exact
+augmentation, the x6 orderings); ``--remat`` recomputes the backbone's
+blocks in the backward pass.
 
     python -m ssl_cr_histo_tpu_torch.cli.pretrain --train_image_pth SLIDES/ --save_dir RUN/
 
@@ -30,7 +38,7 @@ import torch
 
 from ssl_cr_histo_tpu_torch.cli.common import (
     add_common_args,
-    reject_unported,
+    apply_reference_exact,
     resolve_device,
     resume_training,
     seed_everything,
@@ -46,7 +54,8 @@ from ssl_cr_histo_tpu_torch.train.loop import BestTracker, CsvLogger, lookahead_
 def parse_args(argv=None):
     p = argparse.ArgumentParser("RSP pretraining (PyTorch / CUDA)")
     p.add_argument("--train_image_pth", required=True, help="directory of WSIs (.tif/.svs/.npy)")
-    p.add_argument("--variant", default="v1", choices=["v1", "v2"], help="v2 is not ported yet")
+    p.add_argument("--variant", default="v1", choices=["v1", "v2"],
+                   help="v1 (pretrain_BreastPathQ/Camelyon16) or v2 (Pretraining_v2/pretrain_RSP.py)")
     p.add_argument("--tile_h", type=int, default=256)
     p.add_argument("--tile_w", type=int, default=256)
     p.add_argument("--tile_stride", type=int, default=128,
@@ -68,6 +77,8 @@ def parse_args(argv=None):
                    help="thumbnail level for foreground stats, counted from the bottom "
                         "of the pyramid (1 BreastPathQ / 5 Camelyon16)")
     p.add_argument("--no_augment", action="store_true", help="train on raw tiles (ablation)")
+    p.add_argument("--NAug", type=int, default=2, help="v2 RandAugment n")
+    p.add_argument("--Magn", type=float, default=3.0, help="v2 RandAugment m")
     p.add_argument("--expand_orderings", action="store_true",
                    help="strict reference epochs: every triplet once under each of the 6 orderings, "
                         "shuffled (6x the steps of an epoch)")
@@ -150,16 +161,16 @@ def save_val_tsne(args, state, sampler, val_positions, readers, tile_cache, devi
 
 
 def main(argv=None):
-    args = parse_args(argv)
-    reject_unported(args)
-    if args.variant != "v1":
-        raise SystemExit("--variant v2 is not yet ported to the PyTorch package (see ROADMAP.md)")
+    args = apply_reference_exact(parse_args(argv), "pretrain")
     if args.image_size:
         args.tile_h = args.tile_w = args.image_size
     if args.tile_h != args.tile_w:
         raise SystemExit("non-square tiles are not supported (tile_h != tile_w)")
     device = resolve_device(args)
     gen = seed_everything(args.seed, device)
+    # the tables of the PyTorch-op policies (v2, v1 exact) are drawn on the
+    # host, their groups formed there (``ops.randaugment.stage_groups``)
+    host_gen = torch.Generator().manual_seed(args.seed + 1)
 
     sampler = RSPTripletSampler(tile=args.tile_h, stride=args.tile_stride, geometry=args.variant,
                                 lwst_level_idx=args.lwst_level_idx)
@@ -172,18 +183,19 @@ def main(argv=None):
     print(f"==> {n_total} triplet positions across {len(indices)} slides")
     train_indices, val_positions = split_validation(indices, args)
 
-    state = init_triplet_state(args.model, device, lr=args.lr, weight_decay=args.weight_decay)
-    step_kwargs = dict(augment=None if args.no_augment else args.variant,
-                       joint_encode=args.joint_encode, bf16=args.bf16, return_feats=args.tsne)
+    state = init_triplet_state(args.model, device, lr=args.lr, weight_decay=args.weight_decay, remat=args.remat)
+    step_kwargs = dict(augment=None if args.no_augment else args.variant, n_aug=args.NAug, m_aug=args.Magn,
+                       aug_mode=args.aug_mode, host_gen=host_gen, joint_encode=args.joint_encode, bf16=args.bf16,
+                       return_feats=args.tsne)
 
     os.makedirs(args.save_dir, exist_ok=True)
     log = CsvLogger(os.path.join(args.save_dir, "train_results.csv"),
                     "epoch, train_loss, train_acc, val_loss, val_acc")
-    gens = {"gen": gen}
+    gens = {"gen": gen, "host_gen": host_gen}
     best = BestTracker(args.save_dir, mode="min", gate_epoch=args.best_gate_epoch, generators=gens)
     # restores the state, Lookahead's slow weights, the best value (so a
     # resumed epoch that is not better cannot overwrite best.pth) and the
-    # ordering and augmentation generator (``cli/pretrain.py:209-213``)
+    # ordering and augmentation generators (``cli/pretrain.py:209-213``)
     start_epoch, _ = resume_training(args, state, best, gens)
 
     readers = ReaderCache(capacity=64)

@@ -34,12 +34,15 @@ class TripletNet(nn.Module):
     ``forward(i1, i2, i3)``   -> (B, 3*fc_out), one backbone pass per view
     ``encode_single(i)``       -> the same layout from one image
     ``forward_joint(tiles)``   -> the same, one backbone pass over B*3 views
+
+    ``remat``: the backbone recomputes each residual block in the backward
+    pass (``--remat``); the state_dict is the same.
     """
 
-    def __init__(self, model_name: str = "resnet18"):
+    def __init__(self, model_name: str = "resnet18", remat: bool = False):
         super().__init__()
         self.model_name = model_name
-        self.model = make_backbone(model_name)
+        self.model = make_backbone(model_name, remat)
         self.fc = _pair_fc(model_name)
 
     def pair_features(self, e1, e2, e3):

@@ -1,12 +1,12 @@
 """Batched augmentation entry points on the device.
 
-Counterpart of ``ssl_cr_histo_tpu/ops/batch.py``.  Ported: the v1 RSP
-pretraining pool in fused mode, which on the card is one hand-written
-kernel from the uint8 triplets to the normalized planar batch
-(``ops/rsp_augment_kernel.py``); the fine-tune 3-view stack and the fused
-weak/strong consistency views, which the JAX package computes with XLA ops
-and the port with PyTorch ops.  The other policies raise
-``NotImplementedError`` (see ROADMAP.md, Queue 1).
+Counterpart of ``ssl_cr_histo_tpu/ops/batch.py``, every policy and mode:
+the v1 RSP pretraining pool in fused mode, which on the card is one
+hand-written kernel from the uint8 triplets to the normalized planar batch
+(``ops/rsp_augment_kernel.py``), and in exact mode (op by op); the v2 pool
+(fused, masked, exact); the fine-tune 3-view stack; the weak/strong
+consistency views (fused, fast, masked, exact).  All but the fused v1 pool
+are PyTorch ops, as they are XLA ops in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
 from ssl_cr_histo_tpu_torch.ops import randaugment as RA
 from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
 
+# ``--aug_mode``'s values (``cli/common.py``)
+AUG_MODES = ("fused", "fast", "masked", "exact")
 # The reference scales by /255 only (ToTensor): mean 0, std 1.
 DEFAULT_MEAN = (0.0, 0.0, 0.0)
 DEFAULT_STD = (1.0, 1.0, 1.0)
@@ -40,13 +42,35 @@ def draw_rsp_v1(gen: torch.Generator, n: int, size: int) -> dict:
     }
 
 
+def _planar_tiles(triplets_u8: torch.Tensor, order: Optional[torch.Tensor]) -> torch.Tensor:
+    """(B, T, H, W, 3) uint8 triplets, each reordered by
+    ``RSP_PERMUTATIONS[order[b]]`` when ``order`` is given -> (B * T, 3, H, W)
+    float32 in [0, 1]."""
+    if order is not None:
+        triplets_u8 = RK.permute_triplets(triplets_u8, order.to(triplets_u8.device))
+    b, t, h, w, c = triplets_u8.shape
+    return to_float(triplets_u8.reshape(b * t, h, w, c).permute(0, 3, 1, 2))
+
+
+def _finish(tiles: torch.Tensor, b: int, mean, std, out_dtype: torch.dtype) -> torch.Tensor:
+    """(B * T, 3, H, W) augmented tiles -> (B, T, 3, H, W) clipped,
+    normalized, in ``out_dtype``."""
+    out = normalize_batch(torch.clamp(tiles, 0.0, 1.0), mean, std, channel_axis=1)
+    return out.reshape(b, -1, *out.shape[1:]).to(out_dtype)
+
+
 def augment_rsp_batch_v1(gen: torch.Generator, triplets_u8: torch.Tensor, mode: str = "fused",
                          draws: Optional[dict] = None, mean=DEFAULT_MEAN, std=DEFAULT_STD,
                          out_dtype: torch.dtype = torch.float32,
-                         order: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         order: Optional[torch.Tensor] = None,
+                         host_gen: Optional[torch.Generator] = None) -> torch.Tensor:
     """v1 RSP pretraining augmentation, clipped and normalized
-    (``batch.py:40-74``, fused mode with the photometric kernel, then
-    ``normalize_batch``).
+    (``batch.py:40-74``, then ``normalize_batch``): mode 'fused', the
+    composed warp and the photometric chain in one kernel, and 'fast' and
+    'masked' with it (the JAX step maps both to 'fused' for this pool,
+    ``steps.py:126-128``); 'exact', the pool op by op
+    (``RA.pretrain_augment_v1``; draws of ``RA.draw_pretrain_v1``, tables
+    from ``host_gen``, noise from ``gen``).
 
     triplets_u8: (B, 3, H, W, 3) uint8, the sampler's layout.  Returns
     (B, 3, 3, H, W) ``(clip(aug(x)) - mean) / std`` in ``out_dtype``,
@@ -55,13 +79,16 @@ def augment_rsp_batch_v1(gen: torch.Generator, triplets_u8: torch.Tensor, mode: 
     from ``gen`` when None, and the Philox seeds always are.  ``order``
     (B,) reorders each triplet by ``RSP_PERMUTATIONS[order[b]]`` before the
     augmentation (the draws stay with the output slots); None keeps the
-    tiles in the given order.  CUDA tensors run the fused kernel, CPU
-    tensors its plain version.
+    tiles in the given order.  In fused mode CUDA tensors run the fused
+    kernel, CPU tensors its plain version.
     """
-    if mode != "fused":
-        raise NotImplementedError(
-            f"aug_mode {mode!r} is not ported yet (ROADMAP.md Queue 1: v2/exact augmentation)")
+    if mode not in AUG_MODES:
+        raise ValueError(f"unknown aug mode {mode!r}")
     b, t, h, _, _ = triplets_u8.shape
+    if mode == "exact":
+        if draws is None:
+            draws = RA.draw_pretrain_v1(gen, b, h, host_gen=host_gen, tiles=t)
+        return _finish(RA.pretrain_augment_v1(_planar_tiles(triplets_u8, order), draws), b, mean, std, out_dtype)
     if draws is None:
         draws = draw_rsp_v1(gen, b * t, h)
     seeds = PK.draw_seeds(gen, b * t)
@@ -75,6 +102,28 @@ def augment_rsp_batch_v1(gen: torch.Generator, triplets_u8: torch.Tensor, mode: 
         raise ValueError(f"no v1 augmentation for device {triplets_u8.device}")
     return fn(triplets_u8, draws["geo"], draws["params"], seeds, draws["noise"], mean, std, out_dtype,
               order=order)
+
+
+def augment_rsp_batch_v2(gen: torch.Generator, triplets_u8: torch.Tensor, n: int = 2, m: float = 3.0,
+                         mode: str = "fused", draws: Optional[dict] = None, mean=DEFAULT_MEAN, std=DEFAULT_STD,
+                         out_dtype: torch.dtype = torch.float32,
+                         order: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """v2 RSP pretraining augmentation, RandAugment(n, m) drawn per tile,
+    clipped and normalized (``batch.py:83-102``): mode 'fused', the
+    composed policy (``fused.randaugment_v2_fused``); 'fast' and 'masked',
+    its masked form, each op once in pool order; 'exact', op by op
+    (``RA.randaugment_v2``).  (B, T, H, W, 3) uint8 triplets, reordered by
+    ``order`` first as in ``augment_rsp_batch_v1`` (the draws stay with the
+    output slots), -> (B, T, 3, H, W) in ``out_dtype``.  ``draws`` (see
+    ``RA.draw_v2``) injects the draws; they are drawn from ``gen``, a CPU
+    generator, when None.  PyTorch ops on any device."""
+    if mode not in AUG_MODES:
+        raise ValueError(f"unknown aug mode {mode!r}")
+    b, t = triplets_u8.shape[:2]
+    if draws is None:
+        draws = RA.draw_v2(gen, b * t, n, m, masked=mode in ("fast", "masked"))
+    pool = RA.randaugment_v2 if mode == "exact" else fused.randaugment_v2_fused
+    return _finish(pool(_planar_tiles(triplets_u8, order), draws), b, mean, std, out_dtype)
 
 
 # The third view is resized to (S + 20)^2 and cropped back to S^2
@@ -130,20 +179,26 @@ def augment_3view_batch(gen: torch.Generator, imgs_u8: torch.Tensor,
 
 
 def draw_transform_fix(gen: torch.Generator, b: int, size: int, n: int = 7, m: int = 10,
-                       host_gen: Optional[torch.Generator] = None) -> dict:
-    """Per-image draws of the consistency views (``batch.py:136-160``, fused
-    mode) for ``b`` images of ``size``^2 with ``n`` strong stages at
-    magnitudes in [1, m):
+                       host_gen: Optional[torch.Generator] = None, mode: str = "fused") -> dict:
+    """Per-image draws of the consistency views (``batch.py:136-160``) for
+    ``b`` images of ``size``^2 with ``n`` strong stages at magnitudes in
+    [1, m):
 
       weak_flip, strong_flip  (b,) bool, the p = 0.5 mirror coins
       ops                     (b, n) int64 op index in [0, 9) per stage
-                              (``ops.randaugment.V1_POOL`` order)
-      mags                    (b, n) int64 magnitude in [1, m)
-      params                  (b, n, N_PARAMS) float32, each stage's op's
+                              (``ops.randaugment.V1_POOL`` order); 'fast':
+                              one row drawn for the whole batch; 'masked':
+                              (b, 9), the pool in order
+      present                 'masked' only: (b, 9) bool, the ops among the
+                              image's n draws with replacement
+      mags                    int64 magnitude in [1, m), one per entry of ops
+      params                  (..., N_PARAMS) float32, each entry's op's
                               parameters and gate (``draw_v1_params``)
       noise                   (K, 3, size, size) float32 standard normal, one
-                              field per (image, stage) pair whose op is noise,
-                              in row-major (image, stage) order
+                              field per (image, stage) pair whose op is noise
+                              (and present), in row-major (image, stage) order
+
+    'fused' and 'exact' draw alike, as they do in the JAX package.
 
     Which generator draws what: the small tables (coins, ops, magnitudes,
     params) come from ``host_gen``, a CPU generator, so that the op groups
@@ -154,16 +209,29 @@ def draw_transform_fix(gen: torch.Generator, b: int, size: int, n: int = 7, m: i
     tg = gen if host_gen is None else host_gen
     if tg.device.type != "cpu":
         raise ValueError("draw_transform_fix draws its tables on the host: pass a CPU host_gen")
-    ops = torch.randint(0, len(RA.V1_POOL), (b, n), generator=tg)
-    mags = torch.randint(1, m, (b, n), generator=tg)
-    return {
+    k = len(RA.V1_POOL)
+    out = {}
+    if mode == "fast":
+        ops = torch.randint(0, k, (n,), generator=tg).expand(b, n).clone()
+    elif mode == "masked":
+        drawn = torch.randint(0, k, (b, n), generator=tg)
+        out["present"] = (drawn.unsqueeze(-1) == torch.arange(k)).any(1)
+        ops = torch.arange(k).expand(b, k).clone()
+    elif mode in AUG_MODES:
+        ops = torch.randint(0, k, (b, n), generator=tg)
+    else:
+        raise ValueError(f"unknown aug mode {mode!r}")
+    mags = torch.randint(1, m, ops.shape, generator=tg)
+    has_noise = (ops == RA.NOISE) & out.get("present", True)
+    out.update({
         "weak_flip": torch.rand(b, generator=tg) < 0.5,
         "strong_flip": torch.rand(b, generator=tg) < 0.5,
         "ops": ops,
         "mags": mags,
         "params": RA.draw_v1_params(tg, ops, mags),
-        "noise": torch.randn(int((ops == RA.NOISE).sum()), 3, size, size, generator=gen, device=gen.device),
-    }
+        "noise": torch.randn(int(has_noise.sum()), 3, size, size, generator=gen, device=gen.device),
+    })
+    return out
 
 
 def transform_fix_batch(gen: torch.Generator, imgs_u8: torch.Tensor, n: int = 7, m: int = 10,
@@ -173,17 +241,19 @@ def transform_fix_batch(gen: torch.Generator, imgs_u8: torch.Tensor, n: int = 7,
     (B, H, W, 3) uint8 with H == W -> (weak, strong), each float32
     channel-planar (B, 3, H, W) clipped to [0, 1], on the device of
     ``imgs_u8``.  ``draws`` (see ``draw_transform_fix``) injects the draws;
-    they are drawn from ``gen`` and ``host_gen`` when None.  PyTorch ops on
-    any device, as the JAX package uses XLA ops: no Pallas kernel.  Only the
-    fused mode is ported."""
-    if mode != "fused":
-        raise NotImplementedError(
-            f"aug_mode {mode!r} is not yet ported for consistency views (ROADMAP.md Queue 1)")
+    they are drawn from ``gen`` and ``host_gen`` for ``mode`` when None.
+    The strong pool by mode: 'fused', 'fast' and 'masked' composed
+    (``fused.randaugment_v1_fused``, their laws differ in the draws),
+    'exact' op by op (``RA.randaugment_v1``).  PyTorch ops on any device,
+    as the JAX package uses XLA ops: no Pallas kernel."""
+    if mode not in AUG_MODES:
+        raise ValueError(f"unknown aug mode {mode!r}")
     b, s = imgs_u8.shape[0], imgs_u8.shape[1]
     if draws is None:
-        draws = draw_transform_fix(gen, b, s, n, m, host_gen=host_gen)
+        draws = draw_transform_fix(gen, b, s, n, m, host_gen=host_gen, mode=mode)
     imgs = to_float(imgs_u8.permute(0, 3, 1, 2).contiguous())
-    weak, strong = fused.transform_fix_fused(imgs, draws)
+    pool = RA.randaugment_v1 if mode == "exact" else fused.randaugment_v1_fused
+    weak, strong = fused.transform_fix_fused(imgs, draws, pool)
     return torch.clamp(weak, 0.0, 1.0), torch.clamp(strong, 0.0, 1.0)
 
 

@@ -1,9 +1,9 @@
-"""Fused augmentation policies: one composed matrix and one warp per tile.
-The geometric half of the v1 pretraining pool, and the v1 strong pool of
-consistency training with its weak and strong views.
+"""Composed augmentation policies: one composed matrix and one warp per
+tile.  The geometric half of the v1 pretraining pool; the v1 strong pool of
+consistency training (fused, fast and masked) with its weak and strong
+views; the v2 pool (fused and masked).
 
-Counterpart of ``ssl_cr_histo_tpu/ops/fused.py:38-125``, ``:189-195`` and
-``:203-301``.
+Counterpart of ``ssl_cr_histo_tpu/ops/fused.py``.
 The draw step and the apply step are separate functions so that tests can
 inject the matrices: ``torch.Generator`` streams differ from ``jax.random``
 ones, so the two packages are compared on the same matrices and their draw
@@ -114,6 +114,18 @@ def _vflip_mat(h: int, n: int, device) -> torch.Tensor:
     return m.expand(n, 3, 3)
 
 
+def _compose_stages(mats: torch.Tensor, geo: torch.Tensor, present: "torch.Tensor | None") -> torch.Tensor:
+    """(b, 3, 3) ``g = I @ m_1 @ ... @ m_n`` of (b, n, 3, 3) stage matrices
+    over the (b, n) stages that are geometric and, with ``present``,
+    present, stage by stage in the drawn order (JAX's)."""
+    if present is not None:
+        geo = geo & present
+    g = _identity(mats.shape[0], mats.device)
+    for j in range(mats.shape[1]):
+        g = _where_mat(geo[:, j], g @ mats[:, j], g)
+    return g
+
+
 def _random_flip_mat(kind: torch.Tensor, gate: torch.Tensor, s: int) -> torch.Tensor:
     """albumentations Flip (p = 0.5) as a matrix: kind 0 h, 1 v, 2 both
     (``fused.py:51-63``)."""
@@ -123,14 +135,16 @@ def _random_flip_mat(kind: torch.Tensor, gate: torch.Tensor, s: int) -> torch.Te
     return _where_mat(gate > 0.5, mat, _identity(n, dev))
 
 
-def strong_pool_matrix(ops: torch.Tensor, params: torch.Tensor, s: int) -> torch.Tensor:
+def strong_pool_matrix(ops: torch.Tensor, params: torch.Tensor, s: int,
+                       present: "torch.Tensor | None" = None) -> torch.Tensor:
     """(b, 3, 3) composed inverse maps of the strong pool's geometric stages
     for (b, n) op indices and their (b, n, N_PARAMS) params, at tile edge
     ``s``: ``g = I @ m_1 @ ... @ m_n`` over the stages whose op is geometric
-    (``fused.py:203-287``): scale_resize_crop's resize + crop,
-    shift_scale_rotate's gated SSR, rotate_crop's gated flip times its gated
-    rotation.  Each stage matrix is built for all (image, stage) pairs at
-    once; the products run stage by stage, in JAX's order."""
+    (``fused.py:203-287``) and, with a (b, n) bool ``present``, present:
+    scale_resize_crop's resize + crop, shift_scale_rotate's gated SSR,
+    rotate_crop's gated flip times its gated rotation.  Each stage matrix is
+    built for all (image, stage) pairs at once; ``_compose_stages``
+    multiplies them."""
     b, n = ops.shape
     dev = params.device
     src, ssr_op, rc = (RA.V1_POOL.index(k) for k in ("scale_resize_crop", "shift_scale_rotate", "rotate_crop"))
@@ -142,72 +156,93 @@ def strong_pool_matrix(ops: torch.Tensor, params: torch.Tensor, s: int) -> torch
     mats = _where_mat(op == src, resize_crop_matrix(p[:, 0], p[:, 1], s), eye)
     mats = _where_mat(op == ssr_op, _where_mat(gate, ssr, eye), mats)
     mats = _where_mat(op == rc, rot, mats).view(b, n, 3, 3)
-    geo = ((ops == src) | (ops == ssr_op) | (ops == rc))
-    g = _identity(b, dev)
-    for j in range(n):
-        g = _where_mat(geo[:, j], g @ mats[:, j], g)
-    return g
-
-
-def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """Copy a host table to ``device`` without waiting for the device."""
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    return _compose_stages(mats, (ops == src) | (ops == ssr_op) | (ops == rc), present)
 
 
 def randaugment_v1_fused(imgs: torch.Tensor, draws: dict) -> torch.Tensor:
-    """The fused v1 strong pool on (b, 3, S, S) float32 images
-    (``fused.py:229-287``) with the draws of ``ops.batch.draw_transform_fix``
-    (its ``ops`` and ``params`` tables on the host, ``noise`` on the
-    images' device).
+    """The composed v1 strong pool on (b, 3, S, S) float32 images with the
+    draws of ``ops.batch.draw_transform_fix`` (its ``ops`` and ``params``
+    tables on the host, ``noise`` on the images' device): the photometric
+    ops in stage order on the unwarped image, the geometric ops composed
+    into one matrix per image, warped once at the end with reflect-101
+    borders.  The three composed modes differ only in their draws:
 
-    Each image has its own op at each stage.  Rather than computing every
-    op on every image and selecting (nine times the work), the images are
-    grouped on the host by (stage, photometric op with its gate on) and each
-    op runs on its group: one copy of the group tables to the device per
-    batch, no copy back.  The geometric stages compose each image's matrix
-    on the host (``strong_pool_matrix``), warped once at the end with
-    reflect-101 borders."""
+      fused   each image its own op at each stage (``fused.py:229-287``)
+      fast    one op sequence for the whole batch, each image's magnitudes,
+              params and gates its own (``randaugment_v1_shared_batch``,
+              ``fused.py:304-382``): one group a stage
+      masked  the 9 ops once each in pool order, each where the image drew
+              it (``draws['present']``; ``randaugment_v1_masked``,
+              ``fused.py:385-440``)
+
+    Rather than computing every op on every image and selecting (nine times
+    the work), the images of each stage are grouped on the host by their
+    photometric op with its gate on (``RA.stage_groups``) and each op runs
+    on its group; the geometric stages compose each image's matrix on the
+    host (``strong_pool_matrix``)."""
     dev = imgs.device
     ops, params = draws["ops"].cpu(), draws["params"].cpu()
-    b, n = ops.shape
-    n_ops = len(RA.V1_POOL)
-    # one sort of the (image, stage) pairs by (stage, op): each group is a
-    # run of that order, images ascending; gated-off and geometric pairs last
-    photometric = torch.zeros(n_ops, dtype=torch.bool)
+    present = RA.present_stages(draws, ops)
+    photometric = torch.zeros(len(RA.V1_POOL), dtype=torch.bool)
     photometric[list(RA.PHOTOMETRIC)] = True
-    active = photometric[ops] & (params[..., RA.GATE] > 0.5)
-    key = torch.where(active, torch.arange(n).view(1, n) * n_ops + ops, n * n_ops).flatten()
-    pairs = torch.argsort(key, stable=True)
-    counts = torch.bincount(key, minlength=n * n_ops + 1)[:-1].tolist()
-    noise_slot = torch.cumsum((ops == RA.NOISE).flatten(), 0) - 1
-    k = sum(counts)
+    active = photometric[ops] & (params[..., RA.GATE] > 0.5) & present
     x = imgs.clone()
-    if k:
-        rows_d = _to_device(pairs[:k] // n, dev)
-        table_d = _to_device(params.reshape(b * n, RA.N_PARAMS)[pairs[:k]], dev)
-        slots_d = _to_device(noise_slot[pairs[:k]], dev)
-        noise = draws["noise"]
-        start = 0
-        for group, count in enumerate(counts):
-            if not count:
-                continue
-            op, a, e = group % n_ops, start, start + count
-            start = e
-            idx = rows_d[a:e]
-            nz = noise.index_select(0, slots_d[a:e]) if op == RA.NOISE else None
-            x.index_copy_(0, idx, RA.apply_photometric(op, x.index_select(0, idx), table_d[a:e], nz))
-    g = _to_device(strong_pool_matrix(ops, params, imgs.shape[-1]), dev)
+    for _, op, rows, p, slots in RA.stage_groups(ops, active, params, len(RA.V1_POOL), dev,
+                                                 noise=(ops == RA.NOISE) & present):
+        nz = draws["noise"].index_select(0, slots) if op == RA.NOISE else None
+        x.index_copy_(0, rows, RA.apply_photometric(op, x.index_select(0, rows), p, nz))
+    g = RA.to_device(strong_pool_matrix(ops, params, imgs.shape[-1], present), dev)
     return geometry.warp_affine_planar(x, g, pad_mode="reflect101")
 
 
-def transform_fix_fused(imgs: torch.Tensor, draws: dict):
+def transform_fix_fused(imgs: torch.Tensor, draws: dict, pool=randaugment_v1_fused):
     """Weak and strong views of (b, 3, S, S) float32 images
-    (``fused.py:290-301``): weak = the image, mirrored where ``weak_flip``;
-    strong = the image mirrored where ``strong_flip``, then the fused v1
-    strong pool."""
+    (``fused.py:290-301``, ``:443-476``; ``randaugment.py:457-466``): weak =
+    the image, mirrored where ``weak_flip``; strong = the image mirrored
+    where ``strong_flip``, then the v1 strong pool ``pool``: composed
+    (``randaugment_v1_fused``), or op by op (``RA.randaugment_v1``)."""
     dev = imgs.device
     mirrored = geometry.flip_horizontal(imgs)
-    flip = lambda k: torch.where(_to_device(draws[k].cpu(), dev).view(-1, 1, 1, 1), mirrored, imgs)
-    return flip("weak_flip"), randaugment_v1_fused(flip("strong_flip"), draws)
+    flip = lambda k: torch.where(RA.to_device(draws[k].cpu(), dev).view(-1, 1, 1, 1), mirrored, imgs)
+    return flip("weak_flip"), pool(flip("strong_flip"), draws)
+
+
+# ---------------------------------------------------------------------------
+# v2 pool, composed (``fused.py:480-627``): the photometric ops in stage
+# order, the geometric ops composed into one matrix, one constant-padded
+# two-pass warp at the end
+# ---------------------------------------------------------------------------
+
+
+def v2_pool_matrix(ops: torch.Tensor, params: torch.Tensor, s: int,
+                   present: "torch.Tensor | None" = None) -> torch.Tensor:
+    """(b, 3, 3) composed inverse maps ``g = I @ m_1 @ ... @ m_n`` of the v2
+    pool's geometric stages (and, with ``present``, present ones) for (b, n)
+    op indices and their (b, n, N_PARAMS) params at tile edge ``s``."""
+    b, n = ops.shape
+    op, p = ops.reshape(-1), params.reshape(b * n, RA.N_PARAMS)
+    mats = _identity(b * n, params.device)
+    for k in RA.V2_GEOMETRIC:
+        mats = _where_mat(op == k, RA.v2_matrix(k, p, s), mats)
+    return _compose_stages(mats.view(b, n, 3, 3), torch.isin(ops, torch.tensor(RA.V2_GEOMETRIC)), present)
+
+
+def randaugment_v2_fused(imgs: torch.Tensor, draws: dict) -> torch.Tensor:
+    """The composed v2 pool on (N, 3, S, S) float32 tiles with the draws of
+    ``RA.draw_v2``, its tables on the host.  Without ``present``
+    (``randaugment_v2_fused``, ``fused.py:480-560``) each tile's n ops
+    apply in their drawn order; with it (``masked``,
+    ``randaugment_v2_masked``, ``fused.py:562-627``) each of the 14 ops
+    applies once, in pool order, where the tile drew it.  Photometric ops
+    run on their (stage, op) groups; the geometric ones compose one matrix
+    per tile, warped once with zero padding (``warp_affine_planar``)."""
+    dev = imgs.device
+    ops, params = draws["ops"].cpu(), draws["params"].cpu()
+    present = RA.present_stages(draws, ops)
+    photometric = torch.zeros(len(RA.V2_POOL), dtype=torch.bool)
+    photometric[list(RA.V2_PHOTOMETRIC)] = True
+    x = imgs.clone()
+    for _, op, rows, p, _ in RA.stage_groups(ops, photometric[ops] & present, params, len(RA.V2_POOL), dev):
+        x.index_copy_(0, rows, RA.apply_v2_photometric(op, x.index_select(0, rows), p))
+    g = RA.to_device(v2_pool_matrix(ops, params, imgs.shape[-1], present), dev)
+    return geometry.warp_affine_planar(x, g, pad_mode="constant")

@@ -1,6 +1,6 @@
-"""Affine matrix builders and the two-pass separable warp, batched; the
-cv2-exact bilinear resize and the crops of the fine-tune 3-view stack; the
-lattice flips of the consistency views.
+"""Affine matrix builders, the gather warp of the op-by-op policies and the
+two-pass separable warp, batched; the cv2-exact bilinear resize and the
+crops of the fine-tune 3-view stack; the lattice flips and rotations.
 
 Counterpart of ``ssl_cr_histo_tpu/ops/geometry.py``.  Every geometric op is
 a 3x3 *inverse* map (output pixel -> input location, (x, y) coordinates, y
@@ -66,6 +66,19 @@ def translation_matrix(tx, ty) -> torch.Tensor:
     return _mat([[1, 0, tx], [0, 1, ty], [0, 0, 1]], tx)
 
 
+def shear_x_matrix(level) -> torch.Tensor:
+    """PIL ``transform(AFFINE, (1, level, 0, 0, 1, 0))``: input x = output
+    x + level * output y (``geometry.py:70-75``)."""
+    level = _f32(level)
+    return _mat([[1, level, 0], [0, 1, 0], [0, 0, 1]], level)
+
+
+def shear_y_matrix(level) -> torch.Tensor:
+    """Input y = output y + level * output x (``geometry.py:78-80``)."""
+    level = _f32(level)
+    return _mat([[1, 0, 0], [level, 1, 0], [0, 0, 1]], level)
+
+
 def compose(*mats: torch.Tensor) -> torch.Tensor:
     """``warp(compose(A, B)) == warp B then warp A`` (``:82-91``)."""
     out = mats[0]
@@ -80,6 +93,68 @@ def shift_scale_rotate_matrix(shift_x, shift_y, scale, degrees, h: int, w: int) 
     sc = scale_matrix(scale, h, w)
     tr = translation_matrix(-_f32(shift_x) * w, -_f32(shift_y) * h)
     return compose(tr, sc, rot)
+
+
+def _reflect101(coord: torch.Tensor, size: int) -> torch.Tensor:
+    """OpenCV BORDER_REFLECT_101 folding of integer coordinates
+    (``geometry.py:109-115``)."""
+    if size == 1:
+        return torch.zeros_like(coord)
+    period = 2 * (size - 1)
+    coord = coord.abs() % period
+    return torch.where(coord >= size, period - coord, coord)
+
+
+def _gather_pixels(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor, pad_mode: str) -> torch.Tensor:
+    """``img[n, :, yi, xi]`` of (N, C, H, W) ``img`` for (N, OH, OW) integer
+    indices: folded for reflect101, clamped otherwise (constant padding
+    masks afterwards) (``geometry.py:118-131``)."""
+    n, c, h, w = img.shape
+    if pad_mode == "reflect101":
+        yi, xi = _reflect101(yi, h), _reflect101(xi, w)
+    else:
+        yi, xi = yi.clamp(0, h - 1), xi.clamp(0, w - 1)
+    idx = (yi * w + xi).reshape(n, 1, -1).expand(n, c, -1)
+    return torch.gather(img.reshape(n, c, h * w), 2, idx).view(n, c, *yi.shape[1:])
+
+
+def warp_affine(imgs: torch.Tensor, inv_mats: torch.Tensor, interp: str = "bilinear", pad_mode: str = "constant",
+                fill: float = 0.0) -> torch.Tensor:
+    """Direct (one-pass) gather warp of (N, C, H, W) images through (N, 3, 3)
+    inverse maps, ``[xi, yi, 1] = M @ [xo, yo, 1]``, to the input's shape
+    (``geometry.py:134-208``):
+    ``interp`` 'nearest' (round half to even, as ``jnp.round``) or
+    'bilinear' (four taps); ``pad_mode`` 'constant' (``fill`` wherever the
+    continuous sample position falls outside the image), 'reflect101' or
+    'edge'.  The op-by-op v2 pool's PIL ops use it; the composed policies
+    use ``warp_affine_planar``."""
+    if pad_mode not in ("constant", "reflect101", "edge"):
+        raise ValueError(f"unknown pad_mode {pad_mode!r}")
+    n, c, h, w = imgs.shape
+    img = imgs.float()
+    m = inv_mats.float().reshape(n, 3, 3)
+    xo = torch.arange(w, dtype=torch.float32, device=img.device).view(1, 1, w)
+    yo = torch.arange(h, dtype=torch.float32, device=img.device).view(1, h, 1)
+    coef = lambda i, j: m[:, i, j].view(n, 1, 1)
+    xi = coef(0, 0) * xo + coef(0, 1) * yo + coef(0, 2)
+    yi = coef(1, 0) * xo + coef(1, 1) * yo + coef(1, 2)
+    if interp == "nearest":
+        out = _gather_pixels(img, torch.round(yi).long(), torch.round(xi).long(), pad_mode)
+    elif interp == "bilinear":
+        x0, y0 = torch.floor(xi), torch.floor(yi)
+        fx, fy = (xi - x0).unsqueeze(1), (yi - y0).unsqueeze(1)
+        x0i, y0i = x0.long(), y0.long()
+        p00 = _gather_pixels(img, y0i, x0i, pad_mode)
+        p01 = _gather_pixels(img, y0i, x0i + 1, pad_mode)
+        p10 = _gather_pixels(img, y0i + 1, x0i, pad_mode)
+        p11 = _gather_pixels(img, y0i + 1, x0i + 1, pad_mode)
+        out = p00 * (1 - fx) * (1 - fy) + p01 * fx * (1 - fy) + p10 * (1 - fx) * fy + p11 * fx * fy
+    else:
+        raise ValueError(f"unknown interp {interp!r}")
+    if pad_mode == "constant":
+        inside = ((xi >= 0.0) & (xi <= w - 1.0) & (yi >= 0.0) & (yi <= h - 1.0)).unsqueeze(1)
+        out = torch.where(inside, out, torch.full_like(out, fill))
+    return out
 
 
 def _fold_coords(pos: torch.Tensor, size: int, pad_mode: str) -> torch.Tensor:
@@ -192,6 +267,19 @@ def flip_horizontal(imgs: torch.Tensor) -> torch.Tensor:
 def flip_vertical(imgs: torch.Tensor) -> torch.Tensor:
     """Mirror the H axis (``geometry.py:429-430``)."""
     return imgs.flip(-2)
+
+
+def rot90(imgs: torch.Tensor, k) -> torch.Tensor:
+    """Rotate the trailing (H, W) dims by k * 90 degrees counter-clockwise
+    (``geometry.py:433-443``); ``k`` an int, or an (N,) tensor of one k per
+    image of square (N, C, S, S) images."""
+    if not torch.is_tensor(k):
+        return torch.rot90(imgs, int(k) % 4, dims=(-2, -1))
+    k = (k.to(imgs.device).long() % 4).view(-1, *([1] * (imgs.ndim - 1)))
+    out = imgs
+    for j in range(1, 4):
+        out = torch.where(k == j, torch.rot90(imgs, j, dims=(-2, -1)), out)
+    return out
 
 
 def center_crop(imgs: torch.Tensor, crop_h: int, crop_w: int) -> torch.Tensor:

@@ -51,6 +51,10 @@ def pretrain_step(
     draws: Optional[dict] = None,
     *,
     augment: Optional[str] = "v1",
+    n_aug: int = 2,
+    m_aug: float = 3.0,
+    aug_mode: str = "fused",
+    host_gen: Optional[torch.Generator] = None,
     joint_encode: bool = True,
     bf16: bool = False,
     return_feats: bool = False,
@@ -60,8 +64,15 @@ def pretrain_step(
 
     labels: (B,) ordering indices in [0, 6), checked when given (that reads
     them back from the device); sampled from ``generator`` when None (one
-    ordering per triplet per step, ``steps.py:121-123``).  draws: injected
-    augmentation draws (``ops.batch.draw_rsp_v1``'s dict) for tests.
+    ordering per triplet per step, ``steps.py:121-123``).
+    augment: 'v1' or 'v2' (RandAugment(``n_aug``, ``m_aug``) per tile;
+    ``steps.py:121-140``), in ``aug_mode``, which ``ops.batch`` maps to
+    each pool's path (``augment_rsp_batch_v1``, ``augment_rsp_batch_v2``),
+    or None.  The draws' tables come from
+    ``host_gen`` (a CPU generator; ``generator`` when None), noise fields
+    from ``generator``.  draws: injected augmentation draws for tests
+    (``ops.batch.draw_rsp_v1``'s, ``ops.randaugment.draw_pretrain_v1``'s or
+    ``draw_v2``'s dict).
     bf16: the augmentation writes bfloat16 and the backbone and heads run
     under bfloat16 autocast; the loss is float32.
     Returns {'loss', 'acc'} as device tensors (reading them synchronises);
@@ -78,20 +89,23 @@ def pretrain_step(
     elif bool(((labels < 0) | (labels >= len(RSP_PERMUTATIONS))).any()):
         raise ValueError(f"labels must be ordering indices in [0, {len(RSP_PERMUTATIONS)})")
     labels = labels.to(tiles_u8.device).long()
-    # The ordering commutes with v1's per-tile augmentation draws, so it is
-    # applied where the uint8 tiles are read: inside the fused kernel for v1,
-    # as a gather of the raw tiles otherwise.
+    # Each triplet is reordered by its label before the per-slot draws
+    # apply, as in the JAX step: inside the fused kernel, where the uint8
+    # tiles are read, for v1 fused; as a gather of the raw tiles otherwise.
+    out_dtype = torch.bfloat16 if bf16 else torch.float32
     if augment == "v1":
-        tiles = aug_batch.augment_rsp_batch_v1(
-            generator, tiles_u8, draws=draws, out_dtype=torch.bfloat16 if bf16 else torch.float32,
-            order=labels)
+        tiles = aug_batch.augment_rsp_batch_v1(generator, tiles_u8, mode=aug_mode, draws=draws, out_dtype=out_dtype,
+                                               order=labels, host_gen=host_gen)
+    elif augment == "v2":
+        tiles = aug_batch.augment_rsp_batch_v2(
+            generator if host_gen is None else host_gen, tiles_u8, n_aug, m_aug, mode=aug_mode, draws=draws,
+            out_dtype=out_dtype, order=labels)
     elif augment is None:
         tiles_u8 = permute_triplets(tiles_u8, labels)
         tiles = aug_batch.normalize_batch(aug_batch.to_float(tiles_u8).permute(0, 1, 4, 2, 3),
                                           channel_axis=2)
     else:
-        raise NotImplementedError(
-            f"augment {augment!r} is not ported yet (ROADMAP.md Queue 1: v2 augmentation)")
+        raise ValueError(f"unknown augment {augment!r} (v1, v2 or None)")
 
     with _autocast(tiles.device, bf16):
         if joint_encode:
@@ -246,6 +260,7 @@ def consistency_step(
     views: Optional[tuple] = None,
     host_gen: Optional[torch.Generator] = None,
     *,
+    aug_mode: str = "fused",
     bf16: bool = False,
 ) -> dict:
     """One teacher/student consistency step (``steps.py:480-585``; reference
@@ -253,8 +268,9 @@ def consistency_step(
 
     (B, H, W, 3) uint8 labeled images ``x_l_u8`` with their (B,) labels, and
     (mu*B, H, W, 3) uint8 unlabeled images ``x_u_u8``.  The unlabeled images
-    give weak and strong views (``ops.batch.transform_fix_batch``: tables
-    from ``host_gen``, noise from ``gen``), the labeled ones their 3-view
+    give weak and strong views (``ops.batch.transform_fix_batch`` under
+    ``aug_mode``, ``steps.py:566``: tables from ``host_gen``, noise from
+    ``gen``), the labeled ones their 3-view
     stack (``expand_labeled_batch``, from ``gen``); ``views`` = (labeled
     views, weak, strong), float32 planar in [0, 1], replaces both, for tests.
     The teacher runs on the weak views in eval mode, without gradient; the
@@ -270,7 +286,7 @@ def consistency_step(
     Returns {'loss', 'sup', 'cons', 'metric'} as device tensors."""
     model, head = state.model, state.head
     if views is None:
-        weak, strong = aug_batch.transform_fix_batch(gen, x_u_u8, n_aug, host_gen=host_gen)
+        weak, strong = aug_batch.transform_fix_batch(gen, x_u_u8, n_aug, mode=aug_mode, host_gen=host_gen)
         x_l, y = expand_labeled_batch(gen, x_l_u8, y_l, labeled_views)
     else:
         x_l, weak, strong = views

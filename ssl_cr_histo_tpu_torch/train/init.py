@@ -15,11 +15,11 @@ from ssl_cr_histo_tpu_torch.train.state import FinetuneState, Teacher, TrainStat
 
 
 def init_triplet_state(model_name: str, device: torch.device, lr: float = 0.01,
-                       weight_decay: float = 1e-4) -> TrainState:
-    """TripletNet + 6-way Classifier on ``device`` with SGD-Nesterov,
-    initialised from the global torch generator (seed it first), and the
-    Lookahead slow weights."""
-    model = TripletNet(model_name).to(device)
+                       weight_decay: float = 1e-4, remat: bool = False) -> TrainState:
+    """TripletNet (``remat``: blocks recomputed in the backward pass) + 6-way
+    Classifier on ``device`` with SGD-Nesterov, initialised from the global
+    torch generator (seed it first), and the Lookahead slow weights."""
+    model = TripletNet(model_name, remat=remat).to(device)
     clf = Classifier(feature_dim(model_name), 6).to(device)
     params = list(model.parameters()) + list(clf.parameters())
     opt = optim.sgd_nesterov(params, lr, momentum=0.9, weight_decay=weight_decay)
@@ -34,13 +34,15 @@ def init_finetune_state(
     modules: int = 0,
     milestones_steps: Iterable[int] = (),
     gamma: float = 0.1,
+    remat: bool = False,
 ) -> FinetuneState:
-    """TripletNet + FinetuneHead on ``device``, initialised from the global
-    torch generator (seed it first).  The first ``modules`` tensors of the
-    TripletNet are frozen (``train.freeze``); ``make_optimizer`` gets the
-    trainable ones, backbone then head, and the MultiStep schedule wraps
-    the optimizer it returns."""
-    model = TripletNet(model_name).to(device)
+    """TripletNet (``remat``: blocks recomputed in the backward pass) +
+    FinetuneHead on ``device``, initialised from the global torch generator
+    (seed it first).  The first ``modules`` tensors of the TripletNet are
+    frozen (``train.freeze``); ``make_optimizer`` gets the trainable ones,
+    backbone then head, and the MultiStep schedule wraps the optimizer it
+    returns."""
+    model = TripletNet(model_name, remat=remat).to(device)
     head = FinetuneHead(feature_dim(model_name), num_classes).to(device)
     freeze(model, modules)
     params = [p for p in model.parameters() if p.requires_grad] + list(head.parameters())

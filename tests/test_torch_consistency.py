@@ -9,6 +9,7 @@ made with numpy.  IMG 64 for the model steps (layer4 2x2, as in
 tests/test_torch_finetune.py)."""
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ from ssl_cr_histo_tpu.train import optim as joptim
 from ssl_cr_histo_tpu.train.checkpoint import export_torch_state_dict
 from ssl_cr_histo_tpu.train.state import TrainState as JTrainState
 from ssl_cr_histo_tpu_torch.cli.common import TASKS, make_optimizer
+from ssl_cr_histo_tpu_torch.ops import batch as TB
 from ssl_cr_histo_tpu_torch.parallel import steps as TS
 from ssl_cr_histo_tpu_torch.train import freeze as tfreeze
 from ssl_cr_histo_tpu_torch.train.checkpoint import from_jax_params, save_checkpoint
@@ -62,11 +64,11 @@ def _port_state(weights, cfg, modules, dtype=torch.float32):
     return state
 
 
-def _jax_cr_step_f64(weights, cfg, modules, x_l, y_l, x_u, key, monkeypatch):
+def _jax_cr_step_f64(weights, cfg, modules, x_l, y_l, x_u, key, monkeypatch, mode="fused"):
     """The JAX package's own consistency step (make_consistency_step, the
     task's Adam under masked_optimizer, the teacher equal to the student)
-    with a float64 model and head, on JAX's own views of ``key``: the fused
-    weak/strong views and the 3-view labeled stack that the step draws from
+    with a float64 model and head, on JAX's own views of ``key``: the
+    weak/strong views under ``mode`` and the 3-view labeled stack that the step draws from
     ``kl, ku = split(key)``, made in float32 (the fused strong pool does not
     trace under x64) and handed to the step in float64 through its module's
     ``transform_fix_batch`` and ``expand_labeled_batch``.  Returns its
@@ -75,7 +77,7 @@ def _jax_cr_step_f64(weights, cfg, modules, x_l, y_l, x_u, key, monkeypatch):
     the teacher's outputs on the weak views."""
     mparams, stats, heads = weights
     kl, ku = jax.random.split(key)
-    weak, strong = JB.transform_fix_batch(ku, jnp.asarray(x_u), n=N_AUG, mode="fused")
+    weak, strong = JB.transform_fix_batch(ku, jnp.asarray(x_u), n=N_AUG, mode=mode)
     xl, y_rep = JS.expand_labeled_batch(kl, jnp.asarray(x_l), jnp.asarray(y_l), views=3)
     views32 = tuple(np.asarray(v) for v in (xl, weak, strong))
     y_rep = np.asarray(y_rep)
@@ -92,7 +94,8 @@ def _jax_cr_step_f64(weights, cfg, modules, x_l, y_l, x_u, key, monkeypatch):
         state = JTrainState(params=params, batch_stats=f64(stats), opt_state=tx.init(params),
                             step=jnp.zeros([], jnp.int32))
         t_params, t_stats = JS.refresh_teacher(state)
-        step = JS.make_consistency_step(jm, jh, tx, task=cfg.task, lambda_u=1.0, n_aug=N_AUG, donate=False)
+        step = JS.make_consistency_step(jm, jh, tx, task=cfg.task, lambda_u=1.0, n_aug=N_AUG, aug_mode=mode,
+                                        donate=False)
         new, m = step(state, t_params, t_stats, jnp.asarray(x_l), jnp.asarray(y_l), jnp.asarray(x_u), key)
         monkeypatch.undo()
 
@@ -149,9 +152,57 @@ def test_consistency_step_matches_jax(weights, task, modules, monkeypatch):
     x_u = rng.integers(0, 256, (B * MU, IMG, IMG, 3), dtype=np.uint8)
     y_l = (rng.integers(0, 9, B).astype(np.int32) if cfg.task == "classification"
            else rng.random(B).astype(np.float32))
-    jm, jparams, jstats, grads, views, out_w = _jax_cr_step_f64(weights, cfg, modules, x_l, y_l, x_u,
-                                                                 jax.random.PRNGKey(modules + 7), monkeypatch)
+    jax_out = _jax_cr_step_f64(weights, cfg, modules, x_l, y_l, x_u, jax.random.PRNGKey(modules + 7), monkeypatch)
+    x_lv, weak, strong = (_planar64(v) for v in jax_out[4])
+    _assert_cr_step_matches(weights, cfg, modules, jax_out, lambda state, teacher: TS.consistency_step(
+        state, teacher, torch.from_numpy(x_l), torch.from_numpy(y_l), torch.from_numpy(x_u), None, cfg.task,
+        views=(x_lv, weak, strong)))
 
+
+def test_consistency_step_fast_matches_jax(weights, monkeypatch):
+    """The step under ``aug_mode="fast"`` (the strong pool's op sequence
+    shared by the batch) at Kather's config, 60 tensors frozen, against the
+    JAX package's step under the same mode in float64, as
+    test_consistency_step_matches_jax does for fused: the port's fast views
+    on the draws rebuilt from the step's key equal JAX's in float32 (weak
+    1e-6, strong 1e-5); then the step, its view functions handed JAX's
+    views, with that test's tolerances.  The step asks for the fast views
+    of the unlabeled images with NAug strong stages."""
+    from test_torch_aug_modes import jax_fast_draws
+
+    cfg, modules = TASKS["kather"], 60
+    rng = np.random.default_rng(50)
+    x_l = rng.integers(0, 256, (B, IMG, IMG, 3), dtype=np.uint8)
+    x_u = rng.integers(0, 256, (B * MU, IMG, IMG, 3), dtype=np.uint8)
+    y_l = rng.integers(0, 9, B).astype(np.int32)
+    key = jax.random.PRNGKey(11)
+    jax_out = _jax_cr_step_f64(weights, cfg, modules, x_l, y_l, x_u, key, monkeypatch, mode="fast")
+    x_lv, weak, strong = (_planar64(v) for v in jax_out[4])
+    ku = jax.random.split(key)[1]
+    got_w, got_s = TB.transform_fix_batch(None, torch.from_numpy(x_u), N_AUG, mode="fast",
+                                          draws=jax_fast_draws(ku, B * MU, IMG))
+    np.testing.assert_allclose(got_w.numpy(), weak.numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got_s.numpy(), strong.numpy(), rtol=0, atol=1e-5)
+    calls = []
+
+    def fast_views(gen, x, n, mode, host_gen):
+        calls.append((tuple(x.shape), n, mode))
+        return weak, strong
+
+    monkeypatch.setattr(TS.aug_batch, "transform_fix_batch", fast_views)
+    monkeypatch.setattr(TS, "expand_labeled_batch", lambda gen, x, y, views: (x_lv, y.repeat_interleave(3)))
+    _assert_cr_step_matches(weights, cfg, modules, jax_out, lambda state, teacher: TS.consistency_step(
+        state, teacher, torch.from_numpy(x_l), torch.from_numpy(y_l), torch.from_numpy(x_u), None, cfg.task,
+        n_aug=N_AUG, aug_mode="fast"))
+    assert calls == [((B * MU, IMG, IMG, 3), N_AUG, "fast")]
+
+
+def _assert_cr_step_matches(weights, cfg, modules, jax_out, run_step):
+    """``run_step(state, teacher)``, a consistency step of the port's float64
+    state on JAX's views, against the JAX step's ``jax_out``
+    (``_jax_cr_step_f64``), with the tolerances of
+    test_consistency_step_matches_jax."""
+    jm, jparams, jstats, grads, views, out_w = jax_out
     state = _port_state(weights, cfg, modules, torch.float64)
     teacher = init_teacher(state)
     t_before = {k: v.clone() for k, v in {**teacher.model.state_dict(), **teacher.head.state_dict()}.items()}
@@ -169,8 +220,7 @@ def test_consistency_step_matches_jax(weights, task, modules, monkeypatch):
             hooks.append(mod.register_forward_hook(
                 lambda m_, inp, out, name=name: counts.__setitem__(
                     name, inp[0].shape[0] * inp[0].shape[2] * inp[0].shape[3])))
-    got = TS.consistency_step(state, teacher, torch.from_numpy(x_l), torch.from_numpy(y_l), torch.from_numpy(x_u),
-                              None, cfg.task, views=(x_lv, weak, strong))
+    got = run_step(state, teacher)
     for h in hooks:
         h.remove()
     assert state.step == 1
@@ -398,14 +448,53 @@ def test_cli_ema_teacher_checkpoints(tmp_path):
     assert not torch.equal(student["model"]["model.conv1.weight"], teacher["model"]["model.conv1.weight"])
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for a CLI run at a tiny size (restored after):
+    more threads buy nothing there and contend with the other test
+    workers' for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("extra", [["--remat"], ["--aug_mode", "fast"], ["--aug_mode", "masked"],
                                    ["--aug_mode", "exact"], ["--reference_exact"]])
-def test_cli_rejects_unported(tmp_path, extra):
+def test_cli_rejects_unported(tmp_path, extra, monkeypatch, one_torch_thread):
+    """Each flag that the CLI once rejected as not ported (the test keeps
+    its name from then) runs the CLI on the CPU (32^2, batch 2, mu 2, one
+    epoch of 2 steps) and does what it says: ``--aug_mode`` gives every
+    step's unlabeled images its mode's views; ``--remat`` recomputes the
+    student's blocks in the backward pass (a checkpointed call per block
+    and train pass), and nothing else does; ``--reference_exact`` gives
+    exact views, float32 and with-replacement subsampling.  The CSV row is
+    finite and best.pth records the flags."""
     from ssl_cr_histo_tpu_torch.cli import consistency
+    from ssl_cr_histo_tpu_torch.models import resnet
 
-    argv = ["--task", "kather", "--train_path", str(tmp_path), "--finetune_ckpt", "x.pth", "--device", "cpu"]
-    with pytest.raises(SystemExit, match="not yet ported"):
-        consistency.main(argv + extra)
+    data, run, ft = str(tmp_path / "kather"), tmp_path / "run", str(tmp_path / "ft" / "best.pth")
+    _write_kather(data, n_per_class=6)
+    _finetune_checkpoint(ft)
+    modes, blocks = [], []
+    views, checkpoint = TS.aug_batch.transform_fix_batch, resnet.checkpoint
+    monkeypatch.setattr(TS.aug_batch, "transform_fix_batch",
+                        lambda *a, mode="fused", **k: modes.append(mode) or views(*a, mode=mode, **k))
+    monkeypatch.setattr(resnet, "checkpoint", lambda fn, *a, **k: blocks.append(fn) or checkpoint(fn, *a, **k))
+    state = consistency.main(["--task", "kather", "--train_path", data, "--finetune_ckpt", ft, "--save_dir",
+                              str(run), "--device", "cpu", "--image_size", "32", "--batch_size", "2", "--mu", "2",
+                              "--num_epoch", "1", "--save_freq", "0", "--labeled_train", "0.3",
+                              "--modules_student", "0", "--no-bf16"] + extra)
+    rows = (run / "consistency_results.csv").read_text().splitlines()
+    assert len(rows) == 2 and all(np.isfinite(float(v)) for v in rows[1].split(",")[1:])
+    args = torch.load(run / "best.pth", weights_only=False)["meta"]["args"]
+    want = extra[1] if extra[0] == "--aug_mode" else "exact" if extra == ["--reference_exact"] else "fused"
+    assert len(modes) == 2 and set(modes) == {want} and args["aug_mode"] == want
+    remat = extra == ["--remat"]
+    assert state.model.model.remat is remat and len(blocks) == (2 * 8 if remat else 0)
+    if extra == ["--reference_exact"]:
+        assert args["bf16"] is False and args["with_replacement"] is True
+    shutil.rmtree(tmp_path, ignore_errors=True)  # its checkpoints: pytest keeps its last three runs' temp dirs
 
 
 @pytest.mark.parametrize("extra,message", [

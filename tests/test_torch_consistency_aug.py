@@ -306,8 +306,9 @@ def test_strong_pool_matrix_matches_jax_composition():
 
 def test_transform_fix_batch_draws_and_modes():
     """With no draws it draws from the generators (tables on the host, the
-    noise fields on the generator's device, one per noise stage); the other
-    modes are not ported."""
+    noise fields on the generator's device, one per noise stage); each
+    other mode draws its own tables (tests/test_torch_aug_modes.py holds
+    them to the JAX package) and an unknown mode is refused."""
     imgs = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (5, 16, 16, 3), dtype=np.uint8))
     weak, strong = TB.transform_fix_batch(torch.Generator().manual_seed(0), imgs)
     assert weak.shape == strong.shape == (5, 3, 16, 16)
@@ -315,9 +316,14 @@ def test_transform_fix_batch_draws_and_modes():
     assert torch.equal(strong, again[1])
     d = TB.draw_transform_fix(torch.Generator().manual_seed(1), 5, 16, host_gen=torch.Generator().manual_seed(2))
     assert d["noise"].shape == (int((d["ops"] == RA.NOISE).sum()), 3, 16, 16)
-    for mode in ("fast", "masked", "exact"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            TB.transform_fix_batch(torch.Generator(), imgs, mode=mode)
+    for mode, shape in (("fast", (5, 7)), ("masked", (5, 9)), ("exact", (5, 7))):
+        d = TB.draw_transform_fix(torch.Generator().manual_seed(1), 5, 16, mode=mode,
+                                  host_gen=torch.Generator().manual_seed(2))
+        assert d["ops"].shape == shape and ("present" in d) is (mode == "masked")
+        weak, strong = TB.transform_fix_batch(torch.Generator().manual_seed(0), imgs, mode=mode)
+        assert weak.shape == strong.shape == (5, 3, 16, 16)
+    with pytest.raises(ValueError, match="aug mode"):
+        TB.transform_fix_batch(torch.Generator(), imgs, mode="other")
 
 
 def test_grouped_ops_equal_every_op_on_every_image():

@@ -10,6 +10,7 @@ and handed to the port.  IMG 64 for the model steps (layer4 2x2, see
 tests/test_torch_pretrain_step.py)."""
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -521,14 +522,77 @@ def test_load_backbone_keeps_the_head_and_strips_module_prefix(tmp_path):
     assert all(torch.equal(state.head.state_dict()[k], v) for k, v in head.items())
 
 
+def _flag_run(root, extra):
+    """The fine-tune CLI on the CPU at 32^2, one epoch, from a pretrain
+    checkpoint of the port, with ``extra`` flags: its save_dir."""
+    from ssl_cr_histo_tpu_torch.cli import finetune
+    from ssl_cr_histo_tpu_torch.train.checkpoint import save_checkpoint
+    from ssl_cr_histo_tpu_torch.train.init import init_triplet_state
+
+    data, pre_path, run = root / "kather", root / "pretrain" / "best.pth", root / "run"
+    if not data.exists():
+        _write_kather(str(data))
+        torch.manual_seed(3)
+        save_checkpoint(str(pre_path), init_triplet_state("resnet18", torch.device("cpu")), {"epoch": 1})
+    finetune.main(["--task", "kather", "--train_path", str(data), "--model_path", str(pre_path), "--save_dir",
+                   str(run), "--device", "cpu", "--image_size", "32", "--batch_size", "4", "--num_epoch", "1",
+                   "--save_freq", "0", "--validation_split", "0.25", "--no-bf16"] + extra)
+    return run
+
+
+@pytest.fixture(scope="module")
+def plain_run(tmp_path_factory):
+    root = tmp_path_factory.mktemp("plain")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)  # as the runs it is compared with (one_torch_thread)
+    try:
+        run = _flag_run(root, [])
+    finally:
+        torch.set_num_threads(n)
+    yield run
+    shutil.rmtree(root, ignore_errors=True)  # its checkpoints: pytest keeps its last three runs' temp dirs
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for a CLI run at a tiny size (restored after):
+    more threads buy nothing there and contend with the other test
+    workers' for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("extra", [["--aug_mode", "fast"], ["--aug_mode", "masked"], ["--reference_exact"],
                                    ["--remat"], ["--aug_mode", "exact"]])
-def test_cli_rejects_unported(tmp_path, extra):
-    from ssl_cr_histo_tpu_torch.cli import finetune
+def test_cli_rejects_unported(tmp_path, extra, plain_run, monkeypatch, one_torch_thread):
+    """Each flag that the CLI once rejected as not ported (the test keeps
+    its name from then) runs the CLI on the CPU (32^2, one epoch) and does
+    what it does in the JAX CLI: ``--aug_mode`` is accepted and recorded,
+    and the 3-view stack has no modes, so the run's final.pth equals the
+    plain run's tensor for tensor; so does ``--remat``'s, whose backbone
+    recomputes each block in the backward pass (a checkpointed call per
+    block and train step); ``--reference_exact`` records float32, exact
+    and with-replacement subsampling."""
+    from ssl_cr_histo_tpu_torch.models import resnet
 
-    argv = ["--task", "kather", "--train_path", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(SystemExit, match="not yet ported"):
-        finetune.main(argv + extra)
+    blocks, checkpoint = [], resnet.checkpoint
+    monkeypatch.setattr(resnet, "checkpoint", lambda fn, *a, **k: blocks.append(fn) or checkpoint(fn, *a, **k))
+    run = _flag_run(tmp_path, extra)
+    rows = (run / "fine_tuned_results.csv").read_text().splitlines()
+    assert len(rows) == 2 and all(np.isfinite(float(v)) for v in rows[1].split(",")[1:])
+    args = torch.load(run / "best.pth", weights_only=False)["meta"]["args"]
+    final, plain = (torch.load(r / "final.pth", weights_only=False) for r in (run, plain_run))
+    assert (len(blocks) > 0) is (extra == ["--remat"]) and len(blocks) % 8 == 0
+    shutil.rmtree(tmp_path, ignore_errors=True)  # its checkpoints: pytest keeps its last three runs' temp dirs
+    if extra == ["--reference_exact"]:
+        assert (args["bf16"], args["aug_mode"], args["with_replacement"]) == (False, "exact", True)
+        return
+    assert args["aug_mode"] == (extra[1] if extra[0] == "--aug_mode" else "fused")
+    for part in ("model", "classifier"):
+        for k, v in plain[part].items():
+            assert torch.equal(final[part][k], v), k
 
 
 @pytest.mark.parametrize("extra,message", [

@@ -11,6 +11,7 @@ float noise (the instability of tests/test_torch_training_parity.py's
 32^2 step)."""
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -34,6 +35,7 @@ from ssl_cr_histo_tpu.train.checkpoint import export_torch_state_dict, load_torc
 from ssl_cr_histo_tpu.train.init import init_triplet_state as j_init_state
 from ssl_cr_histo_tpu_torch.ops import batch as TB
 from ssl_cr_histo_tpu_torch.ops import fused as TF
+from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
 from ssl_cr_histo_tpu_torch.parallel import steps as TS
 from ssl_cr_histo_tpu_torch.train.checkpoint import from_jax_params
 from ssl_cr_histo_tpu_torch.train.init import init_triplet_state
@@ -160,10 +162,58 @@ def test_pretrain_step_matches_jax(setup):
                                                         draws=_draws(data), order=torch.from_numpy(data["labels"])),
                                 channel_axis=2)
     np.testing.assert_allclose(x_port.numpy(), np.asarray(x_jax), rtol=0, atol=1e-5)
+    _assert_step_matches_jax(params, stats, data, x_jax, _draws(data), torch.float32)
 
+
+def test_pretrain_step_v2_matches_jax(setup, monkeypatch):
+    """``pretrain_step(augment="v2")`` (RandAugment n 2, m 3, fused) against
+    the JAX package's step path: the views of ``augment_rsp_batch_v2`` with
+    the draws rebuilt from the JAX key and the triplets ordered by their
+    labels equal JAX's (the uint8 triplets permuted, then
+    ``augment_rsp_batch_v2``) in float32 within 1e-5; then the step, its
+    v2 augmentation call handed JAX's views (the reason is in
+    tests/test_torch_consistency.py::test_consistency_step_matches_jax),
+    against the JAX model half in float64, with the tolerances of
+    test_pretrain_step_matches_jax, the port's model in float64 too: v2's
+    views hold large uniform regions (the black fill of the geometric ops,
+    PIL's enhance ops), where the float32 model's conv1 BatchNorm gradient
+    strays from float64 by ~3e-4 of its largest entry, the port's float32
+    error and not a gap between the packages.  The step calls the v2
+    augmentation with its labels as the ordering, n, m, the mode and the
+    draws."""
+    from test_torch_v2 import jax_v2_draws
+
+    _, _, params, stats, data = setup
+    key = jax.random.PRNGKey(5)
+    permuted = JS.permute_triplets(jnp.asarray(data["tiles"]), jnp.asarray(data["labels"]))
+    x_jax = JB.augment_rsp_batch_v2(key, permuted, n=2, m=3.0, mode="fused").transpose(0, 1, 4, 2, 3)
+    draws = jax_v2_draws(key, B * 3, "fused")
+    x_port = TB.augment_rsp_batch_v2(None, torch.from_numpy(data["tiles"]), 2, 3.0, draws=draws,
+                                     order=torch.from_numpy(data["labels"]))
+    np.testing.assert_allclose(x_port.numpy(), np.asarray(x_jax), rtol=0, atol=1e-5)
+    calls = []
+
+    def on_jax_views(gen, tiles, n, m, mode, draws, out_dtype, order):
+        calls.append((n, m, mode, draws, out_dtype, order))
+        return torch.from_numpy(np.asarray(x_jax, np.float64))
+
+    monkeypatch.setattr(TS.aug_batch, "augment_rsp_batch_v2", on_jax_views)
+    _assert_step_matches_jax(params, stats, data, x_jax, draws, torch.float64, augment="v2", n_aug=2, m_aug=3.0)
+    (n, m, mode, got_draws, out_dtype, order), = calls
+    assert (n, m, mode, got_draws, out_dtype) == (2, 3.0, "fused", draws, torch.float32)
+    assert torch.equal(order, torch.from_numpy(data["labels"]).long())
+
+
+def _assert_step_matches_jax(params, stats, data, x_jax, draws, dtype, **step_kwargs):
+    """The port's pretrain step on ``data`` with ``draws``, its model in
+    ``dtype``, against the JAX package's float64 step on its views
+    ``x_jax``: loss, gradients, the updated params and BN statistics
+    (tolerances in test_pretrain_step_matches_jax)."""
     jloss, grads, jparams, jstats = _jax_step_f64("resnet18", params, stats, x_jax, data["labels"])
 
     state = _port_state(params, stats)
+    state.model.to(dtype)
+    state.classifier.to(dtype)
     counts, hooks = {}, []
     for name, m in state.model.named_modules():
         if isinstance(m, tnn.BatchNorm2d):
@@ -171,7 +221,7 @@ def test_pretrain_step_matches_jax(setup):
                 lambda mod, inp, out, name=name: counts.__setitem__(
                     name, inp[0].shape[0] * inp[0].shape[2] * inp[0].shape[3])))
     metrics = TS.pretrain_step(state, torch.from_numpy(data["tiles"]), torch.Generator().manual_seed(0),
-                               labels=torch.from_numpy(data["labels"]), draws=_draws(data))
+                               labels=torch.from_numpy(data["labels"]), draws=draws, **step_kwargs)
     for h in hooks:
         h.remove()
     assert state.step == 1
@@ -428,21 +478,81 @@ def test_cli_prefetch_keeps_the_batches_and_the_state(tmp_path, monkeypatch):
 
 
 def test_cli_rejects_unported_flags(tmp_path):
-    """v2, the other augmentation modes, --reference_exact and --remat exit
-    "not yet ported"; a --resume file that is not there exits naming it."""
+    """A --resume file that is not there exits naming it, before any
+    epoch.  (The test keeps its name from when v2, the other augmentation
+    modes, --reference_exact and --remat exited "not yet ported";
+    test_cli_runs_each_flag now runs each of them.)"""
     from ssl_cr_histo_tpu_torch.cli import pretrain
 
-    base = ["--train_image_pth", str(tmp_path), "--device", "cpu"]
-    for extra in (["--variant", "v2"], ["--aug_mode", "fast"], ["--aug_mode", "masked"], ["--aug_mode", "exact"],
-                  ["--reference_exact"], ["--remat"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            pretrain.main(base + extra)
     slides = str(tmp_path / "wsis")
     _write_slides(slides)
     with pytest.raises(SystemExit, match="--resume missing/ckpt_3.pth: no such checkpoint"):
         pretrain.main(["--train_image_pth", slides, "--device", "cpu", "--tile_h", "64", "--tile_w", "64",
                        "--tile_stride", "32", "--index_cache_dir", "", "--save_dir", str(tmp_path / "run"),
                        "--resume", "missing/ckpt_3.pth"])
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for a CLI run at a tiny size (restored after):
+    more threads buy nothing there and contend with the other test
+    workers' for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("extra", [["--variant", "v2"], ["--aug_mode", "fast"], ["--aug_mode", "masked"],
+                                   ["--aug_mode", "exact"], ["--reference_exact"], ["--remat"]])
+def test_cli_runs_each_flag(tmp_path, extra, monkeypatch, one_torch_thread):
+    """The pretrain CLI on the CPU (64^2 tiles, batch 4, one epoch of 2
+    steps) with each flag the JAX CLI takes, doing what it does there:
+    ``--variant v2`` runs RandAugment(2, 3) per tile (the v2 augmentation
+    each step, the v1 pool never); ``--aug_mode fast`` and ``masked`` run
+    the fused v1 pool (the kernel's plain version here, once a step),
+    ``exact`` the op-by-op pool;
+    ``--reference_exact`` the exact pool in float32, one backbone pass a
+    view and the sampler's x6 orderings (labels passed to each step);
+    ``--remat`` recomputes each block (a checkpointed call per block and
+    step).  The CSV row is finite."""
+    from ssl_cr_histo_tpu_torch.cli import pretrain
+    from ssl_cr_histo_tpu_torch.models import resnet
+
+    slides = str(tmp_path / "wsis")
+    _write_slides(slides)
+    steps, augs, blocks, kernel_path = [], [], [], []
+    real_step, checkpoint, plain = TS.pretrain_step, resnet.checkpoint, RK.rsp_augment_plain
+    v1, v2 = TB.augment_rsp_batch_v1, TB.augment_rsp_batch_v2
+    monkeypatch.setattr(TS, "pretrain_step", lambda state, tiles, gen, labels=None, **kw: steps.append(
+        (labels, kw)) or real_step(state, tiles, gen, labels=labels, **kw))
+    monkeypatch.setattr(TB, "augment_rsp_batch_v1", lambda *a, mode="fused", **k: augs.append(("v1", mode))
+                        or v1(*a, mode=mode, **k))
+    monkeypatch.setattr(TB, "augment_rsp_batch_v2", lambda *a, mode="fused", **k: augs.append(("v2", mode))
+                        or v2(*a, mode=mode, **k))
+    monkeypatch.setattr(RK, "rsp_augment_plain", lambda *a, **k: kernel_path.append(1) or plain(*a, **k))
+    monkeypatch.setattr(resnet, "checkpoint", lambda fn, *a, **k: blocks.append(fn) or checkpoint(fn, *a, **k))
+    run = tmp_path / "run"
+    pretrain.main(["--train_image_pth", slides, "--save_dir", str(run), "--device", "cpu", "--tile_h", "64",
+                   "--tile_w", "64", "--tile_stride", "32", "--batch_size", "4", "--num_epoch", "1",
+                   "--steps_per_epoch", "2", "--validation_size", "4", "--save_freq", "0",
+                   "--index_cache_dir", "", "--no-bf16"] + extra)
+    rows = (run / "train_results.csv").read_text().splitlines()
+    assert len(rows) == 2 and all(np.isfinite(float(v)) for v in rows[1].split(",")[1:])
+    assert len(steps) == 2
+    labels, kw = steps[0]
+    want = {"--variant": ("v2", "fused"), "--aug_mode": ("v1", extra[-1]), "--reference_exact": ("v1", "exact"),
+            "--remat": ("v1", "fused")}[extra[0]]
+    assert augs == [want] * 2 and kw["augment"] == want[0]
+    assert len(kernel_path) == (2 if want[0] == "v1" and want[1] != "exact" else 0)
+    if extra[0] == "--variant":
+        assert (kw["n_aug"], kw["m_aug"], kw["aug_mode"]) == (2, 3.0, "fused")
+    if extra[0] == "--aug_mode":
+        assert kw["aug_mode"] == extra[1]
+    strict = extra == ["--reference_exact"]
+    assert (labels is not None, kw["joint_encode"], kw["bf16"]) == (strict, not strict, False)
+    assert len(blocks) == (2 * 8 if extra == ["--remat"] else 0)
+    shutil.rmtree(tmp_path, ignore_errors=True)  # its checkpoint: pytest keeps its last three runs' temp dirs
 
 
 def test_port_imports_no_jax():

@@ -172,16 +172,26 @@ def test_pretrain_resume_equals_an_uninterrupted_run(slides, tmp_path):
     """Two epochs straight against one epoch, then --resume auto for the
     second: ckpt_2.pth bit-equal (weights, SGD momentum, Lookahead's slow
     weights and count, synced at epoch 2 by --la_steps 2, the step, the
-    generator, the best value) and the same CSV rows."""
+    generators, the best value) and the same CSV rows."""
     _pretrain(slides, tmp_path / "straight", "--num_epoch", "2")
     _pretrain(slides, tmp_path / "resumed", "--num_epoch", "1")
     _pretrain(slides, tmp_path / "resumed", "--num_epoch", "2", "--resume", "auto")
-    _same_ckpt(tmp_path / "straight" / "ckpt_2.pth", tmp_path / "resumed" / "ckpt_2.pth")
+    _same_ckpt(tmp_path / "straight" / "ckpt_2.pth", tmp_path / "resumed" / "ckpt_2.pth", ("gen", "host_gen"))
     ck = torch.load(tmp_path / "resumed" / "ckpt_2.pth", weights_only=False)
     assert ck["la_count"] == 0 and ck["step"] == 4 and ck["meta"]["epoch"] == 2
     rows = [(tmp_path / d / "train_results.csv").read_text() for d in ("straight", "resumed")]
     assert rows[0] == rows[1] and len(rows[0].splitlines()) == 3
 
+
+
+def test_pretrain_v2_resume_equals_an_uninterrupted_run(slides, tmp_path):
+    """The same under ``--variant v2``, whose draws come from the host
+    generator (the v2 pool's tables): ckpt_2.pth bit-equal, both
+    generators restored."""
+    for run, extra in (("straight", ["--num_epoch", "2"]), ("resumed", ["--num_epoch", "1"]),
+                       ("resumed", ["--num_epoch", "2", "--resume", "auto"])):
+        _pretrain(slides, tmp_path / run, "--variant", "v2", *extra)
+    _same_ckpt(tmp_path / "straight" / "ckpt_2.pth", tmp_path / "resumed" / "ckpt_2.pth", ("gen", "host_gen"))
 
 def test_pretrain_resume_keeps_a_better_best(slides, tmp_path):
     """With lr 0 the resumed epoch's validation loss equals epoch 1's: not
@@ -206,7 +216,7 @@ def test_cache_tiles_reads_each_position_once_and_changes_nothing(slides, tmp_pa
     reads.clear()
     _pretrain(slides, tmp_path / "cached", "--num_epoch", "2", "--cache_tiles")
     assert len(reads) == len(set(reads)) < uncached
-    _same_ckpt(tmp_path / "plain" / "ckpt_2.pth", tmp_path / "cached" / "ckpt_2.pth")
+    _same_ckpt(tmp_path / "plain" / "ckpt_2.pth", tmp_path / "cached" / "ckpt_2.pth", ("gen", "host_gen"))
 
 
 def test_expand_orderings_steps_on_the_jax_samplers_labels(slides, tmp_path, monkeypatch):
