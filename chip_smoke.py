@@ -5,11 +5,16 @@ pretraining CLI for one short epoch at the config of record, the
 fine-tuning and consistency CLIs from its checkpoint for Kather and then
 Camelyon16, the heatmap CLI and the FROC from the Camelyon16 checkpoint,
 the CLIs' resume, the pretrain flags and evaluation, every augmentation
-mode, v2 pretraining, --reference_exact and --remat, and times the steps,
-the serving forward, evaluation and the kernels.
+mode, v2 pretraining, --reference_exact and --remat, the pretrain CLI and
+step across processes (a world of one over NCCL, of two over gloo on the
+one card), and times the steps, the serving forward, evaluation and the
+kernels.
 
     python3 chip_smoke.py                    # from the root of a checkout, on a GPU machine
     python3 chip_smoke.py --profile DIR      # also write torch.profiler tables of the steps
+
+(Phase 12 starts this script again as its own worker processes, with
+``--cli-worker`` or ``--gloo-worker`` as the first argument.)
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit); no CUDA -> exit 1
@@ -128,10 +133,35 @@ Phases (any failure exits non-zero and prints no result line):
      v2 (fused, masked) and v1 exact pretrain steps and the Kather CR
      consistency step under each mode timed, with the views' share and the
      kernel launches a step (``--profile``: each mode's profile table)
- 12. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
+ 12. data parallelism (``parallel.distributed``): the pretrain CLI at the
+     config of record (resnet18, 64 triplets of 256^2, bf16, the fused
+     kernel) for one 8-step epoch, cuDNN deterministic, each run a fresh
+     process started by this script, in turns plain, under ``python3 -m
+     torch.distributed.run --standalone --nproc_per_node 1`` (NCCL, a world
+     of one), the same again, plain again: the first world-1 run's
+     ``ckpt_1.pth`` bit-equal to the first plain run's, each run's fused
+     kernel launched once a step and the chain kernel never (counted in each
+     process from 0), each run's step times (CUDA events around each step)
+     printed; then two processes on the one card over gloo (NCCL refuses two
+     ranks on one device), two pretrain steps at the main path's shapes on
+     32 triplets each of a global batch of 64, against the same two steps
+     in this process on the whole batch, the model in float32 and then in
+     float64 (on the kernel's float32 views): each rank's fused-kernel
+     outputs bit-equal to its rows of this process's, one fused launch a
+     step on each rank, the losses within rtol 1e-5; in float64 every
+     parameter within 1e-5 of its tensor's largest entry; in float32 the
+     parameters' distance from the float64 step (L2 over all of them) at
+     most twice the one-process float32 step's, and each tensor's gap
+     printed: float32 parts two reduction orders by more than 1e-5 of some
+     tensors (a convolution's weight gradient sums millions of products whose
+     BatchNorm factors cancel; a bias that starts at 0 is as large as its
+     two updates).  The gloo steps' times are printed as correctness only (gloo
+     stages through the host).  A run on several cards waits for a runner
+     that has them
+ 13. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
      line.  A kernel's ``launches`` is phase 5's count (the main path);
-     ``launches_by_path`` adds each CLI path of phases 10 and 11, each
-     counted from 0
+     ``launches_by_path`` adds each CLI path of phases 10 and 11 and each
+     process of phase 12's paths, each counted from 0
 
 Imports nothing of JAX and nothing of the JAX package.  Tolerance 1e-4
 (phases 3-4) on outputs in [0, 1]: the kernels and PyTorch's CUDA ops
@@ -507,17 +537,20 @@ def write_slides(root: str) -> str:
 
 
 def old_augment(gen, triplets_u8, mode="fused", draws=None, mean=IDENTITY[0], std=IDENTITY[1],
-                out_dtype=None, order=None, host_gen=None):
+                out_dtype=None, order=None, host_gen=None, shard=None):
     """The unfused composition of the augmentation, kept here to time the step
     against: the uint8 triplet permutation (a gather), uint8 -> float32
     planar copy, the plain two-pass warp, the chain kernel, clip, normalize;
-    float32 out (autocast casts it for conv1)."""
+    float32 out (autocast casts it for conv1).  One process's whole batch
+    only (``shard`` None or (0, B))."""
     import torch
     from ssl_cr_histo_tpu_torch.ops import batch as TB
     from ssl_cr_histo_tpu_torch.ops import fused
     from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
     from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
 
+    if shard not in (None, (0, len(triplets_u8))):
+        raise ValueError(f"the unfused composition takes a whole batch, not the rows of {shard}")
     if order is not None:
         triplets_u8 = RK.permute_triplets(triplets_u8, order)
     b, t, h, w, _ = triplets_u8.shape
@@ -2083,9 +2116,254 @@ def phase_modes_clis(torch, tmp: str, slides: str, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: data parallelism.  The worker functions run in processes this
+# script starts (``worker_main``); the checks run in the parent.
+# ---------------------------------------------------------------------------
+
+DIST_STEPS, DIST_BATCH = 2, 64
+
+
+def run_launch(argv: list, timeout: float) -> str:
+    """Run ``argv`` in its own session (a launcher and the workers it
+    starts), return its output; on a time-out or a failure every process of
+    the session is killed and the run fails."""
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{' '.join(argv[:8])} ...: no end within {timeout} s")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    check(proc.returncode == 0, f"{' '.join(argv[:8])} ... exited {proc.returncode}:\n{out[-6000:]}")
+    return out
+
+
+def cli_worker(out: str, argv: list) -> None:
+    """One process of a phase 12 CLI run: the pretrain CLI on ``argv`` with
+    cuDNN deterministic, every launch counter set to 0 before it and read
+    after, a CUDA event pair around each step; writes
+    ``{out}.{RANK}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    from ssl_cr_histo_tpu_torch.cli import pretrain
+    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
+    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+    from ssl_cr_histo_tpu_torch.parallel import distributed as D
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+
+    PK.launches = RK.launches = 0
+    with cuda_timed(torch, S, "pretrain_step") as pairs, contextlib.redirect_stdout(io.StringIO()):
+        pretrain.main(argv)
+    torch.cuda.synchronize()
+    record = {"world": D.process_count(), "backend": dist.get_backend() if dist.is_initialized() else None,
+              "launches": {"photometric_chain": PK.launches, "rsp_augment": RK.launches},
+              "step_ms": [a.elapsed_time(b) for a, b in pairs]}
+    with open(f"{out}.{os.environ.get('RANK', '0')}.json", "w") as f:
+        json.dump(record, f)
+
+
+def gloo_steps(torch, inp: dict, dev, dtype) -> dict:
+    """``DIST_STEPS`` pretrain steps (resnet18, the fused kernel writing
+    float32, the model in ``dtype``: float32, or float64 on the kernel's
+    views cast) on this process's rows of each of ``inp['batches']``
+    (global batches of ``DIST_BATCH`` triplets), from a seeded state and
+    generator: each fused launch's output, the losses, each step's CUDA
+    event time, the state, the launches.  In one process, the whole
+    batches."""
+    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
+    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+    from ssl_cr_histo_tpu_torch.parallel import distributed as D
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+    from ssl_cr_histo_tpu_torch.train.init import init_triplet_state
+
+    torch.manual_seed(inp["seed"])
+    state = init_triplet_state("resnet18", dev)
+    state.model.to(dtype)
+    state.classifier.to(dtype)
+    gen = torch.Generator(device=dev).manual_seed(inp["seed"] + 1)
+    outs, losses, pairs = [], [], []
+    kernel, augment = RK.rsp_augment_cuda, S.aug_batch.augment_rsp_batch_v1
+    RK.rsp_augment_cuda = lambda *a, **k: outs.append(kernel(*a, **k)) or outs[-1]
+    S.aug_batch.augment_rsp_batch_v1 = lambda *a, **k: augment(*a, **k).to(dtype)
+    PK.launches = RK.launches = 0
+    try:
+        for batch in inp["batches"]:
+            step = with_events(torch, S.pretrain_step, pairs)
+            m = step(state, D.put_sharded(batch, dev), gen, global_batch=len(batch), bf16=False)
+            losses.append(float(m["loss"]))
+    finally:
+        RK.rsp_augment_cuda, S.aug_batch.augment_rsp_batch_v1 = kernel, augment
+    torch.cuda.synchronize()
+    out = {"outs": [o.cpu() for o in outs], "losses": losses, "step_ms": [a.elapsed_time(b) for a, b in pairs],
+           "model": {k: v.cpu() for k, v in state.model.state_dict().items()},
+           "classifier": {k: v.cpu() for k, v in state.classifier.state_dict().items()},
+           "launches": {"photometric_chain": PK.launches, "rsp_augment": RK.launches}}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def gloo_worker(inp_path: str, out: str) -> None:
+    """One of two processes on the one card over gloo (``cuda:0`` for both):
+    ``gloo_steps`` on its rows in float32, then in float64; writes
+    ``{out}.{RANK}.pt``."""
+    import torch
+
+    from ssl_cr_histo_tpu_torch.parallel import distributed as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    D.initialize(dev, backend="gloo")
+    check(D.process_count() == 2, f"gloo world of {D.process_count()}")
+    inp = torch.load(inp_path, weights_only=False)
+    torch.save({str(dt): gloo_steps(torch, inp, dev, dt) for dt in (torch.float32, torch.float64)},
+               f"{out}.{D.process_index()}.pt")
+
+
+def worker_main(argv: list) -> int:
+    """``--cli-worker OUT -- ARGS`` or ``--gloo-worker IN OUT``."""
+    sys.path.insert(0, ROOT)
+    if argv[0] == "--cli-worker":
+        check(argv[2] == "--", f"--cli-worker OUT -- ARGS, not {argv}")
+        cli_worker(argv[1], argv[3:])
+    else:
+        gloo_worker(argv[1], argv[2])
+    return 0
+
+
+def phase_distributed(torch, tmp: str, slides: str, card: str) -> dict:
+    """Phase 12 (see the module docstring).  Returns each process's
+    launches on each path, counted from 0 in that process."""
+    import numpy as np
+
+    from ssl_cr_histo_tpu_torch.data import RSPTripletSampler
+
+    launches = {}
+    steps = 8
+    base = ["--train_image_pth", slides, "--model", "resnet18", "--batch_size", str(DIST_BATCH), "--tile_h", "256",
+            "--tile_w", "256", "--tile_stride", "16", "--num_epoch", "1", "--steps_per_epoch", str(steps),
+            "--validation_size", "64", "--save_freq", "1", "--index_cache_dir", os.path.join(tmp, "p12_index")]
+    me = os.path.abspath(__file__)
+    launch = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1"]
+    runs, t0 = {}, time.time()
+    for i, kind in enumerate(("plain", "world1", "world1", "plain")):
+        out = os.path.join(tmp, f"p12_{i}_{kind}")
+        argv = [me, "--cli-worker", out, "--"] + base + ["--save_dir", out + "_run"]
+        run_launch(([sys.executable] if kind == "plain" else launch) + argv, timeout=300)
+        with open(out + ".0.json") as f:
+            rec = json.load(f)
+        check(rec["world"] == 1 and rec["backend"] == (None if kind == "plain" else "nccl"),
+              f"phase 12 {kind} run: world {rec['world']}, backend {rec['backend']}")
+        n = rec["launches"]
+        check(n["rsp_augment"] == steps and n["photometric_chain"] == 0,
+              f"phase 12 {kind} run: launches {n} in {steps} steps")
+        runs.setdefault(kind, []).append((out + "_run", rec))
+    load = lambda run: torch.load(os.path.join(run, "ckpt_1.pth"), map_location="cpu", weights_only=False)  # noqa: E731
+    a, b = load(runs["plain"][0][0]), load(runs["world1"][0][0])
+    tensors = lambda c: ([(f"{part}.{k}", v) for part in ("model", "classifier") for k, v in c[part].items()]  # noqa: E731
+                         + [(f"slow.{i}", v) for i, v in enumerate(c["slow"])]
+                         + [(f"momentum.{i}", s["momentum_buffer"]) for i, s in c["optimizer"]["state"].items()]
+                         + [(f"generator.{k}", v) for k, v in c["generators"].items()])
+    pairs = list(zip(tensors(a), tensors(b), strict=True))
+    unequal = [k for (k, x), (_, y) in pairs if not torch.equal(x, y)]
+    check(not unequal and a["step"] == b["step"] == steps,
+          f"NCCL world-1 ckpt_1.pth differs from the plain run's: {unequal[:5]} (step {b['step']})")
+    launches["pretrain_cli_nccl_world1"] = runs["world1"][0][1]["launches"]
+    med = {kind: [float(np.median(rec["step_ms"][1:])) for _, rec in rs] for kind, rs in runs.items()}
+    spread = {kind: (min(min(rec["step_ms"][1:]) for _, rec in rs), max(max(rec["step_ms"][1:]) for _, rec in rs))
+              for kind, rs in runs.items()}
+    print(f"phase 12: pretrain CLI, {steps} steps of {DIST_BATCH} triplets of 256^2, bf16, cuDNN deterministic, "
+          f"in turns plain / NCCL world 1 / NCCL world 1 / plain: ckpt_1.pth of the world-1 run bit-equal to the "
+          f"plain run's ({len(pairs)} tensors: weights, slow weights, momentum, generators; step {b['step']}); "
+          f"fused launches {[rec['launches']['rsp_augment'] for rs in runs.values() for _, rec in rs]}; median step "
+          f"(steps 2-{steps}, CUDA events) plain {med['plain'][0]:.3f}, {med['plain'][1]:.3f} ms (range "
+          f"{spread['plain'][0]:.3f}-{spread['plain'][1]:.3f}), world 1 {med['world1'][0]:.3f}, "
+          f"{med['world1'][1]:.3f} ms (range {spread['world1'][0]:.3f}-{spread['world1'][1]:.3f}); "
+          f"{time.time() - t0:.1f} s [{card}]", flush=True)
+    check(max(med["world1"]) <= 1.15 * max(med["plain"]),
+          f"NCCL world-1 median step {med['world1']} ms against plain {med['plain']} ms")
+
+    # two processes on the one card over gloo, against this process
+    t0 = time.time()
+    sampler = RSPTripletSampler(tile=256, stride=16)
+    it = sampler.iter_batches(sampler.index_directory(slides, cache_dir=os.path.join(tmp, "p12_index")), DIST_BATCH,
+                              seed=12)
+    inp = {"seed": 12, "batches": [np.ascontiguousarray(next(it)) for _ in range(DIST_STEPS)]}
+    inp_path, out = os.path.join(tmp, "p12_gloo.in"), os.path.join(tmp, "p12_gloo")
+    torch.save(inp, inp_path)
+    dtypes = (torch.float32, torch.float64)
+    want = {str(dt): gloo_steps(torch, inp, torch.device("cuda"), dt) for dt in dtypes}
+    run_launch([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2", me,
+                "--gloo-worker", inp_path, out], timeout=600)
+    half = DIST_BATCH // 2
+    ref32, ref64 = want["torch.float32"], want["torch.float64"]
+    gaps, sq = {}, {"two": 0.0}
+    for r in range(2):
+        got_all = torch.load(f"{out}.{r}.pt", weights_only=False)
+        for dt in dtypes:
+            got, ref, name = got_all[str(dt)], want[str(dt)], str(dt).split(".")[-1]
+            check(len(got["outs"]) == DIST_STEPS == got["launches"]["rsp_augment"]
+                  and got["launches"]["photometric_chain"] == 0, f"gloo rank {r} {name}: launches {got['launches']}")
+            launches[f"pretrain_step_gloo_world2_{name}_rank{r}"] = got["launches"]
+            for i, (o, w) in enumerate(zip(got["outs"], ref["outs"], strict=True)):
+                check(torch.equal(o, w[r * half:(r + 1) * half]),
+                      f"gloo rank {r} {name} step {i}: fused-kernel output differs from its rows of one process's")
+            for i, (x, y) in enumerate(zip(got["losses"], ref["losses"], strict=True)):
+                check(abs(x - y) <= 1e-5 * abs(y), f"gloo rank {r} {name} step {i}: loss {x!r} against {y!r}")
+                gaps.setdefault((name, "loss"), []).append(abs(x - y) / abs(y))
+            for part in ("model", "classifier"):
+                for k, w in ref[part].items():
+                    if not w.is_floating_point():
+                        check(torch.equal(got[part][k], w), f"gloo rank {r} {name}: {k}")
+                        continue
+                    scale = max(w.abs().max().item(), 1e-30)
+                    d = (got[part][k] - w).abs().max().item()
+                    gaps.setdefault((name, "params"), []).append((d / scale, f"{part}.{k}"))
+                    if dt == torch.float64:
+                        check(d <= 1e-5 * scale, f"gloo rank {r} float64: {part}.{k} off by {d:.3e} "
+                                                 f"(bound {1e-5 * scale:.3e})")
+                    else:
+                        sq["two"] += (got[part][k].double() - ref64[part][k]).square().sum().item()
+            print(f"phase 12: gloo rank {r} {name}: step times {', '.join(f'{t:.3f}' for t in got['step_ms'])} ms "
+                  f"(correctness only: gloo stages every collective through the host) [{card}]", flush=True)
+    sq["one"] = 2 * sum((w.double() - ref64[part][k]).square().sum().item() for part in ("model", "classifier")
+                        for k, w in ref32[part].items() if w.is_floating_point())
+    worst = {name: max(gaps[name, "params"]) for name in ("float32", "float64")}
+    above = sorted({k for g, k in gaps["float32", "params"] if g > 1e-5})
+    ratio = math.sqrt(sq["two"] / sq["one"])
+    print(f"phase 12: gloo world of 2 on one card, {DIST_STEPS} steps of {half} + {half} triplets of 256^2 against "
+          f"one process: every fused-kernel output bit-equal to its rows of one process's, one fused launch a step on "
+          f"each rank; float64 model: losses' largest relative gap {max(gaps['float64', 'loss']):.2e}, parameters' "
+          f"largest {worst['float64'][0]:.2e} of their tensor's largest entry ({worst['float64'][1]}; bound 1e-5); "
+          f"float32 model: losses {ref32['losses']}, largest relative gap {max(gaps['float32', 'loss']):.2e} (bound "
+          f"1e-5), parameters' largest gap {worst['float32'][0]:.2e} ({worst['float32'][1]}), {len(above)} of "
+          f"{len(ref32['model']) + len(ref32['classifier'])} tensors above 1e-5; float32's distance from the float64 "
+          f"step over all parameters (L2), two processes over one: {ratio:.3f}; one process's float32 step times "
+          f"{', '.join(f'{t:.3f}' for t in ref32['step_ms'])} ms; {time.time() - t0:.1f} s [{card}]", flush=True)
+    check(ratio <= 2.0, f"gloo float32: the two-process run's parameters are {ratio:.3f}x as far from the float64 "
+                        f"step as the one-process run's")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke test of the PyTorch port on one NVIDIA GPU")
     ap.add_argument("--profile", default="", help="also profile the steps; write the tables to this directory")
+    if sys.argv[1:2] in (["--cli-worker"], ["--gloo-worker"]):
+        return worker_main(sys.argv[1:])
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(ROOT, "ssl_cr_histo_tpu_torch")):
         fail("run chip_smoke.py from the root of a checkout (ssl_cr_histo_tpu_torch/ missing)")
@@ -2229,6 +2507,11 @@ def main() -> int:
         by_path.update(phase_modes(torch, dev, tmp, slides, tiles, card, opts.profile))
         del tiles
         print(f"phase 11: {time.time() - t0:.1f} s [{card}]", flush=True)
+
+        # phase 12: data parallelism across processes
+        t0 = time.time()
+        by_path.update(phase_distributed(torch, tmp, slides, card))
+        print(f"phase 12: {time.time() - t0:.1f} s [{card}]", flush=True)
 
     replaces = {"photometric_chain": "ssl_cr_histo_tpu/ops/pallas_photometric.py:199",
                 "rsp_augment": "ssl_cr_histo_tpu/ops/pallas_photometric.py:199"}

@@ -10,6 +10,11 @@ Counterpart of ``ssl_cr_histo_tpu/cli/common.py:16-204``, ``:219-223`` and
     silent run on the CPU; the CPU tests pass ``--device cpu``;
   * a resumed run's random draws continue from the generators' states saved
     in its checkpoint, where the JAX CLIs advance their key chain.
+
+Every CLI runs as N processes, one a card, under ``python3 -m
+torch.distributed.run --nproc_per_node N -m ssl_cr_histo_tpu_torch.cli.<name>
+...`` (``parallel.distributed``): ``resolve_device`` joins the process group
+and takes ``cuda:LOCAL_RANK``; every process seeds alike.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from ssl_cr_histo_tpu_torch.ops.batch import AUG_MODES
+from ssl_cr_histo_tpu_torch.parallel import distributed
 from ssl_cr_histo_tpu_torch.train import optim
 from ssl_cr_histo_tpu_torch.train.checkpoint import Generators, latest_checkpoint, restore_checkpoint
 
@@ -166,13 +172,18 @@ def apply_reference_exact(args, stage: str):
 
 
 def resolve_device(args) -> torch.device:
-    """The run's device.  Raises SystemExit when CUDA is asked for and
-    missing.  TF32 is switched off for matmuls and cuDNN convolutions alike
-    (cuDNN's default is on): float32 math stays float32, and bf16 is opted
-    into with --bf16 alone."""
+    """The run's device: ``--device cuda`` is ``cuda:LOCAL_RANK`` under
+    ``torch.distributed.run`` (``cuda:0`` outside it), after joining the
+    process group it describes (``distributed.initialize``: NCCL on the
+    cards, gloo for ``--device cpu``).  Raises SystemExit when CUDA is asked
+    for and missing.  TF32 is switched off for matmuls and cuDNN
+    convolutions alike (cuDNN's default is on): float32 math stays float32,
+    and bf16 is opted into with --bf16 alone."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: CUDA is not available on this machine")
+    distributed.initialize(device)
+    device = distributed.local_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return device
@@ -181,7 +192,8 @@ def resolve_device(args) -> torch.device:
 def seed_everything(seed: int, device: torch.device) -> torch.Generator:
     """Seed Python, numpy and torch's global generator (model init), and
     return the run's generator on ``device`` (augmentation and ordering
-    draws)."""
+    draws); the same seed on every process of a data-parallel run, whose
+    draws are the global batch's (``ops.batch``)."""
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)

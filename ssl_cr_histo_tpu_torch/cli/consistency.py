@@ -32,6 +32,11 @@ transform_fix_batch``: fused, fast, masked or exact), ``--remat``
 recomputes the student's blocks in the backward pass, ``--reference_exact``
 applies the strict-parity preset (float32, exact views, with-replacement
 subsampling).  ``--multi_step`` is not carried.
+
+On N cards: ``python3 -m torch.distributed.run --nproc_per_node N -m
+ssl_cr_histo_tpu_torch.cli.consistency ...``; every process reads the same
+labeled and unlabeled batches and trains on its 1/N of each
+(``parallel.distributed``), and the primary writes.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from ssl_cr_histo_tpu_torch.cli.finetune import (
 )
 from ssl_cr_histo_tpu_torch.data.pipeline import prefetch_to_device
 from ssl_cr_histo_tpu_torch.parallel import steps as S
+from ssl_cr_histo_tpu_torch.parallel.mesh import rows_for_batch
 from ssl_cr_histo_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_teacher, load_finetuned
 from ssl_cr_histo_tpu_torch.train.loop import BestTracker, CsvLogger
@@ -155,6 +161,10 @@ def run(args, cfg, labeled, train, val) -> FinetuneState:
     # the augmentation tables' host generator (ops.batch.draw_transform_fix)
     host_gen = torch.Generator().manual_seed(args.seed + 1)
     batch_size = args.batch_size or cfg.cr_batch
+    rows = cfg.rows_per_step(batch_size)
+    # an indivisible batch fails before the first step
+    rows_for_batch(rows)
+    rows_for_batch(rows * args.mu)
     # labeled and unlabeled batch counts (for a balanced task, of the four
     # zipped loaders, ``cli/consistency.py:165-183``); zero raises SystemExit
     n_labeled = steps_per_epoch(cfg, labeled, batch_size)
@@ -199,9 +209,9 @@ def run(args, cfg, labeled, train, val) -> FinetuneState:
         for bi, ((x_l, y_l), (x_u,)) in enumerate(pairs):
             m = S.consistency_step(state, teacher, x_l, y_l, x_u, gen, cfg.task, args.lambda_u, args.NAug,
                                    labeled_views=args.labeled_views, host_gen=host_gen, aug_mode=args.aug_mode,
-                                   bf16=args.bf16)
-            sums += torch.stack([m["loss"], m["sup"], m["cons"]]) * len(y_l)
-            seen += len(y_l)
+                                   bf16=args.bf16, global_batch=rows)
+            sums += torch.stack([m["loss"], m["sup"], m["cons"]]) * rows
+            seen += rows
             if args.ema > 0:
                 S.ema_update(teacher, state, args.ema)
             if (bi + 1) % args.print_freq == 0:

@@ -33,6 +33,12 @@ backward pass; ``--reference_exact`` applies the strict-parity preset
 (float32, with-replacement subsampling); ``--aug_mode`` is accepted as the
 JAX CLI accepts it, and the 3-view stack has no modes.  ``--multi_step`` is
 not carried.
+
+On N cards: ``python3 -m torch.distributed.run --nproc_per_node N -m
+ssl_cr_histo_tpu_torch.cli.finetune ...``; every process reads the same
+batches and trains on its 1/N of each (``parallel.distributed``),
+validation and evaluation forward each process's rows and gather the
+outputs, and the primary writes.
 """
 
 from __future__ import annotations
@@ -57,10 +63,12 @@ from ssl_cr_histo_tpu_torch.cli.common import (
     seed_everything,
 )
 from ssl_cr_histo_tpu_torch.data import datasets as D
-from ssl_cr_histo_tpu_torch.data.pipeline import balanced_batch_iterator, prefetch_to_device
+from ssl_cr_histo_tpu_torch.data.pipeline import balanced_batch_iterator, pad_batches, prefetch_to_device
 from ssl_cr_histo_tpu_torch.eval import metrics as M
 from ssl_cr_histo_tpu_torch.eval import reporting as RP
+from ssl_cr_histo_tpu_torch.parallel.distributed import fetch_global, is_primary, process_count
 from ssl_cr_histo_tpu_torch.parallel import steps as S
+from ssl_cr_histo_tpu_torch.parallel.mesh import rows_for_batch
 from ssl_cr_histo_tpu_torch.train.checkpoint import save_checkpoint
 from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_serving_state, load_backbone
 from ssl_cr_histo_tpu_torch.train.loop import BestTracker, CsvLogger
@@ -184,13 +192,21 @@ def build_state(args, cfg, device: torch.device, n_steps_per_epoch: int) -> Fine
 def forward_all(state: FinetuneState, ds, batch_size: int, device: torch.device, bf16: bool = False):
     """Eval-mode outputs (N, num_classes) float32 of every sample of ``ds``
     in order, the last batch short, and the labels, as numpy
-    (``cli/finetune.py:297-317``)."""
+    (``cli/finetune.py:297-317``).  Under data parallelism each process
+    forwards its rows of every batch (zero-padded to a multiple of the
+    process count) and every process gets the whole outputs
+    (``distributed.fetch_global``)."""
     outs, labels = [], []
-    it = ds.batches(batch_size, shuffle=False, drop_last=False)
-    for imgs, lab in prefetch_to_device(it, device):
-        outs.append(S.forward(state, imgs, bf16=bf16))
-        labels.append(lab)
-    return torch.cat(outs).cpu().numpy(), torch.cat(labels).cpu().numpy()
+
+    def images():
+        for imgs, lab in ds.batches(batch_size, shuffle=False, drop_last=False):
+            labels.append(np.asarray(lab))
+            yield imgs
+
+    for imgs, _ in prefetch_to_device(pad_batches(images(), multiple=process_count()), device):
+        outs.append(fetch_global(S.forward(state, imgs, bf16=bf16)))
+    # each batch's padding rows at its end
+    return torch.cat([o[:len(lab)] for o, lab in zip(outs, labels, strict=True)]).cpu().numpy(), np.concatenate(labels)
 
 
 def validate(cfg, state: FinetuneState, val, batch_size: int, device: torch.device,
@@ -264,9 +280,12 @@ def write_eval(save_dir: str, cfg, report: dict, labels: np.ndarray, out: np.nda
     """``<task>_eval.json`` under ``save_dir`` first, then the task's plots
     (``eval.reporting``, which needs matplotlib): BreastPathQ's scatter and
     Bland-Altman plots for each pairing of predictions (M) and raters (A, B),
-    the other tasks' confusion matrix.  Returns the JSON's path."""
-    os.makedirs(save_dir, exist_ok=True)
+    the other tasks' confusion matrix.  Returns the JSON's path; only the
+    primary process writes."""
     path = os.path.join(save_dir, f"{cfg.name}_eval.json")
+    if not is_primary():
+        return path
+    os.makedirs(save_dir, exist_ok=True)
     with open(path, "w") as f:
         json.dump(report, f, indent=2, default=float)
     print(json.dumps(report, indent=2, default=float))
@@ -312,6 +331,8 @@ def run(args, cfg, train, val) -> FinetuneState:
     device = resolve_device(args)
     gen = seed_everything(args.seed, device)
     batch_size = args.batch_size or cfg.batch_size
+    rows = cfg.rows_per_step(batch_size)
+    rows_for_batch(rows)  # an indivisible batch fails before the first step
     n_steps_per_epoch = steps_per_epoch(cfg, train, batch_size)
     if len(val) == 0:
         raise SystemExit("empty validation set -- raise --validation_split or pass --val_path")
@@ -335,9 +356,9 @@ def run(args, cfg, train, val) -> FinetuneState:
         seen = 0
         batches = train_batches(cfg, train, batch_size, args.seed + epoch)
         for bi, (imgs, labels) in enumerate(prefetch_to_device(batches, device)):
-            m = S.finetune_step(state, imgs, labels, gen, cfg.task, bf16=args.bf16)
-            loss_sum += m["loss"] * len(labels)
-            seen += len(labels)
+            m = S.finetune_step(state, imgs, labels, gen, cfg.task, bf16=args.bf16, global_batch=rows)
+            loss_sum += m["loss"] * rows
+            seen += rows
             if (bi + 1) % args.print_freq == 0:
                 print(f"Train: [{epoch}][{bi + 1}] loss {float(m['loss']):.4f} ({float(loss_sum) / seen:.4f})")
         train_loss = float(loss_sum) / max(seen, 1)

@@ -16,7 +16,12 @@ the reference (``'model'`` and ``'classifier'``), whose 2-way head is
 loaded (the reference leaves it random, test_Camelyon16.py:126-127).
 ``--reference_exact`` turns bf16 off; ``--remat`` and ``--aug_mode`` are
 accepted as the JAX CLI accepts them: an eval forward keeps no activations
-for a backward pass and augments nothing.  The JAX CLI's mesh is not carried: one device (ROADMAP.md).
+for a backward pass and augments nothing.
+
+On N cards: ``python3 -m torch.distributed.run --nproc_per_node N -m
+ssl_cr_histo_tpu_torch.cli.heatmap ...``; each process forwards its rows of
+every batch, every process holds the whole map, and the primary writes the
+artifacts (the JAX CLI's sharded patch grid, ``cli/heatmap.py:68-115``).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import numpy as np
 from ssl_cr_histo_tpu_torch.cli.common import add_common_args, apply_reference_exact, resolve_device, seed_everything
 from ssl_cr_histo_tpu_torch.data.wsi import open_slide
 from ssl_cr_histo_tpu_torch.eval.heatmap import compute_probs_map, pair_wsi_masks, save_heatmap_artifacts
+from ssl_cr_histo_tpu_torch.parallel.distributed import is_primary
 from ssl_cr_histo_tpu_torch.parallel import steps as S
 from ssl_cr_histo_tpu_torch.train.init import init_serving_state
 
@@ -76,6 +82,8 @@ def main(argv=None) -> dict:
         maps[wsi_id] = compute_probs_map(reader, mask, forward, device, image_size=image_size,
                                          batch_size=args.batch_size)
         secs = time.time() - t0
+        if not is_primary():  # every process holds the whole map
+            continue
         bar = save_heatmap_artifacts(maps[wsi_id], args.probs_map_path, wsi_id)
         print(f"==> {wsi_id}: {n} patches in {secs:.2f} s ({n / max(secs, 1e-9):.1f} patches/s); wrote "
               f"{args.probs_map_path}/{wsi_id}*" + ("" if bar else " (no colour-bar figure: matplotlib is not "

@@ -24,6 +24,11 @@ triplet under each of the 6 orderings), ``--cache_tiles`` keeps every read
 triplet in host memory across epochs, and ``--tsne`` writes the best epoch's
 train features with their t-SNE plot and, at the end, ``tsne.png`` of the
 validation features under all 6 orderings.
+
+On N cards: ``python3 -m torch.distributed.run --nproc_per_node N -m
+ssl_cr_histo_tpu_torch.cli.pretrain ...``; every process reads the same
+batches and trains on its ``--batch_size / N`` triplets of each
+(``parallel.distributed``), and the primary writes.
 """
 
 from __future__ import annotations
@@ -45,7 +50,9 @@ from ssl_cr_histo_tpu_torch.cli.common import (
 )
 from ssl_cr_histo_tpu_torch.data import ReaderCache, RSPTripletSampler, TripletIndex
 from ssl_cr_histo_tpu_torch.data.pipeline import pad_batches, prefetch_to_device
+from ssl_cr_histo_tpu_torch.parallel import distributed as D
 from ssl_cr_histo_tpu_torch.parallel import steps as S
+from ssl_cr_histo_tpu_torch.parallel.mesh import rows_for_batch
 from ssl_cr_histo_tpu_torch.train.checkpoint import save_checkpoint
 from ssl_cr_histo_tpu_torch.train.init import init_triplet_state
 from ssl_cr_histo_tpu_torch.train.loop import BestTracker, CsvLogger, lookahead_epoch
@@ -136,6 +143,8 @@ def save_best_features(save_dir: str, epoch: int, feats: list, targets: list) ->
     ``best_tsne_feats_<epoch>.png``."""
     from ssl_cr_histo_tpu_torch.eval.reporting import save_tsne_plot
 
+    if not D.is_primary():
+        return
     f, t = np.concatenate(feats), np.concatenate(targets)
     np.save(os.path.join(save_dir, f"best_pre_trained_feats_{epoch}.npy"), f)
     np.save(os.path.join(save_dir, f"best_pre_trained_targets_{epoch}.npy"), t)
@@ -144,18 +153,21 @@ def save_best_features(save_dir: str, epoch: int, feats: list, targets: list) ->
 
 def save_val_tsne(args, state, sampler, val_positions, readers, tile_cache, device) -> None:
     """``tsne.png`` of every validation triplet's features under each of the
-    6 orderings, labelled by ordering (``cli/pretrain.py:339-361``)."""
+    6 orderings, labelled by ordering (``cli/pretrain.py:339-361``),
+    gathered from every process and drawn by the primary."""
     from ssl_cr_histo_tpu_torch.eval.reporting import save_tsne_plot
 
     feats, targets = [], []
     vb = sampler.iter_batches(val_positions, args.batch_size, seed=0, drop_last=False, readers=readers,
                               tile_cache=tile_cache, read_workers=args.read_workers)
-    for tiles, valid in prefetch_to_device(pad_batches(vb, args.batch_size), device):
+    for tiles, valid in prefetch_to_device(pad_batches(vb, args.batch_size, D.process_count()), device):
         f = S.pretrain_eval_step(state, tiles, valid, bf16=args.bf16, return_feats=True)["feats"]
-        keep = valid.bool()
+        keep = D.fetch_global(valid).bool()
         for label in range(6):
             feats.append(f[label][keep].float().cpu().numpy())
             targets.append(np.full(int(keep.sum()), label, np.int32))
+    if not D.is_primary():
+        return
     save_tsne_plot(np.concatenate(feats), np.concatenate(targets), os.path.join(args.save_dir, "tsne.png"))
     print("==> saved t-SNE plot")
 
@@ -167,6 +179,7 @@ def main(argv=None):
     if args.tile_h != args.tile_w:
         raise SystemExit("non-square tiles are not supported (tile_h != tile_w)")
     device = resolve_device(args)
+    rows_for_batch(args.batch_size)  # an indivisible batch fails before the slides are indexed
     gen = seed_everything(args.seed, device)
     # the tables of the PyTorch-op policies (v2, v1 exact) are drawn on the
     # host, their groups formed there (``ops.randaugment.stage_groups``)
@@ -219,8 +232,9 @@ def main(argv=None):
         # one (``cli/pretrain.py:302-304``); the order and seeds are the
         # sampler's, and under --expand_orderings its labels ride along
         for bi, (tiles, *labels) in enumerate(prefetch_to_device(batches, device)):
-            m = S.pretrain_step(state, tiles, gen, labels=labels[0] if labels else None, **step_kwargs)
-            n = tiles.shape[0]
+            m = S.pretrain_step(state, tiles, gen, labels=labels[0] if labels else None,
+                                global_batch=args.batch_size, **step_kwargs)
+            n = args.batch_size
             loss_sum += m["loss"] * n
             acc_sum += m["acc"] * n
             seen += n
@@ -242,7 +256,7 @@ def main(argv=None):
         sums = {k: torch.zeros((), device=device) for k in ("loss_sum", "correct", "count")}
         vb = sampler.iter_batches(val_positions, args.batch_size, seed=0, drop_last=False,
                                   readers=readers, tile_cache=tile_cache, read_workers=args.read_workers)
-        for tiles, valid in prefetch_to_device(pad_batches(vb, args.batch_size), device):
+        for tiles, valid in prefetch_to_device(pad_batches(vb, args.batch_size, D.process_count()), device):
             out = S.pretrain_eval_step(state, tiles, valid, bf16=args.bf16)
             for k in sums:
                 sums[k] += out[k]

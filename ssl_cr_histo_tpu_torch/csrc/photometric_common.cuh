@@ -217,12 +217,13 @@ __device__ __forceinline__ void hed_shift(float r, float g, float b, const TileP
 }
 
 // Stages 1-3 on one pixel, in place: (y, x) is the pixel's folded
-// coordinate in tile n, which keys its noise.  With a non-null `noise`
-// ((n, 3, h, w) float32) the noise is read at noise[n, c, y, x] instead of
-// drawn.
+// coordinate in tile n, and its noise is drawn at Philox counter
+// (x, y, ctr_n, 0) (ctr_n is n plus the launch's first tile's index in the
+// global batch).  With a non-null `noise` ((n, 3, h, w) float32) the noise
+// is read at noise[n, c, y, x] instead of drawn.
 __device__ __forceinline__ void pointwise_stages(float rgb[3], const TileParams& tp, const HedMats& m,
                                                  const float* __restrict__ noise, uint32_t seed,
-                                                 int n, int h, int w, int y, int x) {
+                                                 int n, int ctr_n, int h, int w, int y, int x) {
   float r = rgb[0], g = rgb[1], b = rgb[2];
   if (tp.hsv) hsv_shift(r, g, b, tp);
 
@@ -235,7 +236,7 @@ __device__ __forceinline__ void pointwise_stages(float rgb[3], const TileParams&
       nz[1] = noise[base + plane];
       nz[2] = noise[base + 2 * plane];
     } else {
-      philox_normal3(seed, n, y, x, nz);
+      philox_normal3(seed, ctr_n, y, x, nz);
     }
     add_noise(r, g, b, nz, tp.sigma);
   }

@@ -101,6 +101,10 @@ struct Consts {
   float inv_std[3];
   float shift[3];  // -mean * inv_std
   int perm[6][3];  // ops/rsp_augment_kernel.py::RSP_PERMUTATIONS
+  // index of the launch's tile 0 in the global batch: the Philox counter's
+  // tile word, so that a process's rows of a data-parallel batch draw the
+  // noise a launch over the whole batch draws for them
+  int tile0;
 };
 
 // The tile's warp plan and what the block derives from it.
@@ -299,8 +303,8 @@ __device__ __forceinline__ void walk_step(WalkCache& q, const BlockShared& sh, c
 // whenever the next pixel's pass-2 taps land on them.
 template <int H, int W>
 __device__ __forceinline__ void warp_region(Span s, const BlockShared& sh, const HedMats& mats,
-                                            const float* __restrict__ noise, uint32_t seed, int n, int y0,
-                                            int x0, int lo) {
+                                            const float* __restrict__ noise, uint32_t seed, int n, int ctr_n,
+                                            int y0, int x0, int lo) {
   const WarpPlan w = sh.wp;
   const int lines = w.swap ? H : W, len = w.swap ? W : H;
   const int segs = max(1, kThreads / lines);
@@ -318,7 +322,7 @@ __device__ __forceinline__ void warp_region(Span s, const BlockShared& sh, const
     const int r = fold101(walk0 + hw, w.size);
     float v[3];
     walk_step(cache, sh, w, apc, dc, r, v);
-    pointwise_stages(v, sh.tp, mats, noise, seed, n, w.size, w.size, w.swap ? c : r, w.swap ? r : c);
+    pointwise_stages(v, sh.tp, mats, noise, seed, n, ctr_n, w.size, w.size, w.swap ? c : r, w.swap ? r : c);
     const int hy = w.swap ? hl : hw, hx = w.swap ? hw : hl;
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) s[ch][hy][hx] = v[ch];
@@ -446,7 +450,7 @@ rsp_augment_kernel(const uint8_t* __restrict__ src, const float* __restrict__ ma
   const int x0 = blockIdx.x * kPatchW, y0 = blockIdx.y * kPatchH;
   // Gates are uniform per tile: these branches do not diverge.
   if (sh.tp.blur) {
-    warp_region<kSpanH, kSpanW>(s, sh, k.mats, noise, seed, n, y0, x0, 0);
+    warp_region<kSpanH, kSpanW>(s, sh, k.mats, noise, seed, n, n + k.tile0, y0, x0, 0);
     __syncthreads();
     switch (sh.tp.half) {  // k = 3, 5, 7 -> 1, 2, 3
       case 0: output_pass<0>(s, sh, k, out, n, size, y0, x0, kHalo); break;
@@ -455,7 +459,7 @@ rsp_augment_kernel(const uint8_t* __restrict__ src, const float* __restrict__ ma
       default: blur_and_output<3>(s, sh, k, out, n, size, y0, x0); break;
     }
   } else {
-    warp_region<kPatchH, kPatchW>(s, sh, k.mats, noise, seed, n, y0, x0, kHalo);
+    warp_region<kPatchH, kPatchW>(s, sh, k.mats, noise, seed, n, n + k.tile0, y0, x0, kHalo);
     __syncthreads();
     output_pass<0>(s, sh, k, out, n, size, y0, x0, kHalo);
   }
@@ -478,16 +482,18 @@ int launch(const uint8_t* src, const float* mats, const int32_t* order, const fl
 // int32 ordering indices in [0, 6), or null for the identity ordering;
 // noise: (n, 3, size, size) float32 or null (Philox mode); seeds: (n,)
 // int32; params: (n, 16) float32; out: (n, 3, size, size), bfloat16 if
-// out_bf16 else float32; plan_out: (n, 8) float32 or null, receives each
-// tile's warp plan.  Every device array is contiguous; n is a multiple of 3.
+// out_bf16 else float32; tile0: the index of tile 0 in the global batch
+// whose rows these are (0 for a whole batch), the Philox counter's tile
+// word; plan_out: (n, 8) float32 or null, receives each tile's warp plan.  Every device array is contiguous; n is a multiple of 3.
 // host_consts: 24 floats in host memory, HED_FROM_RGB and RGB_FROM_HED
 // (row-major), then mean[3] and std[3]; host_perms: 18 int32 in host memory,
 // the six orderings.  Returns a cudaError_t as int (0 on success).
 extern "C" int launch_rsp_augment(const uint8_t* src, const float* mats, const int32_t* order,
                                   const float* noise, const int32_t* seeds, const float* params, void* out,
-                                  int out_bf16, int n, int size, const float* host_consts,
+                                  int out_bf16, int n, int size, int tile0, const float* host_consts,
                                   const int32_t* host_perms, float* plan_out, void* stream) {
   Consts k;
+  k.tile0 = tile0;
   for (int i = 0; i < 9; ++i) {
     k.mats.hed_from_rgb[i] = host_consts[i];
     k.mats.rgb_from_hed[i] = host_consts[9 + i];

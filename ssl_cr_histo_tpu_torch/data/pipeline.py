@@ -3,7 +3,9 @@
 Counterpart of the parts of ``ssl_cr_histo_tpu/data/pipeline.py`` that the
 ported slices use (that module imports jax): epoch order, padding, and a
 thread that runs a host iterator ahead of the consumer.  Samplers and
-datasets ship raw uint8 batches; augmentation runs on the device.
+datasets ship raw uint8 batches; augmentation runs on the device.  Under
+data parallelism every process iterates the same host batches and feeds its
+own rows of each (``parallel.distributed.put_sharded``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import Iterable, Iterator
 
 import numpy as np
 import torch
+
+from ssl_cr_histo_tpu_torch.parallel.distributed import local_rows
 
 
 def epoch_indices(n: int, batch_size: int, shuffle: bool = True, seed: int = 0,
@@ -36,17 +40,22 @@ def batch_iterator(arrays, batch_size: int, shuffle: bool = True, seed: int = 0,
         yield tuple(a[sel] for a in arrays)
 
 
-def pad_batches(it: Iterable, batch_size: int) -> Iterator:
-    """Zero-pad trailing partial batches to ``batch_size``, yielding
-    (batch, valid) with a float32 validity mask (``pipeline.py:49-73``).
-    Batches may be arrays or tuples of batch-aligned arrays."""
+def pad_batches(it: Iterable, batch_size: int = 0, multiple: int = 1) -> Iterator:
+    """Zero-pad short batches to ``batch_size`` rows (0: their own length),
+    and then to a multiple of ``multiple`` rows (the process count, so that
+    every process gets equal rows, as JAX's ``pad_batches`` and
+    ``put_sharded`` do, ``pipeline.py:49-73``), yielding (batch, valid) with a
+    float32 validity mask.  Batches may be arrays or tuples of batch-aligned
+    arrays."""
     for batch in it:
         is_tuple = isinstance(batch, tuple)
         parts = batch if is_tuple else (batch,)
         b = len(parts[0])
-        valid = np.ones(batch_size, np.float32)
-        if b != batch_size:
-            pad = batch_size - b
+        rows = max(b, batch_size)
+        rows += -rows % multiple
+        valid = np.ones(rows, np.float32)
+        if b != rows:
+            pad = rows - b
             parts = tuple(
                 np.concatenate([p, np.zeros((pad, *np.shape(p)[1:]), np.asarray(p).dtype)])
                 for p in parts
@@ -126,14 +135,16 @@ def prefetch_iter(it: Iterable, size: int = 2, map_fn=None) -> Iterator:
 
 
 def prefetch_to_device(it: Iterable, device: torch.device, size: int = 2) -> Iterator:
-    """Device tensors of the array tuples ``it`` yields.  A thread runs
-    ``it`` (decoding and stacking a batch) and copies each batch into pinned
-    memory ``size`` batches ahead; the consumer's thread starts each copy to
-    the GPU without blocking (the JAX CLI's ``prefetch_to_device``)."""
+    """Device tensors of this process's rows of the array tuples ``it``
+    yields, each a host-replicated global batch (``put_sharded``'s rows;
+    the whole batch in one process).  A thread runs ``it`` (decoding and
+    stacking a batch), keeps the rows and copies them into pinned memory
+    ``size`` batches ahead; the consumer's thread starts each copy to the
+    GPU without blocking (the JAX CLI's ``prefetch_to_device``)."""
     pinned = device.type == "cuda"
 
     def host(batch):
-        ts = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in batch)
+        ts = tuple(torch.from_numpy(np.ascontiguousarray(local_rows(a))) for a in batch)
         return tuple(t.pin_memory() for t in ts) if pinned else ts
 
     for batch in prefetch_iter(it, size=size, map_fn=host):

@@ -189,7 +189,9 @@ class RSPTripletSampler:
         if cache_dir:
             try:
                 os.makedirs(cache_dir, exist_ok=True)
-                probe = os.path.join(cache_dir, ".w")
+                # one probe a process: the processes of a data-parallel
+                # run index at once
+                probe = os.path.join(cache_dir, f".w{os.getpid()}")
                 with open(probe, "w"):
                     pass
                 os.remove(probe)

@@ -21,6 +21,12 @@ The last batch is short: the forward is eval mode, so each patch's logits
 depend on that patch alone, and padding (a TPU compile concern) would not
 change the map.
 
+Under data parallelism (``parallel.distributed``) every process reads every
+batch, forwards its rows of it (the last batch zero-padded to a multiple of
+the process count) and gathers the logits (``fetch_global``), as the JAX
+CLI's ``put_fn`` and ``fetch_global`` do (``cli/heatmap.py:68-115``): the
+map comes out whole on every process.
+
 Reference behaviour kept as the JAX package keeps it: pixels are
 normalised as in training (the reference feeds raw 0..255 floats at test
 time, dataset.py:994), and the trained head is loaded (the reference leaves
@@ -38,6 +44,7 @@ import torch
 
 from ssl_cr_histo_tpu_torch.data.pipeline import prefetch_iter
 from ssl_cr_histo_tpu_torch.data.wsi import PyramidReader
+from ssl_cr_histo_tpu_torch.parallel.distributed import fetch_global, process_count, put_sharded
 
 # matplotlib's 'jet' (matplotlib/_cm.py ``_jet_data``): (x, y0, y1) per channel
 _JET = {
@@ -142,14 +149,20 @@ def compute_probs_map(reader: PyramidReader, mask: np.ndarray, forward_fn: Calla
 
     forward_fn: uint8 (b, S, S, 3) patches on ``device`` -> (b, 2) float32
     logits on ``device``, issued without waiting for the card (such as
-    ``parallel.steps.forward``).  The pipeline is the module docstring's."""
+    ``parallel.steps.forward``); under data parallelism it gets this
+    process's rows.  The pipeline is the module docstring's."""
     x_idcs, y_idcs, resolution = mask_work_list(reader, mask)
     probs_map = np.zeros(mask.shape, np.float32)
     pinned = device.type == "cuda"
     batches = iter_patch_batches(reader, x_idcs, y_idcs, resolution, image_size, batch_size, pinned)
     pending = None
+    world = process_count()
     for patches, xs, ys in prefetch_iter(batches, size=PREFETCH):
-        issued = (*_to_host(forward_fn(patches.to(device, non_blocking=pinned))), xs, ys)
+        b = len(patches)
+        if b % world:
+            patches = torch.cat([patches, patches.new_zeros((-b % world, *patches.shape[1:]))])
+        logits = fetch_global(forward_fn(put_sharded(patches, device, non_blocking=pinned)))[:b]
+        issued = (*_to_host(logits), xs, ys)
         if pending is not None:
             _drain(pending, probs_map)
         pending = issued

@@ -11,6 +11,13 @@ by ``momentum``, flax weights the old running value by it.  Convs pad
 symmetrically by (k-1)//2, as torch and the JAX package's explicit padding
 both do.
 
+BatchNorm takes its training statistics over the global batch: under an
+initialised world of more than one process (``parallel.distributed``),
+``GlobalBatchNorm2d`` combines every process's per-channel statistics and
+sums its backward's two reductions across them, as the JAX step normalises
+over the whole array it shards under pjit (PARITY.md C23).  At world 1 it is
+``nn.BatchNorm2d``.
+
 ``remat`` recomputes each residual block's activations in the backward pass
 instead of keeping them (``resnet.py:123-137``, ``nn.remat`` per block):
 ``torch.utils.checkpoint`` without re-entry, autocast restored for the
@@ -26,6 +33,7 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -34,8 +42,86 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, stride, (k - 1) // 2, bias=False)
 
 
+class _GlobalBatchNormFn(torch.autograd.Function):
+    """Train-mode batch normalisation over the global batch of every
+    process: forward returns (normalised, affine) x and the global batch's
+    mean, biased variance and count; backward sums its two per-channel
+    reductions over the processes.  Math in float32 (float64 for a float64
+    input), output in the input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        world, rank = dist.get_world_size(), dist.get_rank()
+        xa = x.to(torch.promote_types(x.dtype, torch.float32))
+        c = x.shape[1]
+        # each process's (count, mean, biased variance) in its row of a
+        # zero-filled (world, 2C + 1) table; one all-reduce gathers the table
+        # and every process combines it in rank order (Chan et al.'s
+        # pairwise update): the same statistics bit for bit everywhere, and
+        # no E[x^2] - mean^2 cancellation
+        var_r, mean_r = torch.var_mean(xa, dim=(0, 2, 3), correction=0)
+        table = xa.new_zeros((world, 2 * c + 1))
+        table[rank, 0] = x.numel() // c
+        table[rank, 1:c + 1] = mean_r
+        table[rank, c + 1:] = var_r
+        dist.all_reduce(table)
+        n_r, means, vars_ = table[:, :1], table[:, 1:c + 1], table[:, c + 1:]
+        n = n_r.sum()
+        mean = (n_r * means).sum(0) / n
+        var = (n_r * (vars_ + (means - mean) ** 2)).sum(0) / n
+        invstd = torch.rsqrt(var + eps)
+        view = (1, c, 1, 1)
+        xhat = (xa - mean.view(view)) * invstd.view(view)
+        ctx.save_for_backward(xhat, weight, invstd)
+        ctx.count = n
+        ctx.mark_non_differentiable(mean, var, n)
+        y = xhat * weight.to(xa.dtype).view(view) + bias.to(xa.dtype).view(view)
+        return y.to(x.dtype), mean, var, n
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar, _dn):
+        xhat, weight, invstd = ctx.saved_tensors
+        da = dy.to(xhat.dtype)
+        c = xhat.shape[1]
+        view = (1, c, 1, 1)
+        local = torch.stack([da.sum((0, 2, 3)), (da * xhat).sum((0, 2, 3))])
+        # the affine parameters' gradients stay this process's sums: the
+        # step's gradient average takes them over the processes
+        d_bias, d_weight = local[0].to(weight.dtype), local[1].to(weight.dtype)
+        total = local.clone()
+        dist.all_reduce(total)
+        n = ctx.count
+        dx = (weight.to(da.dtype) * invstd).view(view) * (
+            da - (total[0] / n).view(view) - xhat * (total[1] / n).view(view))
+        return dx.to(dy.dtype), d_weight, d_bias, None
+
+
+class GlobalBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode statistics span every process's
+    rows of the global batch.  In eval mode, and at world 1 or with no world
+    initialised, it is ``F.batch_norm`` exactly.  Otherwise the forward
+    combines the processes' per-channel statistics with one all-reduce and
+    the backward sums its two gradient reductions with another; the running
+    statistics follow ``nn.BatchNorm2d`` over the global count (the variance
+    unbiased by n / (n - 1) of the global n).  Not ``nn.SyncBatchNorm``,
+    which takes CUDA tensors only."""
+
+    def forward(self, x):
+        if not (self.training and dist.is_initialized() and dist.get_world_size() > 1):
+            return super().forward(x)
+        with torch.autocast(x.device.type, enabled=False):
+            y, mean, var, n = _GlobalBatchNormFn.apply(x, self.weight, self.bias, self.eps)
+        if self.track_running_stats:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+                self.running_var.mul_(1 - m).add_((var * n / (n - 1)).to(self.running_var.dtype), alpha=m)
+        return y
+
+
 def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+    return GlobalBatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
 class BasicBlock(nn.Module):

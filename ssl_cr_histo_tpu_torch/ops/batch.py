@@ -7,11 +7,23 @@ hand-written kernel from the uint8 triplets to the normalized planar batch
 (fused, masked, exact); the fine-tune 3-view stack; the weak/strong
 consistency views (fused, fast, masked, exact).  All but the fused v1 pool
 are PyTorch ops, as they are XLA ops in the JAX package.
+
+Data parallelism: every entry point takes ``shard`` = (offset, total), which
+says that its images are rows [offset, offset + b) of a global batch of
+``total`` (``parallel.mesh.rows_for_batch``).  It then draws for the whole
+global batch, from generators whose states are equal on every process, and
+keeps the draws of its own rows (``take_rows``), so each process's views are
+the rows of the views one process would make of the global batch, and the
+generators stay equal everywhere.  Injected ``draws`` are the global
+batch's too.  Where a draw is a device noise field, each process draws the
+whole batch's fields and keeps its own: N processes each draw N times
+their rows' normals (at v1 exact pretraining's 64 triplets of 256^2, the
+whole batch's 151 MB of float32 normals a step on every process).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -25,6 +37,22 @@ AUG_MODES = ("fused", "fast", "masked", "exact")
 # The reference scales by /255 only (ToTensor): mean 0, std 1.
 DEFAULT_MEAN = (0.0, 0.0, 0.0)
 DEFAULT_STD = (1.0, 1.0, 1.0)
+
+
+def take_rows(draws: dict, start: int, stop: int, keys: Sequence[str]) -> dict:
+    """``draws`` with each of ``keys`` (where present and not None) cut to
+    rows [start, stop); the other entries as they are."""
+    return {k: (v[start:stop] if k in keys and v is not None else v) for k, v in draws.items()}
+
+
+def _shard(shard: "Tuple[int, int] | None", b: int) -> Tuple[int, int]:
+    """(offset, total) of ``b`` local rows; the whole batch when None."""
+    if shard is None:
+        return 0, b
+    offset, total = shard
+    if not 0 <= offset <= total - b:
+        raise ValueError(f"rows [{offset}, {offset + b}) outside a global batch of {total}")
+    return offset, total
 
 
 def to_float(img_u8: torch.Tensor) -> torch.Tensor:
@@ -63,7 +91,8 @@ def augment_rsp_batch_v1(gen: torch.Generator, triplets_u8: torch.Tensor, mode: 
                          draws: Optional[dict] = None, mean=DEFAULT_MEAN, std=DEFAULT_STD,
                          out_dtype: torch.dtype = torch.float32,
                          order: Optional[torch.Tensor] = None,
-                         host_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                         host_gen: Optional[torch.Generator] = None,
+                         shard: "Tuple[int, int] | None" = None) -> torch.Tensor:
     """v1 RSP pretraining augmentation, clipped and normalized
     (``batch.py:40-74``, then ``normalize_batch``): mode 'fused', the
     composed warp and the photometric chain in one kernel, and 'fast' and
@@ -79,19 +108,24 @@ def augment_rsp_batch_v1(gen: torch.Generator, triplets_u8: torch.Tensor, mode: 
     from ``gen`` when None, and the Philox seeds always are.  ``order``
     (B,) reorders each triplet by ``RSP_PERMUTATIONS[order[b]]`` before the
     augmentation (the draws stay with the output slots); None keeps the
-    tiles in the given order.  In fused mode CUDA tensors run the fused
-    kernel, CPU tensors its plain version.
+    tiles in the given order.  ``shard``: see the module docstring; the
+    seeds too are the global batch's.  In fused mode CUDA tensors run the
+    fused kernel, CPU tensors its plain version.
     """
     if mode not in AUG_MODES:
         raise ValueError(f"unknown aug mode {mode!r}")
     b, t, h, _, _ = triplets_u8.shape
+    offset, total = _shard(shard, b)
+    a, e = offset * t, (offset + b) * t
     if mode == "exact":
         if draws is None:
-            draws = RA.draw_pretrain_v1(gen, b, h, host_gen=host_gen, tiles=t)
+            draws = RA.draw_pretrain_v1(gen, total, h, host_gen=host_gen, tiles=t)
+        draws = take_rows(take_rows(draws, offset, offset + b, ("order",)), a, e, ("params", "noise"))
         return _finish(RA.pretrain_augment_v1(_planar_tiles(triplets_u8, order), draws), b, mean, std, out_dtype)
     if draws is None:
-        draws = draw_rsp_v1(gen, b * t, h)
-    seeds = PK.draw_seeds(gen, b * t)
+        draws = draw_rsp_v1(gen, total * t, h)
+    draws = take_rows(draws, a, e, ("geo", "params", "noise"))
+    seeds = PK.draw_seeds(gen, total * t)[a:e]
     if triplets_u8.is_cuda:
         fn = RK.rsp_augment_cuda
         if order is not None:
@@ -101,13 +135,14 @@ def augment_rsp_batch_v1(gen: torch.Generator, triplets_u8: torch.Tensor, mode: 
     else:
         raise ValueError(f"no v1 augmentation for device {triplets_u8.device}")
     return fn(triplets_u8, draws["geo"], draws["params"], seeds, draws["noise"], mean, std, out_dtype,
-              order=order)
+              order=order, tile0=a)
 
 
 def augment_rsp_batch_v2(gen: torch.Generator, triplets_u8: torch.Tensor, n: int = 2, m: float = 3.0,
                          mode: str = "fused", draws: Optional[dict] = None, mean=DEFAULT_MEAN, std=DEFAULT_STD,
                          out_dtype: torch.dtype = torch.float32,
-                         order: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         order: Optional[torch.Tensor] = None,
+                         shard: "Tuple[int, int] | None" = None) -> torch.Tensor:
     """v2 RSP pretraining augmentation, RandAugment(n, m) drawn per tile,
     clipped and normalized (``batch.py:83-102``): mode 'fused', the
     composed policy (``fused.randaugment_v2_fused``); 'fast' and 'masked',
@@ -116,12 +151,15 @@ def augment_rsp_batch_v2(gen: torch.Generator, triplets_u8: torch.Tensor, n: int
     ``order`` first as in ``augment_rsp_batch_v1`` (the draws stay with the
     output slots), -> (B, T, 3, H, W) in ``out_dtype``.  ``draws`` (see
     ``RA.draw_v2``) injects the draws; they are drawn from ``gen``, a CPU
-    generator, when None.  PyTorch ops on any device."""
+    generator, when None; ``shard``: see the module docstring.  PyTorch
+    ops on any device."""
     if mode not in AUG_MODES:
         raise ValueError(f"unknown aug mode {mode!r}")
     b, t = triplets_u8.shape[:2]
+    offset, total = _shard(shard, b)
     if draws is None:
-        draws = RA.draw_v2(gen, b * t, n, m, masked=mode in ("fast", "masked"))
+        draws = RA.draw_v2(gen, total * t, n, m, masked=mode in ("fast", "masked"))
+    draws = take_rows(draws, offset * t, (offset + b) * t, ("ops", "present", "vals", "params"))
     pool = RA.randaugment_v2 if mode == "exact" else fused.randaugment_v2_fused
     return _finish(pool(_planar_tiles(triplets_u8, order), draws), b, mean, std, out_dtype)
 
@@ -148,7 +186,7 @@ def draw_3view(gen: torch.Generator, b: int, size: int) -> dict:
 
 
 def augment_3view_batch(gen: torch.Generator, imgs_u8: torch.Tensor,
-                        draws: Optional[dict] = None) -> torch.Tensor:
+                        draws: Optional[dict] = None, shard: "Tuple[int, int] | None" = None) -> torch.Tensor:
     """The supervised fine-tune 3-view stack (``batch.py:105-133``):
     [identity, rotated, rotated + resized to (S+20)^2 + cropped to S^2] per
     image, each rotation applied at p = 0.5 with reflect-101 borders, the
@@ -157,11 +195,14 @@ def augment_3view_batch(gen: torch.Generator, imgs_u8: torch.Tensor,
     imgs_u8: (B, H, W, 3) uint8 with H == W.  Returns (B, 3, 3, H, W)
     float32, channel-planar.  ``draws`` (see ``draw_3view``) injects the
     angles, coins, crop offsets and permutations; they are drawn from
-    ``gen`` when None.  Framework ops on any device: the JAX package runs
-    this with XLA ops too, no Pallas kernel."""
+    ``gen`` when None; ``shard``: see the module docstring.  Framework ops
+    on any device: the JAX package runs this with XLA ops too, no Pallas
+    kernel."""
     b, s = imgs_u8.shape[0], imgs_u8.shape[1]
+    offset, total = _shard(shard, b)
     if draws is None:
-        draws = draw_3view(gen, b, s)
+        draws = draw_3view(gen, total, s)
+    draws = take_rows(draws, offset, offset + b, ("angles", "rotate", "crop", "perm"))
     dev = imgs_u8.device
     d = {k: v.to(dev) for k, v in draws.items()}
     v1 = to_float(imgs_u8).permute(0, 3, 1, 2)
@@ -236,21 +277,31 @@ def draw_transform_fix(gen: torch.Generator, b: int, size: int, n: int = 7, m: i
 
 def transform_fix_batch(gen: torch.Generator, imgs_u8: torch.Tensor, n: int = 7, m: int = 10,
                         mode: str = "fused", draws: Optional[dict] = None,
-                        host_gen: Optional[torch.Generator] = None):
+                        host_gen: Optional[torch.Generator] = None,
+                        shard: "Tuple[int, int] | None" = None):
     """Weak and strong views for consistency training (``batch.py:136-160``):
     (B, H, W, 3) uint8 with H == W -> (weak, strong), each float32
     channel-planar (B, 3, H, W) clipped to [0, 1], on the device of
     ``imgs_u8``.  ``draws`` (see ``draw_transform_fix``) injects the draws;
-    they are drawn from ``gen`` and ``host_gen`` for ``mode`` when None.
-    The strong pool by mode: 'fused', 'fast' and 'masked' composed
+    they are drawn from ``gen`` and ``host_gen`` for ``mode`` when None;
+    ``shard``: see the module docstring (the noise fields kept are those of
+    the rows' noise stages).  The strong pool by mode: 'fused', 'fast' and 'masked' composed
     (``fused.randaugment_v1_fused``, their laws differ in the draws),
     'exact' op by op (``RA.randaugment_v1``).  PyTorch ops on any device,
     as the JAX package uses XLA ops: no Pallas kernel."""
     if mode not in AUG_MODES:
         raise ValueError(f"unknown aug mode {mode!r}")
     b, s = imgs_u8.shape[0], imgs_u8.shape[1]
+    offset, total = _shard(shard, b)
     if draws is None:
-        draws = draw_transform_fix(gen, b, s, n, m, host_gen=host_gen, mode=mode)
+        draws = draw_transform_fix(gen, total, s, n, m, host_gen=host_gen, mode=mode)
+    if (offset, total) != (0, b):
+        # the fields are numbered in row-major (image, stage) order
+        owners = ((draws["ops"] == RA.NOISE) & draws.get("present", True)).sum(1)
+        k0 = int(owners[:offset].sum())
+        draws = take_rows(draws, k0, k0 + int(owners[offset:offset + b].sum()), ("noise",))
+        draws = take_rows(draws, offset, offset + b,
+                          ("weak_flip", "strong_flip", "ops", "present", "mags", "params"))
     imgs = to_float(imgs_u8.permute(0, 3, 1, 2).contiguous())
     pool = RA.randaugment_v1 if mode == "exact" else fused.randaugment_v1_fused
     weak, strong = fused.transform_fix_fused(imgs, draws, pool)

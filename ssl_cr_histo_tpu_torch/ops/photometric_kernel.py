@@ -117,9 +117,10 @@ def _uniform_open(bits: torch.Tensor) -> torch.Tensor:
     return ((bits >> 9).to(torch.float32) + 0.5) * (2.0 ** -23)
 
 
-def philox_normal(seeds: torch.Tensor, shape) -> torch.Tensor:
+def philox_normal(seeds: torch.Tensor, shape, tile0: int = 0) -> torch.Tensor:
     """The kernels' per-pixel N(0, 1) noise for (N, 3, H, W) tiles: one
-    Philox call per pixel, keyed on (seed[n], 0) at counter (x, y, n, 0).
+    Philox call per pixel, keyed on (seed[n], 0) at counter (x, y, tile0 +
+    n, 0) (``tile0``: the first tile's index in the global batch).
     Box-Muller on words 0-1 gives channels 0 (cos) and 1 (sin), on words 2-3
     channel 2 (cos), as ``csrc/photometric_common.cuh`` computes them."""
     n, c, h, w = shape
@@ -128,7 +129,7 @@ def philox_normal(seeds: torch.Tensor, shape) -> torch.Tensor:
     dev = seeds.device
     ar = lambda k: torch.arange(k, dtype=torch.int64, device=dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
-    ctr = (ar(w).view(1, 1, w), ar(h).view(1, h, 1), ar(n).view(n, 1, 1), zero)
+    ctr = (ar(w).view(1, 1, w), ar(h).view(1, h, 1), (tile0 + ar(n)).view(n, 1, 1), zero)
     key = (seeds.to(torch.int64).view(n, 1, 1) & _MASK, zero)
     b0, b1, b2, b3 = philox4x32(ctr, key)
     two_pi = 6.283185307179586

@@ -59,7 +59,7 @@ def permute_triplets(tiles: torch.Tensor, perm_idx: torch.Tensor) -> torch.Tenso
 def rsp_augment_plain(triplets_u8: torch.Tensor, mats: torch.Tensor, params: torch.Tensor,
                       seeds: torch.Tensor, noise: "torch.Tensor | None", mean, std,
                       out_dtype: torch.dtype = torch.float32,
-                      order: "torch.Tensor | None" = None) -> torch.Tensor:
+                      order: "torch.Tensor | None" = None, tile0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device.
 
     triplets_u8: (B, 3, S, S, 3) uint8 in the sampler's order; mats: (N, 3, 3)
@@ -67,8 +67,10 @@ def rsp_augment_plain(triplets_u8: torch.Tensor, mats: torch.Tensor, params: tor
     S) standard normal or None (Philox noise from ``seeds``), with N = 3 B;
     order: (B,) ordering indices in [0, 6) (``RSP_PERMUTATIONS`` rows) or
     None for the tiles as given.  Output slot (b, t) augments tile
-    ``(b, PERM[order[b]][t])`` with slot 3 b + t's draws.  Returns
-    (B, 3, 3, S, S) planar in ``out_dtype``.
+    ``(b, PERM[order[b]][t])`` with slot 3 b + t's draws.  ``tile0``: the
+    index of tile 0 in the global batch these rows belong to, which the
+    Philox noise's counter adds to each tile's index.  Returns (B, 3, 3, S,
+    S) planar in ``out_dtype``.
     """
     from ssl_cr_histo_tpu_torch.ops import batch
 
@@ -82,7 +84,7 @@ def rsp_augment_plain(triplets_u8: torch.Tensor, mats: torch.Tensor, params: tor
     imgs = batch.to_float(triplets_u8.reshape(b * t, h, w, 3).permute(0, 3, 1, 2)).contiguous()
     warped = fused.pretrain_geo_warp_planar(imgs, mats)
     if noise is None:
-        noise = PK.philox_normal(seeds, warped.shape)
+        noise = PK.philox_normal(seeds, warped.shape, tile0)
     out = torch.clamp(PK.reference_chain(warped, params, noise), 0.0, 1.0)
     out = batch.normalize_batch(out, mean, std, channel_axis=1)
     return out.to(out_dtype).reshape(b, t, 3, h, w)
@@ -93,7 +95,7 @@ def _library():
 
     fn = build.load_library("rsp_augment").launch_rsp_augment
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
         fn.restype = ctypes.c_int
     return fn
 
@@ -110,7 +112,7 @@ def _host_consts(mean: tuple, std: tuple):
 def rsp_augment_cuda(triplets_u8: torch.Tensor, mats: torch.Tensor, params: torch.Tensor,
                      seeds: torch.Tensor, noise: "torch.Tensor | None", mean, std,
                      out_dtype: torch.dtype = torch.float32, order: "torch.Tensor | None" = None,
-                     plan_out: "torch.Tensor | None" = None) -> torch.Tensor:
+                     plan_out: "torch.Tensor | None" = None, tile0: int = 0) -> torch.Tensor:
     """Launch the fused kernel on CUDA tensors; arguments and result as
     ``rsp_augment_plain``'s, with ``order`` (B,) int32 in [0, 6).  The range
     of ``order`` is not checked here, since that would wait on the card: a
@@ -149,7 +151,7 @@ def rsp_augment_cuda(triplets_u8: torch.Tensor, mats: torch.Tensor, params: torc
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = fn(triplets_u8.data_ptr(), mats.data_ptr(), ptr(order), ptr(noise), seeds.data_ptr(),
-                params.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16), n, h,
+                params.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16), n, h, int(tile0),
                 ctypes.addressof(consts), ctypes.addressof(perms), ptr(plan_out), stream)
     if rc != 0:
         raise RuntimeError(f"rsp_augment kernel launch failed: CUDA error {rc}")

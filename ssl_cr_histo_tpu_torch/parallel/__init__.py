@@ -1,2 +1,2 @@
-"""Train and eval steps (pretraining and fine-tuning).  One GPU so far;
-data parallelism over several GPUs is a later slice (ROADMAP.md)."""
+"""Train and eval steps (``steps``) and data parallelism across processes,
+one a device (``distributed``, ``mesh``)."""

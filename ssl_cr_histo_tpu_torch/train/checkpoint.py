@@ -22,6 +22,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ssl_cr_histo_tpu_torch.parallel.distributed import barrier, is_primary
 from ssl_cr_histo_tpu_torch.train.state import FinetuneState, Teacher, TrainState
 
 Generators = Dict[str, torch.Generator]
@@ -32,14 +33,19 @@ def save_checkpoint(path: str, state: "TrainState | FinetuneState | Teacher", me
     """Write ``path`` (a ``.pth`` file) atomically: the state's
     ``payload()``, ``meta``, and under ``'generators'`` the state of each
     named generator of the run (its augmentation and ordering draws), which
-    ``restore_checkpoint`` puts back."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
-    payload = {**state.payload(), "meta": meta}
-    if generators:
-        payload["generators"] = {name: g.get_state() for name, g in generators.items()}
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    ``restore_checkpoint`` puts back.  Under data parallelism only the
+    primary process writes (``checkpoint.py:38``; the state and the
+    generators are equal on every process), and every process then waits
+    for the others, so that none reads a half-written file."""
+    if is_primary():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp"
+        payload = {**state.payload(), "meta": meta}
+        if generators:
+            payload["generators"] = {name: g.get_state() for name, g in generators.items()}
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    barrier()
 
 
 def latest_checkpoint(base_dir: str) -> Optional[str]:
@@ -63,6 +69,7 @@ def restore_checkpoint(path: str, state: "TrainState | FinetuneState | Teacher",
     load too (a teacher, which has none, takes ``restore_opt=False``).  The
     state of each generator in ``generators`` is set from the checkpoint's
     entry of the same name, so the draws go on where the saved run stopped.
+    Every process of a data-parallel run restores the same file.
     """
     raw = torch.load(path, map_location="cpu", weights_only=False)
     state.model.load_state_dict(raw["model"])

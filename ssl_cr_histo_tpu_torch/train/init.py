@@ -1,5 +1,9 @@
 """State initialization and the stage handoff (counterpart of
-``ssl_cr_histo_tpu/train/init.py``)."""
+``ssl_cr_histo_tpu/train/init.py``).  Under data parallelism every process
+seeds alike, and the initial parameters and buffers are broadcast from the
+primary besides, so that all processes start from one state whatever their
+devices' initialisers do; the modules are not wrapped (no ``module.`` keys,
+and no ``DistributedDataParallel``: see ``parallel.distributed``)."""
 
 from __future__ import annotations
 
@@ -9,9 +13,16 @@ from typing import Callable, Iterable, List
 import torch
 
 from ssl_cr_histo_tpu_torch.models import Classifier, FinetuneHead, TripletNet, feature_dim
+from ssl_cr_histo_tpu_torch.parallel.distributed import broadcast_
 from ssl_cr_histo_tpu_torch.train import optim
 from ssl_cr_histo_tpu_torch.train.freeze import freeze
 from ssl_cr_histo_tpu_torch.train.state import FinetuneState, Teacher, TrainState
+
+
+def _broadcast_modules(*modules: torch.nn.Module) -> None:
+    """Every floating parameter and buffer of ``modules`` set to the
+    primary's, in place (a no-op in one process)."""
+    broadcast_(t.data for m in modules for t in m.state_dict(keep_vars=True).values() if t.is_floating_point())
 
 
 def init_triplet_state(model_name: str, device: torch.device, lr: float = 0.01,
@@ -21,6 +32,7 @@ def init_triplet_state(model_name: str, device: torch.device, lr: float = 0.01,
     torch generator (seed it first), and the Lookahead slow weights."""
     model = TripletNet(model_name, remat=remat).to(device)
     clf = Classifier(feature_dim(model_name), 6).to(device)
+    _broadcast_modules(model, clf)
     params = list(model.parameters()) + list(clf.parameters())
     opt = optim.sgd_nesterov(params, lr, momentum=0.9, weight_decay=weight_decay)
     return TrainState(model, clf, opt, slow=[p.detach().clone() for p in params])
@@ -44,6 +56,7 @@ def init_finetune_state(
     returns."""
     model = TripletNet(model_name, remat=remat).to(device)
     head = FinetuneHead(feature_dim(model_name), num_classes).to(device)
+    _broadcast_modules(model, head)
     freeze(model, modules)
     params = [p for p in model.parameters() if p.requires_grad] + list(head.parameters())
     opt = make_optimizer(params)

@@ -1,8 +1,8 @@
 """Epoch helpers: CSV log, best-validation retention, Lookahead per epoch.
 
 Counterpart of ``ssl_cr_histo_tpu/train/loop.py:20-92`` (whose module
-imports jax through ``train.optim``).  Single process: this slice runs on one
-GPU, so the one process writes.
+imports jax through ``train.optim``).  Under data parallelism only the
+primary process writes (``loop.py:23-33``).
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ import math
 import os
 from dataclasses import dataclass, field
 
+from ssl_cr_histo_tpu_torch.parallel.distributed import is_primary
 from ssl_cr_histo_tpu_torch.train import optim
 from ssl_cr_histo_tpu_torch.train.checkpoint import Generators, save_checkpoint
 from ssl_cr_histo_tpu_torch.train.state import FinetuneState, TrainState
@@ -18,16 +19,22 @@ from ssl_cr_histo_tpu_torch.train.state import FinetuneState, TrainState
 
 class CsvLogger:
     """Append-only CSV with a fixed header (reference
-    pretrain_BreastPathQ.py:272-273, 289-290)."""
+    pretrain_BreastPathQ.py:272-273, 289-290), written by the primary
+    process only."""
 
     def __init__(self, path: str, header: str):
         self.path = path
+        self.primary = is_primary()
+        if not self.primary:
+            return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         if not os.path.exists(path):
             with open(path, "w") as f:
                 f.write(header.rstrip("\n") + "\n")
 
     def append(self, *values):
+        if not self.primary:
+            return
         with open(self.path, "a") as f:
             f.write(",".join(f"{v:.6f}" if isinstance(v, float) else str(v) for v in values) + "\n")
 
@@ -45,7 +52,9 @@ def lookahead_epoch(state: TrainState, la_steps: int = 5, la_alpha: float = 0.5)
 class BestTracker:
     """Best-validation checkpoint (``best.pth``) of either stage, optionally
     gated to epochs after ``gate_epoch`` (80 for Camelyon16,
-    pretrain_Camelyon16.py:307), with the run's ``generators`` in it."""
+    pretrain_Camelyon16.py:307), with the run's ``generators`` in it.
+    Every process tracks the same global metric, so all take the same
+    decision; ``save_checkpoint`` writes on the primary only."""
 
     save_dir: str
     mode: str = "min"

@@ -185,16 +185,17 @@ def test_consistency_step_fast_matches_jax(weights, monkeypatch):
     np.testing.assert_allclose(got_s.numpy(), strong.numpy(), rtol=0, atol=1e-5)
     calls = []
 
-    def fast_views(gen, x, n, mode, host_gen):
-        calls.append((tuple(x.shape), n, mode))
+    def fast_views(gen, x, n, mode, host_gen, shard):
+        calls.append((tuple(x.shape), n, mode, shard))
         return weak, strong
 
     monkeypatch.setattr(TS.aug_batch, "transform_fix_batch", fast_views)
-    monkeypatch.setattr(TS, "expand_labeled_batch", lambda gen, x, y, views: (x_lv, y.repeat_interleave(3)))
+    monkeypatch.setattr(TS, "expand_labeled_batch",
+                        lambda gen, x, y, views, shard: (x_lv, y.repeat_interleave(3)))
     _assert_cr_step_matches(weights, cfg, modules, jax_out, lambda state, teacher: TS.consistency_step(
         state, teacher, torch.from_numpy(x_l), torch.from_numpy(y_l), torch.from_numpy(x_u), None, cfg.task,
         n_aug=N_AUG, aug_mode="fast"))
-    assert calls == [((B * MU, IMG, IMG, 3), N_AUG, "fast")]
+    assert calls == [((B * MU, IMG, IMG, 3), N_AUG, "fast", (0, B * MU))]
 
 
 def _assert_cr_step_matches(weights, cfg, modules, jax_out, run_step):

@@ -302,6 +302,30 @@ def test_fused_kernel_philox_is_deterministic(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("philox", [False, True], ids=["host-noise", "philox"])
+def test_fused_kernel_rows_with_tile0_equal_the_whole_launch(cuda, philox):
+    """A process's rows of a data-parallel batch: the kernel on triplets
+    [r, r + 2) with their draws and ``tile0`` 3 r gives rows [r, r + 2) of
+    the launch over all four triplets bit for bit (the Philox counter's
+    tile word is tile0 + n), and agrees with the plain version given the
+    same ``tile0``."""
+    d = _fused_inputs(cuda, 64, seed=3)
+    d["params"][:, 5] = 1.0
+    order = torch.tensor([1, 2, 4, 5], dtype=torch.int32, device=cuda)
+    noise = None if philox else d["noise"]
+    whole = RK.rsp_augment_cuda(d["tiles"], d["mats"], d["params"], d["seeds"], noise, *IDENTITY, torch.float32,
+                                order=order)
+    for r in (0, 2):
+        a, e = 3 * r, 3 * r + 6
+        args = (d["tiles"][r:r + 2], d["mats"][a:e], d["params"][a:e], d["seeds"][a:e],
+                None if philox else d["noise"][a:e], *IDENTITY, torch.float32)
+        got = RK.rsp_augment_cuda(*args, order=order[r:r + 2], tile0=a)
+        assert torch.equal(got, whole[r:r + 2])
+        want = RK.rsp_augment_plain(*args, order=order[r:r + 2].long(), tile0=a)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_augment_dispatches_cuda_tensors_to_the_fused_kernel(cuda):
     tiles = torch.randint(0, 256, (2, 3, 64, 64, 3), dtype=torch.uint8, device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(0)

@@ -339,7 +339,7 @@ def test_finetune_step_matches_jax(weights, task, modules, monkeypatch):
     np.testing.assert_allclose(own.numpy(), views.numpy(), rtol=0, atol=2e-5)
     seen = []
     monkeypatch.setattr(TS.aug_batch, "augment_3view_batch",
-                        lambda gen, x, d=None: seen.append((x, d)) or views)
+                        lambda gen, x, d=None, shard=None: seen.append((x, d, shard)) or views)
 
     state = _port_state(weights, cfg, modules)
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
@@ -354,7 +354,7 @@ def test_finetune_step_matches_jax(weights, task, modules, monkeypatch):
                            cfg.task, draws=draws)
     for h in hooks:
         h.remove()
-    assert state.step == 1 and len(seen) == 1 and seen[0][1] is draws
+    assert state.step == 1 and len(seen) == 1 and seen[0][1] is draws and seen[0][2] == (0, B)
     np.testing.assert_allclose(float(got["loss"]), float(jloss), rtol=1e-5)
     np.testing.assert_allclose(float(got["metric"]), float(jmetric), rtol=1e-5)
 

@@ -193,14 +193,14 @@ def test_pretrain_step_v2_matches_jax(setup, monkeypatch):
     np.testing.assert_allclose(x_port.numpy(), np.asarray(x_jax), rtol=0, atol=1e-5)
     calls = []
 
-    def on_jax_views(gen, tiles, n, m, mode, draws, out_dtype, order):
-        calls.append((n, m, mode, draws, out_dtype, order))
+    def on_jax_views(gen, tiles, n, m, mode, draws, out_dtype, order, shard):
+        calls.append((n, m, mode, draws, out_dtype, order, shard))
         return torch.from_numpy(np.asarray(x_jax, np.float64))
 
     monkeypatch.setattr(TS.aug_batch, "augment_rsp_batch_v2", on_jax_views)
     _assert_step_matches_jax(params, stats, data, x_jax, draws, torch.float64, augment="v2", n_aug=2, m_aug=3.0)
-    (n, m, mode, got_draws, out_dtype, order), = calls
-    assert (n, m, mode, got_draws, out_dtype) == (2, 3.0, "fused", draws, torch.float32)
+    (n, m, mode, got_draws, out_dtype, order, shard), = calls
+    assert (n, m, mode, got_draws, out_dtype, shard) == (2, 3.0, "fused", draws, torch.float32, (0, B))
     assert torch.equal(order, torch.from_numpy(data["labels"]).long())
 
 
