@@ -7,11 +7,13 @@ Camelyon16, the heatmap CLI and the FROC from the Camelyon16 checkpoint,
 the CLIs' resume, the pretrain flags and evaluation, every augmentation
 mode, v2 pretraining, --reference_exact and --remat, the pretrain CLI and
 step across processes (a world of one over NCCL, of two over gloo on the
-one card), and times the steps, the serving forward, evaluation and the
-kernels.
+one card), the three tasks' full recipes at the config of record held to
+their quality bands, and times the steps, the serving forward, evaluation
+and the kernels.
 
     python3 chip_smoke.py                    # from the root of a checkout, on a GPU machine
     python3 chip_smoke.py --profile DIR      # also write torch.profiler tables of the steps
+    python3 chip_smoke.py --reports DIR      # keep phase 13's rehearsal reports and logs
 
 (Phase 12 starts this script again as its own worker processes, with
 ``--cli-worker`` or ``--gloo-worker`` as the first argument.)
@@ -158,10 +160,26 @@ Phases (any failure exits non-zero and prints no result line):
      two updates).  The gloo steps' times are printed as correctness only (gloo
      stages through the host).  A run on several cards waits for a runner
      that has them
- 13. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
-     line.  A kernel's ``launches`` is phase 5's count (the main path);
-     ``launches_by_path`` adds each CLI path of phases 10 and 11 and each
-     process of phase 12's paths, each counted from 0
+ 13. the full-recipe rehearsal (``ssl_cr_histo_tpu_torch.tools.rehearsal``)
+     at the config of record, bands enforced: the Camelyon16 recipe
+     (pretrain 25 epochs of at most 24 steps of 64 triplets of 256^2: the
+     two 6400^2 slides hold 415 positions, 351 after the 64 held out, so 5
+     steps an epoch, 125 in all; fine-tune 5 epochs, consistency 3,
+     evaluation, heatmap over two 8192^2 slides, FROC), then BreastPathQ
+     (``--bpq_data arrays``; 5 + 3 epochs, two-rater evaluation) and Kather
+     (224^2; 60 + 10 epochs, evaluation) from the Camelyon16 recipe's
+     pretraining (``--stage1_ckpt``); every launch counter set to 0 before
+     each stage and read after: the fused kernel once a pretrain step (as
+     many steps as the checkpoint counts) and never in another stage, the
+     chain kernel never; each stage's seconds, each banded metric beside
+     its band, the pretraining's augmented patches/s and the heatmap's
+     patches/s, incl. I/O.  A band violation or a launch count that is off
+     fails the run
+ 14. the whole run's wall time, the kernels line, then ``{"ok": true,
+     "device": {...}}`` as the last line.  A kernel's ``launches`` is phase
+     5's count (the main path); ``launches_by_path`` adds each CLI path of
+     phases 10 and 11, each process of phase 12's paths and each stage of
+     phase 13's recipes, each counted from 0
 
 Imports nothing of JAX and nothing of the JAX package.  Tolerance 1e-4
 (phases 3-4) on outputs in [0, 1]: the kernels and PyTorch's CUDA ops
@@ -2359,12 +2377,123 @@ def phase_distributed(torch, tmp: str, slides: str, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the full-recipe rehearsal (``ssl_cr_histo_tpu_torch.tools.
+# rehearsal``) at the config of record.
+# ---------------------------------------------------------------------------
+
+REHEARSAL_STAGES = ("pretrain", "finetune", "consistency", "evaluation", "heatmap", "froc")
+
+
+@contextlib.contextmanager
+def stage_launches(R, PK, RK, recipe: str, launches: dict):
+    """The rehearsal's stage drivers (``R.stage_<name>``) with every launch
+    counter set to 0 before each stage and read after, into
+    ``launches[(recipe, name)]``, for the block."""
+    real = {name: getattr(R, f"stage_{name}") for name in REHEARSAL_STAGES}
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            PK.launches = RK.launches = 0
+            out = fn(*a, **kw)
+            launches[(recipe, name)] = {"photometric_chain": PK.launches, "rsp_augment": RK.launches}
+            return out
+        return run
+
+    for name, fn in real.items():
+        setattr(R, f"stage_{name}", counted(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(R, f"stage_{name}", fn)
+
+
+def banded(R, recipe: str, report: dict) -> str:
+    """Each banded metric of ``report`` beside its band."""
+    reused = "reused" in report["stages"].get("pretrain", {})
+    return "; ".join(f"{stage}.{key} {'reused' if reused and stage == 'pretrain' else R.band_value(report, stage, key)} "
+                     f"in [{lo}, {hi}]" for (stage, key), (lo, hi) in R.BANDS[recipe].items())
+
+
+def phase_rehearsal(torch, tmp: str, reports: str, card: str) -> dict:
+    """Phase 13: the three recipes of ``ssl_cr_histo_tpu_torch.tools.
+    rehearsal`` at the config of record (256^2, Kather at 224^2, the
+    original's epochs), bands enforced, from one shared pretraining: the
+    Camelyon16 recipe trains it (25 epochs of at most 24 steps of 64
+    triplets), BreastPathQ (``--bpq_data arrays``: the card has no h5py)
+    and Kather take its checkpoint through ``--stage1_ckpt``.  Every launch
+    counter is set to 0 before each stage and read after: the fused kernel
+    launches once a pretrain step (the steps its checkpoint counts) and
+    never in another stage, the chain kernel never.  Each recipe's report
+    goes to ``reports``, its CLIs' prints to ``<recipe>.log`` beside it.
+    Returns each stage's launches."""
+    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
+    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+    from ssl_cr_histo_tpu_torch.tools import rehearsal as R
+
+    os.makedirs(reports, exist_ok=True)
+    work = os.path.join(tmp, "rehearsal")
+    launches, by_path, stage1 = {}, {}, ""
+    for recipe in ("camelyon16", "breastpathq", "kather"):
+        extra = {"camelyon16": [], "breastpathq": ["--stage1_ckpt", stage1, "--bpq_data", "arrays"],
+                 "kather": ["--stage1_ckpt", stage1]}[recipe]
+        out, log = os.path.join(reports, f"{recipe}.json"), os.path.join(reports, f"{recipe}.log")
+        t0 = time.time()
+        with open(log, "w") as f, contextlib.redirect_stdout(f), stage_launches(R, PK, RK, recipe, launches), \
+                recorded(S, "pretrain_step") as steps:
+            try:
+                report = R.main(["--recipe", recipe, "--device", "cuda", "--workdir", work, "--out", out, *extra])
+            except SystemExit as exc:
+                report = None
+                failure = str(exc)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        if report is None:
+            with open(log) as f:
+                print("".join(f.readlines()[-30:]), flush=True)
+            if os.path.exists(out):  # the partial report
+                with open(out) as f:
+                    print(f"phase 13: {recipe} report: {json.dumps(json.load(f)['stages'])}"[:6000], flush=True)
+            fail(f"phase 13: the {recipe} rehearsal failed: {failure}")
+        st = report["stages"]
+        check(report["band_violations"] == [], f"phase 13: {recipe}: {report['band_violations']}")
+        if recipe == "camelyon16":
+            stage1 = st["pretrain"]["checkpoint"]
+            n = launches[(recipe, "pretrain")]
+            check(len(steps) == st["pretrain"]["steps"] > 0 and n["rsp_augment"] >= len(steps)
+                  and n["photometric_chain"] == 0,
+                  f"phase 13: the pretraining took {len(steps)} steps (its report: {st['pretrain']['steps']}) "
+                  f"with launches {n}")
+            by_path["rehearsal_pretrain"] = n
+        else:
+            check(not steps and st["pretrain"] == {"reused": stage1}, f"phase 13: {recipe} pretrained again")
+        for (r, name), n in launches.items():
+            if r == recipe and (recipe, name) != ("camelyon16", "pretrain"):
+                check(not any(n.values()), f"phase 13: a kernel launched in the {recipe} {name} stage: {n}")
+                by_path[f"rehearsal_{recipe}_{name}"] = n
+        rates = ["stage seconds: " + ", ".join(f"{k} {v['seconds']}" for k, v in st.items() if "seconds" in v)]
+        if "aug_patches_per_sec_incl_io" in st["pretrain"]:
+            rates.append(f"pretrain {st['pretrain']['aug_patches_per_sec_incl_io']} augmented patches/s incl. "
+                         f"I/O, {len(steps)} steps, launches {launches[(recipe, 'pretrain')]}")
+        if "heatmap" in st:
+            rates.append(f"heatmap {st['heatmap']['patches_per_sec_incl_io']} patches/s incl. I/O "
+                         f"({st['heatmap']['patches']} patches)")
+        print(f"phase 13: {recipe} rehearsal in {wall:.1f} s; {'; '.join(rates)} [{card}]", flush=True)
+        print(f"phase 13: {recipe} bands: {banded(R, recipe, report)}", flush=True)
+    return by_path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke test of the PyTorch port on one NVIDIA GPU")
     ap.add_argument("--profile", default="", help="also profile the steps; write the tables to this directory")
+    ap.add_argument("--reports", default="",
+                    help="write phase 13's rehearsal reports and logs to this directory (default: a temporary one)")
     if sys.argv[1:2] in (["--cli-worker"], ["--gloo-worker"]):
         return worker_main(sys.argv[1:])
     opts = ap.parse_args()
+    start = time.time()
     if not os.path.isdir(os.path.join(ROOT, "ssl_cr_histo_tpu_torch")):
         fail("run chip_smoke.py from the root of a checkout (ssl_cr_histo_tpu_torch/ missing)")
     sys.path.insert(0, ROOT)
@@ -2513,6 +2642,11 @@ def main() -> int:
         by_path.update(phase_distributed(torch, tmp, slides, card))
         print(f"phase 12: {time.time() - t0:.1f} s [{card}]", flush=True)
 
+        # phase 13: the full-recipe rehearsal at the config of record
+        t0 = time.time()
+        by_path.update(phase_rehearsal(torch, tmp, opts.reports or os.path.join(tmp, "reports"), card))
+        print(f"phase 13: {time.time() - t0:.1f} s [{card}]", flush=True)
+
     replaces = {"photometric_chain": "ssl_cr_histo_tpu/ops/pallas_photometric.py:199",
                 "rsp_augment": "ssl_cr_histo_tpu/ops/pallas_photometric.py:199"}
     kernels = [{
@@ -2526,6 +2660,7 @@ def main() -> int:
         **timing[name],
         "library_ms": None,
     } for name in KERNELS]
+    print(f"chip_smoke: {time.time() - start:.1f} s in all [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -303,17 +303,18 @@ def write_eval(save_dir: str, cfg, report: dict, labels: np.ndarray, out: np.nda
     return path
 
 
-def evaluate(args, cfg, ckpt: str) -> dict:
+def evaluate(args, cfg, ckpt: str, test: "tuple | None" = None) -> dict:
     """``--mode evaluation`` (``cli/finetune.py:333-408``): ``ckpt`` (a
     fine-tune or consistency checkpoint) loaded for serving on the run's
     device, the test set through ``predict_all`` at ``--eval_batch_size``,
-    its report, and the artifacts under ``--save_dir``.  Returns the
-    report."""
+    its report, and the artifacts under ``--save_dir``.  ``test``, a loaded
+    (dataset, second rater's labels or None) pair, stands in for
+    ``--test_path``'s.  Returns the report."""
     device = resolve_device(args)
-    if not args.test_path:
+    if test is None and not args.test_path:
         raise SystemExit("--test_path required for evaluation")
     state = init_serving_state(args.model, cfg.num_classes, device, ckpt)
-    ds, labels_b = load_test_set(args, cfg)
+    ds, labels_b = test if test is not None else load_test_set(args, cfg)
     out = predict_all(state, ds, cfg, device, batch_size=args.eval_batch_size, bf16=args.bf16)
     report = eval_report(cfg, ds.labels, out, labels_b)
     write_eval(args.save_dir, cfg, report, ds.labels, out, labels_b)

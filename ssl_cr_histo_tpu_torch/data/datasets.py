@@ -124,6 +124,22 @@ def _resize(img: np.ndarray, size: int) -> np.ndarray:
     return cv2.resize(img, (size, size), interpolation=cv2.INTER_CUBIC)
 
 
+def _breastpathq_items(x: np.ndarray, y: np.ndarray, image_size: int):
+    """(uint8 HWC image resized to ``image_size``, float score) of each
+    patch of one .h5 file's data['x'] (float CHW in [0, 1]) and data['y'];
+    ``(x * 255).astype(np.uint8)`` truncates, as the reference's reader
+    does."""
+    for patch, score in zip(x, np.asarray(y).reshape(len(x), -1)[:, 0]):
+        yield _resize((np.transpose(patch, (1, 2, 0)) * 255).astype(np.uint8), image_size), float(score)
+
+
+def breastpathq_from_arrays(x: np.ndarray, y: np.ndarray, image_size: int = 256) -> ArrayDataset:
+    """The dataset ``load_breastpathq_h5`` reads from one .h5 file holding
+    ``x`` and ``y``, from the arrays themselves (no h5py)."""
+    images, labels = zip(*_breastpathq_items(x, y, image_size))
+    return ArrayDataset(np.stack(images), np.asarray(labels, np.float32))
+
+
 def load_breastpathq_h5(dataset_path: str, image_size: int = 256) -> ArrayDataset:
     """Every .h5 under ``dataset_path``: data['x'] float CHW in [0, 1] ->
     uint8 HWC resized to ``image_size``; data['y'] float scores."""
@@ -134,11 +150,10 @@ def load_breastpathq_h5(dataset_path: str, image_size: int = 256) -> ArrayDatase
     for path in sorted(glob.glob(os.path.join(dataset_path, "*.h5"))):
         with h5py.File(path, "r") as f:
             x = np.asarray(f["x"])
-            y = np.asarray(f["y"]).reshape(len(x), -1)[:, 0]
-        for patch, score in zip(x, y):
-            img = (np.transpose(patch, (1, 2, 0)) * 255).astype(np.uint8)
-            images.append(_resize(img, image_size))
-            labels.append(float(score))
+            y = np.asarray(f["y"])
+        for img, score in _breastpathq_items(x, y, image_size):
+            images.append(img)
+            labels.append(score)
     return ArrayDataset(np.stack(images), np.asarray(labels, np.float32))
 
 

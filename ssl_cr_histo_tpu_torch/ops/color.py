@@ -1,9 +1,10 @@
 """Colour-space conversions on channel-planar tensors.
 
-Counterpart of ``ssl_cr_histo_tpu/ops/color.py:23-101``: the legacy
+Counterpart of ``ssl_cr_histo_tpu/ops/color.py``: the legacy
 scikit-image HED transform (``rgb + 2`` offset, natural log, and the final
-``clip((rgb - 1) / 2, 0, 1)`` rescale) and RGB <-> HSV with all channels in
-[0, 1], the same float32 constants and the same formulas.  The JAX functions
+``clip((rgb - 1) / 2, 0, 1)`` rescale), RGB <-> HSV with all channels in
+[0, 1], sRGB -> CIELAB and the 601-2 luma, the same float32 constants and
+the same formulas.  The JAX functions
 take (..., 3) channels-last arrays; these take (..., 3, H, W).  The
 ``*_planes`` forms work on the three colour planes as separate tensors; the
 photometric chain's plain version (``ops/photometric_kernel.py``) uses them
@@ -93,3 +94,38 @@ def hsv2rgb(hsv: torch.Tensor) -> torch.Tensor:
     """(..., 3, H, W) HSV -> RGB."""
     hsv = hsv.float()
     return torch.stack(hsv2rgb_planes(hsv[..., 0, :, :], hsv[..., 1, :, :], hsv[..., 2, :, :]), -3)
+
+
+# sRGB -> XYZ (D65) matrix, as used by skimage.color.rgb2lab
+# (``color.py:104-113``).
+XYZ_FROM_RGB = np.array(
+    [
+        [0.412453, 0.357580, 0.180423],
+        [0.212671, 0.715160, 0.072169],
+        [0.019334, 0.119193, 0.950227],
+    ],
+    dtype=np.float32,
+)
+D65_WHITE = np.array([0.95047, 1.0, 1.08883], dtype=np.float32)
+
+
+def rgb2lab(rgb: torch.Tensor) -> torch.Tensor:
+    """(..., 3, H, W) sRGB in [0, 1] -> CIELAB (D65), matching
+    skimage.color.rgb2lab (``color.py:115-135``): the inverse sRGB
+    companding, XYZ over the D65 white, then L, a, b."""
+    rgb = rgb.float()
+    linear = torch.where(rgb > 0.04045, ((rgb + 0.055) / 1.055) ** 2.4, rgb / 12.92)
+    xyz = _mat3(linear, XYZ_FROM_RGB.T) / torch.from_numpy(D65_WHITE).to(rgb.device)[:, None, None]
+    eps = 0.008856451679035631  # (6/29)**3
+    kappa = 903.2962962962963  # (29/3)**3
+    # the cube root only where xyz > eps > 0
+    f = torch.where(xyz > eps, xyz.clamp_min(eps) ** (1.0 / 3.0), (kappa * xyz + 16.0) / 116.0)
+    fx, fy, fz = f[..., 0, :, :], f[..., 1, :, :], f[..., 2, :, :]
+    return torch.stack([116.0 * fy - 16.0, 500.0 * (fx - fy), 200.0 * (fy - fz)], -3)
+
+
+def rgb_to_luminance(rgb: torch.Tensor) -> torch.Tensor:
+    """(..., 3, H, W) RGB -> (..., H, W) ITU-R 601-2 luma, PIL's L
+    conversion (``color.py:138-142``)."""
+    rgb = rgb.float()
+    return rgb[..., 0, :, :] * 0.299 + rgb[..., 1, :, :] * 0.587 + rgb[..., 2, :, :] * 0.114

@@ -32,6 +32,14 @@ def adam(params: Iterable[torch.nn.Parameter], lr: float, weight_decay: float = 
     return torch.optim.Adam(params, lr=lr, weight_decay=weight_decay)
 
 
+def radam(params: Iterable[torch.nn.Parameter], lr: float, weight_decay: float = 0.0) -> torch.optim.RAdam:
+    """RAdam (rectified Adam) with L2 added to the gradient first: the
+    optax chain ``add_decayed_weights`` then ``radam``
+    (``optim.py:47-55``).  The reference vendors RAdam but never
+    instantiates it; no stage CLI uses it."""
+    return torch.optim.RAdam(params, lr=lr, weight_decay=weight_decay)
+
+
 def multistep_schedule(optimizer: torch.optim.Optimizer, milestones_steps,
                        gamma: float = 0.1) -> torch.optim.lr_scheduler.MultiStepLR:
     """torch MultiStepLR with milestones in optimizer steps, stepped once
