@@ -4,7 +4,8 @@ Counterpart of ``ssl_cr_histo_tpu/models/nets.py:27-124``, with the
 reference's module names so that state_dicts carry its keys: the backbone
 under ``model.*``, the pairwise MLP under ``fc.0`` / ``fc.2``, the classifier
 under ``classifier.0`` / ``classifier.2``, the fine-tune head under
-``classifier.0``.
+``classifier.0``.  Every Linear starts as flax's Dense does
+(``resnet.lecun_normal_``).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ssl_cr_histo_tpu_torch.models.resnet import make_backbone
+from ssl_cr_histo_tpu_torch.models.resnet import lecun_normal_, make_backbone
 
 _FC_DIMS = {"resnet18": (1024, 512, 256), "resnet50": (4096, 1024, 512)}
 
@@ -25,7 +26,7 @@ def feature_dim(model_name: str) -> int:
 def _pair_fc(model_name: str) -> nn.Sequential:
     """Shared MLP applied to pairwise-concatenated embeddings."""
     d_in, d_hidden, d_out = _FC_DIMS[model_name]
-    return nn.Sequential(nn.Linear(d_in, d_hidden), nn.ReLU(inplace=True), nn.Linear(d_hidden, d_out))
+    return lecun_normal_(nn.Sequential(nn.Linear(d_in, d_hidden), nn.ReLU(inplace=True), nn.Linear(d_hidden, d_out)))
 
 
 class TripletNet(nn.Module):
@@ -75,8 +76,8 @@ class Classifier(nn.Module):
 
     def __init__(self, in_features: int, num_classes: int):
         super().__init__()
-        self.classifier = nn.Sequential(
-            nn.Linear(in_features, 128), nn.ReLU(inplace=True), nn.Linear(128, num_classes))
+        self.classifier = lecun_normal_(nn.Sequential(
+            nn.Linear(in_features, 128), nn.ReLU(inplace=True), nn.Linear(128, num_classes)))
 
     def forward(self, x):
         return self.classifier(x)
@@ -88,7 +89,7 @@ class FinetuneHead(nn.Module):
 
     def __init__(self, in_features: int, num_classes: int):
         super().__init__()
-        self.classifier = nn.Sequential(nn.Linear(in_features, num_classes))
+        self.classifier = lecun_normal_(nn.Sequential(nn.Linear(in_features, num_classes)))
 
     def forward(self, x):
         return self.classifier(x)

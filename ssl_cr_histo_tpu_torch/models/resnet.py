@@ -11,6 +11,10 @@ by ``momentum``, flax weights the old running value by it.  Convs pad
 symmetrically by (k-1)//2, as torch and the JAX package's explicit padding
 both do.
 
+Weights start as the JAX package's do (``lecun_normal_``): it sets no
+initialiser, so every flax Conv and Dense kernel is ``lecun_normal`` and
+every bias 0; BatchNorm starts at scale 1, bias 0 in both.
+
 BatchNorm takes its training statistics over the global batch: under an
 initialised world of more than one process (``parallel.distributed``),
 ``GlobalBatchNorm2d`` combines every process's per-channel statistics and
@@ -31,6 +35,7 @@ are outputs of the forward pass, and ``nn.remat`` has no such effect).
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 import torch.distributed as dist
@@ -189,6 +194,27 @@ def _keep_bn_statistics(block: nn.Module):
                     dst.copy_(src)
 
 
+# The standard deviation of a unit normal truncated to [-2, 2]
+# (``jax.nn.initializers.variance_scaling``'s correction)
+_TRUNCATED_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def lecun_normal_(module: nn.Module) -> nn.Module:
+    """Every Conv2d and Linear of ``module`` initialised as flax initialises
+    the JAX package's Conv and Dense by default: the weight from a normal
+    truncated at two standard deviations with variance 1 / fan_in
+    (``jax.nn.initializers.lecun_normal``; fan_in = in channels x kernel
+    area), the bias 0.  Draws from torch's global generator."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            std = 1.0 / math.sqrt(m.weight[0].numel()) / _TRUNCATED_STD
+            nn.init.trunc_normal_(m.weight, std=std, a=-2.0 * std, b=2.0 * std)
+            if m.bias is not None:
+                m.bias.zero_()
+    return module
+
+
 class ResNet(nn.Module):
     """forward(x (B, 3, H, W)) -> (B, feature_dim) globally pooled features,
     float32 (float64 for a float64 model).  ``remat``: recompute each block
@@ -210,11 +236,7 @@ class ResNet(nn.Module):
                 cin = filters * block_cls.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
         self.n_stages = len(stage_sizes)
-        # torchvision's initialisation (the reference builds torchvision
-        # models); BatchNorm2d already starts at weight 1, bias 0
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu")
+        lecun_normal_(self)
 
     def forward(self, x):
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))

@@ -295,6 +295,15 @@ def breastpathq_arrays(n_train=240, n_eval=64, size=256, seed=3):
     return {"train": train, "eval_a": pack(eval_imgs, y_a), "eval_b": pack(eval_imgs, y_b)}
 
 
+def require_h5py():
+    """SystemExit naming ``--bpq_data arrays`` where h5py is missing."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        raise SystemExit("--bpq_data h5 writes and reads .h5 files, and h5py is not installed; "
+                         "pass --bpq_data arrays to hand the stage CLIs the same datasets in memory")
+
+
 def make_breastpathq_h5(train_dir, eval_a_dir, eval_b_dir,
                         n_train=240, n_eval=64, size=256, seed=3):
     """``breastpathq_arrays`` written as the reference's .h5 files:
@@ -791,11 +800,7 @@ def run_breastpathq(args, W, report):
         test = (breastpathq_from_arrays(*arrays["eval_a"], size),
                 breastpathq_from_arrays(*arrays["eval_b"], size).labels)
     else:
-        try:
-            import h5py  # noqa: F401
-        except ImportError:
-            raise SystemExit("--bpq_data h5 writes and reads .h5 files, and h5py is not installed; "
-                             "pass --bpq_data arrays to hand the stage CLIs the same datasets in memory")
+        require_h5py()
         if not args.skip_data:
             make_breastpathq_h5(train_dir, eval_a, eval_b, size=args.image_size)
     report["stages"]["data"] = {"seconds": round(time.time() - t0, 1)}

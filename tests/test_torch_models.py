@@ -161,3 +161,48 @@ def test_resnet50_weights_carry_over():
         got = tm(xt, xt, xt)
     assert got.shape == (1, 1536)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+
+
+@pytest.mark.parametrize("model_name", ["resnet18", "resnet50"])
+def test_initialisation_matches_flax(model_name):
+    """A fresh model starts as flax starts the JAX package's: each Conv and
+    Dense kernel from lecun_normal (a normal truncated at two standard
+    deviations, variance 1 / fan_in), biases 0, BatchNorm at scale 1 and
+    bias 0 with running statistics 0 and 1.  Tensor by tensor against
+    flax's draws from a key: the same bound, and the same spread within
+    sampling error (tensors of 2000 entries or more)."""
+    from ssl_cr_histo_tpu.models import FinetuneHead as JFinetuneHead
+    from ssl_cr_histo_tpu_torch.models import FinetuneHead, feature_dim
+
+    x = np.zeros((1, 32, 32, 3), np.float32)
+    v = JTripletNet(model_name).init(jax.random.PRNGKey(0), x, x, x, train=False)
+    d = feature_dim(model_name)
+    jhead = JClassifier(num_classes=6).init(jax.random.PRNGKey(1), jnp.zeros((1, d)))["params"]
+    want, want_head = from_jax_params(jax.device_get(v["params"]), jax.device_get(v["batch_stats"]),
+                                      jax.device_get(jhead))
+    jft = JFinetuneHead(num_classes=9).init(jax.random.PRNGKey(2), jnp.zeros((1, d)))["params"]["fc"]
+    want_ft = {"classifier.0.weight": torch.from_numpy(np.asarray(jft["kernel"]).T.copy()),
+               "classifier.0.bias": torch.from_numpy(np.array(jft["bias"]))}
+    torch.manual_seed(0)
+    pairs = [(TripletNet(model_name).state_dict(), want), (Classifier(d, 6).state_dict(), want_head),
+             (FinetuneHead(d, 9).state_dict(), want_ft)]
+    for got_sd, want_sd in pairs:
+        assert set(got_sd) == set(want_sd)
+        for k, w in want_sd.items():
+            g = got_sd[k].double()
+            w = torch.as_tensor(np.asarray(w)).double()
+            assert g.shape == w.shape, k
+            if k.endswith(("bias", "running_mean")) or "num_batches" in k:
+                assert not g.any() and not w.any(), k
+            elif k.endswith("running_var") or g.dim() == 1:  # BN statistics and scales
+                assert (g == 1).all() and (w == 1).all(), k
+            else:
+                fan_in = g[0].numel()
+                bound = 2.0 / np.sqrt(fan_in) / 0.87962566103423978
+                assert g.abs().max() <= bound * (1 + 1e-6) and w.abs().max() <= bound * (1 + 1e-6), k
+                if g.numel() >= 2000:
+                    # the std of n draws strays ~1/sqrt(2n) relatively; 6 of those
+                    tol = 6 / np.sqrt(2 * g.numel())
+                    for t in (g, w):
+                        assert abs(t.std().item() * np.sqrt(fan_in) - 1.0) < tol, k
+                    assert abs(g.mean().item()) < 6 * g.std().item() / np.sqrt(g.numel()), k
