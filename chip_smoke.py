@@ -41,13 +41,15 @@ Phases (any failure exits non-zero and prints no result line):
   5. main path: a small float32 step on the card must agree with the same
      step on the CPU (plain versions); then ``ssl_cr_histo_tpu_torch.cli.
      pretrain.main`` on two synthetic slides at resnet18 / batch 64 / 256^2 /
-     bf16 / joint encode, one epoch, with every launch counter set to 0
-     just before and read just after: the fused kernel must launch once per
-     train step and the chain kernel never; the epoch's wall time (the
-     CLI's print; batches come through its prefetch thread) beside the
-     stream time between the CUDA events around each step; the
-     checkpoint's float32 forward on the card must agree with the CPU's;
-     then the same CLI run four times more, warm, with the inline feed it
+     bf16 / joint encode, one epoch at the default ``--multi_step 8`` (the
+     first step eager, then a captured CUDA graph replayed a step), with
+     every launch counter set to 0 just before and read just after: the
+     fused kernel must launch once per train step, replays included, and
+     the chain kernel never; the epoch's wall time (the CLI's print;
+     batches come through its prefetch threads) beside the stream time
+     between the CUDA events around each step; the checkpoint's float32
+     forward on the card must agree with the CPU's; then the same CLI run
+     four times more at ``--multi_step 1``, warm, with the inline feed it
      had before the prefetch thread and with the prefetch thread (inline,
      prefetch, prefetch, inline), each run's epoch wall printed
   6. fine-tuning: the 3-view augmentation and a float32 fine-tune step on
@@ -138,19 +140,19 @@ Phases (any failure exits non-zero and prints no result line):
      kernel launches a step (``--profile``: each mode's profile table)
  12. data parallelism (``parallel.distributed``): the pretrain CLI at the
      config of record (resnet18, 64 triplets of 256^2, bf16, the fused
-     kernel) for one 8-step epoch, cuDNN deterministic, each run a fresh
-     process started by this script, in turns plain, under ``python3 -m
+     kernel) for one 11-step epoch (a chunk of 8 steps, the default
+     ``--multi_step``, and one of 3), cuDNN deterministic, each run a fresh
+     process started by this script, plain and then under ``python3 -m
      torch.distributed.run --standalone --nproc_per_node 1`` (NCCL, a world
-     of one), the same again, plain again: the first world-1 run's
-     ``ckpt_1.pth`` bit-equal to the first plain run's, each run's fused
+     of one): the world-1 run's ``ckpt_1.pth`` bit-equal to the plain
+     run's, each run's fused
      kernel launched once a step and the chain kernel never (counted in each
      process from 0), no ``torch.distributed`` collective issued in any
      run, the card's kernels (by name and count, from ``torch.profiler``)
-     equal in every run, and the card's time over each world-1 run at most
-     1.15 times the plain runs' largest; each run's step times (CUDA events
-     around each step) printed, not bounded: they follow the host's speed,
-     which the pretrain CLI's steps wait on and which can change from one
-     run to the next; then two processes on the one card over gloo (NCCL refuses two
+     equal in both runs, and the card's time over the world-1 run at most
+     1.15 times the plain run's; each run's step times (CUDA events around
+     each step) printed, not bounded (at ``--multi_step 1`` they follow the
+     host's speed); then two processes on the one card over gloo (NCCL refuses two
      ranks on one device), two pretrain steps at the main path's shapes on
      32 triplets each of a global batch of 64, against the same two steps
      in this process on the whole batch, the model in float32 and then in
@@ -200,12 +202,24 @@ Phases (any failure exits non-zero and prints no result line):
      pretext check's verdict printed and the check enforced as a majority
      over its pretraining at seeds 42 and 1-12 (ROADMAP Queue 3 item 4);
      neither kernel may launch
- 16. the whole run's wall time, the kernels line, then ``{"ok": true,
+ 16. ``--multi_step`` (``phase_multi_step``), cuDNN and PyTorch
+     deterministic: each stage CLI at the config of record at
+     ``--multi_step 8`` and then 1 (the pretrain CLI for 11 steps, Kather's
+     fine-tune, Kather's consistency under ``--aug_mode`` fused and masked,
+     Camelyon16's fine-tune), every pair's ``ckpt_1.pth`` bit-equal in
+     every leaf (weights, BN statistics, optimizer state, schedule,
+     Lookahead, step, generators, meta), and phase 12's NCCL world-1 run at
+     8 bit-equal to the plain run at 1; the K = 8 pretrain run traced:
+     ``rsp_augment_kernel`` once a step inside the graph, one graph launch
+     a step after the first; then each path's step at K = 8 against K = 1
+     in turns: CUDA-event ms a step, the host's wall, the card's busy share
+     and the host's launch calls a step
+ 17. the whole run's wall time, the kernels line, then ``{"ok": true,
      "device": {...}}`` as the last line.  A kernel's ``launches`` is phase
      5's count (the main path); ``launches_by_path`` adds each CLI path of
      phases 10 and 11, each process of phase 12's paths, each stage of
      phase 13's recipes and phase 14's dryruns, ``profile_step`` and each
-     gate of phase 15, each counted from 0
+     gate of phase 15 and each run of phase 16, each counted from 0
 
 Imports nothing of JAX and nothing of the JAX package.  Tolerance 1e-4
 (phases 3-4) on outputs in [0, 1]: the kernels and PyTorch's CUDA ops
@@ -986,16 +1000,20 @@ class Tee:
 
 
 def phase_pretrain_feeds(torch, pretrain, S, argv: list, tmp: str, steps: int, card: str) -> None:
-    """Phase 5's feed side by side: the pretrain CLI run with its batches
-    fed through the prefetch thread (``data.pipeline.prefetch_to_device``)
-    and with the inline feed it had before (each batch pinned and copied on
-    the loop's thread, then stepped), in the order inline, prefetch,
-    prefetch, inline, all after phase 5's run has warmed the card.  Prints
-    each run's epoch wall (the CLI's own print) and the stream time between
-    the CUDA events around each of its steps."""
+    """Phase 5's feed side by side, at ``--multi_step 1`` (one eager step a
+    batch): the pretrain CLI run with its batches fed through the prefetch
+    thread (``data.pipeline.prefetch_to_device``, which ``cli.common.
+    chunked_feed`` runs a batch a chunk) and with the inline feed it had
+    before (each batch pinned and copied on the loop's thread, then
+    stepped), in the order inline, prefetch, prefetch, inline, all after
+    phase 5's run has warmed the card.  Prints each run's epoch wall (the
+    CLI's own print) and the stream time between the CUDA events around
+    each of its steps."""
     import numpy as np
 
-    real = pretrain.prefetch_to_device
+    from ssl_cr_histo_tpu_torch.cli import common
+
+    real = common.prefetch_to_device
 
     def inline(it, device, size=2):
         for batch in it:
@@ -1004,14 +1022,14 @@ def phase_pretrain_feeds(torch, pretrain, S, argv: list, tmp: str, steps: int, c
 
     walls = {"inline": [], "prefetch": []}
     for i, name in enumerate(("inline", "prefetch", "prefetch", "inline")):
-        pretrain.prefetch_to_device = inline if name == "inline" else real
+        common.prefetch_to_device = inline if name == "inline" else real
         tee = Tee(io.StringIO())
         try:
-            with cuda_timed(torch, S, "pretrain_step") as pairs, contextlib.redirect_stdout(tee):
-                pretrain.main(argv + ["--save_dir", os.path.join(tmp, f"feed_{i}_{name}")])
+            with cuda_timed(torch, S.StepGraph, "step") as pairs, contextlib.redirect_stdout(tee):
+                pretrain.main(argv + ["--save_dir", os.path.join(tmp, f"feed_{i}_{name}"), "--multi_step", "1"])
             torch.cuda.synchronize()
         finally:
-            pretrain.prefetch_to_device = real
+            common.prefetch_to_device = real
         epoch = re.search(r"Epoch time: ([0-9.]+) s", tee.buf.getvalue())
         check(epoch is not None and len(pairs) == steps, f"feed {name}: no epoch time or {len(pairs)} steps")
         walls[name].append(float(epoch.group(1)))
@@ -2091,6 +2109,25 @@ def phase_modes(torch, dev, tmp: str, slides: str, tiles, card: str, profile_dir
     return launches
 
 
+@contextlib.contextmanager
+def recorded_steps(S, name: str):
+    """Each step that a ``parallel.steps.StepGraph`` named ``name`` runs
+    for the block (eager or replayed), as the row it took; yields the
+    list."""
+    rows, real = [], S.StepGraph.step
+
+    def wrapped(self, *row):
+        if self.name == name:
+            rows.append(row)
+        return real(self, *row)
+
+    S.StepGraph.step = wrapped
+    try:
+        yield rows
+    finally:
+        S.StepGraph.step = real
+
+
 def phase_modes_clis(torch, tmp: str, slides: str, card: str) -> dict:
     """Phase 11's CLI runs on phases 5-6's data, every launch counter set to
     0 before each run and read after: the pretrain CLI (batch 64, 256^2,
@@ -2115,13 +2152,15 @@ def phase_modes_clis(torch, tmp: str, slides: str, card: str) -> dict:
     for path, extra in runs.items():
         PK.launches = RK.launches = 0
         t0 = time.time()
-        with recorded(S, "pretrain_step") as calls, contextlib.redirect_stdout(io.StringIO()):
+        with recorded(S, "make_pretrain_multi_step") as made, recorded_steps(S, "pretrain") as rows, \
+                contextlib.redirect_stdout(io.StringIO()):
             pretrain.main(base + common + extra + ["--save_dir", os.path.join(tmp, path)])
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches[path] = n = {"photometric_chain": PK.launches, "rsp_augment": RK.launches}
         steps = int(extra[-1])
-        check(len(calls) == steps, f"{path}: {len(calls)} steps, not {steps}")
+        check(len(made) == 1 and len(rows) == steps, f"{path}: {len(rows)} steps, not {steps}")
+        calls = [dict(made[0], labels=row[1] if len(row) > 1 else None) for row in rows]
         with open(os.path.join(tmp, path, "train_results.csv")) as f:
             row = f.read().splitlines()[1]
         check(all(math.isfinite(float(v)) for v in row.split(",")[1:]), f"{path}: CSV row {row}")
@@ -2146,12 +2185,13 @@ def phase_modes_clis(torch, tmp: str, slides: str, card: str) -> dict:
                 "--mu", "7", "--NAug", "7", "--num_epoch", "1", "--save_freq", "0", "--aug_mode", mode] + common
         PK.launches = RK.launches = 0
         t0 = time.time()
-        with recorded(S, "consistency_step") as calls, contextlib.redirect_stdout(io.StringIO()):
+        with recorded(S, "make_consistency_multi_step") as made, recorded_steps(S, "consistency") as calls, \
+                contextlib.redirect_stdout(io.StringIO()):
             consistency.main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches[path] = check_no_launch(PK, RK, path)
-        check(len(calls) >= 3 and all(c["aug_mode"] == mode for c in calls), f"{path}: {len(calls)} steps")
+        check(len(calls) >= 3 and len(made) == 1 and made[0]["aug_mode"] == mode, f"{path}: {len(calls)} steps")
         with open(os.path.join(tmp, path, "consistency_results.csv")) as f:
             row = f.read().splitlines()[1]
         check(all(math.isfinite(float(v)) for v in row.split(",")[1:]), f"{path}: CSV row {row}")
@@ -2166,6 +2206,18 @@ def phase_modes_clis(torch, tmp: str, slides: str, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 DIST_STEPS, DIST_BATCH = 2, 64
+# The CLI runs' steps: a chunk of 8 (--multi_step's default) and a partial
+# one of 3; phase 16 holds the NCCL world-1 run's checkpoint against its
+# plain run at --multi_step 1 on the same argv
+P12_STEPS = 11
+
+
+def p12_argv(tmp: str, slides: str) -> list:
+    """The pretrain CLI's argv of phase 12's runs and phase 16's pretrain
+    runs (the config of record, ``P12_STEPS`` steps), without --save_dir."""
+    return ["--train_image_pth", slides, "--model", "resnet18", "--batch_size", str(DIST_BATCH), "--tile_h", "256",
+            "--tile_w", "256", "--tile_stride", "16", "--num_epoch", "1", "--steps_per_epoch", str(P12_STEPS),
+            "--validation_size", "64", "--save_freq", "1", "--index_cache_dir", os.path.join(tmp, "p12_index")]
 
 
 def run_launch(argv: list, timeout: float) -> str:
@@ -2228,7 +2280,7 @@ def cli_worker(out: str, argv: list) -> None:
         setattr(dist, name, counted(name))
     PK.launches = RK.launches = 0
     try:
-        with (cuda_timed(torch, S, "pretrain_step") as pairs, profile(activities=[ProfilerActivity.CUDA]) as prof,
+        with (cuda_timed(torch, S.StepGraph, "step") as pairs, profile(activities=[ProfilerActivity.CUDA]) as prof,
               contextlib.redirect_stdout(io.StringIO())):
             pretrain.main(argv)
             torch.cuda.synchronize()
@@ -2322,14 +2374,12 @@ def phase_distributed(torch, tmp: str, slides: str, card: str) -> dict:
     from ssl_cr_histo_tpu_torch.data import RSPTripletSampler
 
     launches = {}
-    steps = 8
-    base = ["--train_image_pth", slides, "--model", "resnet18", "--batch_size", str(DIST_BATCH), "--tile_h", "256",
-            "--tile_w", "256", "--tile_stride", "16", "--num_epoch", "1", "--steps_per_epoch", str(steps),
-            "--validation_size", "64", "--save_freq", "1", "--index_cache_dir", os.path.join(tmp, "p12_index")]
+    steps = P12_STEPS
+    base = p12_argv(tmp, slides)
     me = os.path.abspath(__file__)
     launch = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1"]
     runs, t0 = {}, time.time()
-    for i, kind in enumerate(("plain", "world1", "world1", "plain")):
+    for i, kind in enumerate(("plain", "world1")):
         out = os.path.join(tmp, f"p12_{i}_{kind}")
         argv = [me, "--cli-worker", out, "--"] + base + ["--save_dir", out + "_run"]
         run_launch(([sys.executable] if kind == "plain" else launch) + argv, timeout=300)
@@ -2352,6 +2402,7 @@ def phase_distributed(torch, tmp: str, slides: str, card: str) -> dict:
     check(not unequal and a["step"] == b["step"] == steps,
           f"NCCL world-1 ckpt_1.pth differs from the plain run's: {unequal[:5]} (step {b['step']})")
     launches["pretrain_cli_nccl_world1"] = runs["world1"][0][1]["launches"]
+    launches["_nccl_world1_run"] = runs["world1"][0][0]
     for kind, rs in runs.items():
         for _, rec in rs:
             issued = {k: v for k, v in rec["collectives"].items() if v}
@@ -2376,17 +2427,16 @@ def phase_distributed(torch, tmp: str, slides: str, card: str) -> dict:
     spread = {kind: (min(min(rec["step_ms"][1:]) for _, rec in rs), max(max(rec["step_ms"][1:]) for _, rec in rs))
               for kind, rs in runs.items()}
     print(f"phase 12: pretrain CLI, {steps} steps of {DIST_BATCH} triplets of 256^2, bf16, cuDNN deterministic, "
-          f"in turns plain / NCCL world 1 / NCCL world 1 / plain: ckpt_1.pth of the world-1 run bit-equal to the "
+          f"plain then NCCL world 1: ckpt_1.pth of the world-1 run bit-equal to the "
           f"plain run's ({len(pairs)} tensors: weights, slow weights, momentum, generators; step {b['step']}); "
           f"fused launches {[rec['launches']['rsp_augment'] for rs in runs.values() for _, rec in rs]}; collectives "
           f"issued 0 in every run; the card's kernels equal in every run ({sum(kernels.values())} launches of "
           f"{len(kernels)} kernels), copies and sets plain {copies['plain']}, world 1 {copies['world1']}; the card's "
-          f"time over each run (profiler) plain {dev_ms['plain'][0]:.3f}, {dev_ms['plain'][1]:.3f} ms, world 1 "
-          f"{dev_ms['world1'][0]:.3f}, {dev_ms['world1'][1]:.3f} ms; median step (steps 2-{steps}, CUDA events, "
-          f"set by the host's speed) plain {med['plain'][0]:.3f}, {med['plain'][1]:.3f} ms "
-          f"(range {spread['plain'][0]:.3f}-{spread['plain'][1]:.3f}), world 1 {med['world1'][0]:.3f}, "
-          f"{med['world1'][1]:.3f} ms (range {spread['world1'][0]:.3f}-{spread['world1'][1]:.3f}); "
-          f"{time.time() - t0:.1f} s [{card}]", flush=True)
+          f"time over each run (profiler) plain {dev_ms['plain'][0]:.3f} ms, world 1 {dev_ms['world1'][0]:.3f} ms; "
+          f"median step (steps 2-{steps}, CUDA events; step 2 holds the capture) plain {med['plain'][0]:.3f} ms "
+          f"(range {spread['plain'][0]:.3f}-{spread['plain'][1]:.3f}), world 1 {med['world1'][0]:.3f} ms "
+          f"(range {spread['world1'][0]:.3f}-{spread['world1'][1]:.3f}); {time.time() - t0:.1f} s [{card}]",
+          flush=True)
     check(max(dev_ms["world1"]) <= 1.15 * max(dev_ms["plain"]),
           f"NCCL world-1 runs' device time {dev_ms['world1']} ms against plain {dev_ms['plain']} ms")
 
@@ -2517,7 +2567,7 @@ def phase_rehearsal(torch, tmp: str, reports: str, card: str) -> dict:
         out, log = os.path.join(reports, f"{recipe}.json"), os.path.join(reports, f"{recipe}.log")
         t0 = time.time()
         with open(log, "w") as f, contextlib.redirect_stdout(f), stage_launches(R, PK, RK, recipe, launches), \
-                recorded(S, "pretrain_step") as steps:
+                recorded_steps(S, "pretrain") as steps:
             try:
                 report = R.main(["--recipe", recipe, "--device", "cuda", "--workdir", work, "--out", out, *extra])
             except SystemExit as exc:
@@ -2625,7 +2675,7 @@ def phase_parity_run(torch, tmp: str, reports: str, profile_dir: str, card: str)
         counts = []
         t0 = time.time()
         with open(log, "w") as f, contextlib.redirect_stdout(f), parity_launches(P, PK, RK, counts), \
-                recorded(S, "pretrain_step") as steps:
+                recorded_steps(S, "pretrain") as steps:
             try:
                 report = P.main(["--task", task, "--dryrun", "--pretrained", "dryrun", "--train_path", "x",
                                  "--test_path", "x", *PARITY_CUTS, *extra, "--device", "cuda",
@@ -2777,6 +2827,254 @@ def phase_quality_gate(torch, tmp: str, reports: str, card: str) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: --multi_step K, K train steps a chunk replayed as a CUDA graph.
+# ---------------------------------------------------------------------------
+
+MULTI_STEP = 8
+# The host's calls that put work on the card's queue (a graph launch is one)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def tree_leaves(tree, path: str = ""):
+    """(name, leaf) of every tensor and scalar of a checkpoint's tree."""
+    if isinstance(tree, dict):
+        for k in sorted(tree, key=str):
+            yield from tree_leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def checkpoint_diff(torch, path_a: str, path_b: str) -> tuple:
+    """The leaves in which two checkpoint files differ, the meta's record of
+    the command line left out, with the largest absolute gap of a float
+    tensor among them; and the count of leaves compared."""
+    trees = []
+    for p in (path_a, path_b):
+        t = torch.load(p, map_location="cpu", weights_only=False)
+        t.get("meta", {}).pop("args", None)
+        trees.append(dict(tree_leaves(t)))
+    a, b = trees
+    diff, gap = [], 0.0
+    for k in sorted(set(a) | set(b)):
+        x, y = a.get(k), b.get(k)
+        if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor):
+            if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+                diff.append(k)
+                if x.shape == y.shape and x.is_floating_point():
+                    gap = max(gap, (x.double() - y.double()).abs().max().item())
+        elif type(x) is not type(y) or x != y:
+            diff.append(k)
+    return diff, gap, len(a)
+
+
+def chunk_figures(torch, run, profiled: bool) -> dict:
+    """``run(n)`` runs n train steps.  One chunk of ``MULTI_STEP`` steps:
+    its CUDA-event ms a step and the host's wall ms a step (to a
+    synchronize); with ``profiled``, then 2 steps traced: the card's busy
+    share (its kernel and copy time a step over the unprofiled wall a step)
+    and the host's calls that put work on the card, a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    run(MULTI_STEP)
+    end.record()
+    torch.cuda.synchronize()
+    out = {"event_ms": start.elapsed_time(end) / MULTI_STEP, "wall_ms": (time.perf_counter() - t0) * 1e3 / MULTI_STEP}
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(2)
+            torch.cuda.synchronize()
+        device = sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / 2
+        out.update(busy=device / out["wall_ms"],
+                   launches=sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS) / 2)
+    return out
+
+
+def multi_step_runners(torch, dev, path: str, k: int):
+    """A fresh state's StepGraph of ``path`` at the config of record, K
+    steps a chunk, and one chunk of K seeded batches on the card."""
+    from ssl_cr_histo_tpu_torch.cli.common import TASKS, make_optimizer
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+    from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_teacher, init_triplet_state
+
+    torch.manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    u8 = lambda *shape: torch.randint(0, 256, shape, dtype=torch.uint8, generator=gen, device=dev)  # noqa: E731
+    n = MULTI_STEP
+    if path == "pretrain":
+        state = init_triplet_state("resnet18", dev)
+        return S.make_pretrain_multi_step(state, gen, k, bf16=True, global_batch=64), (u8(n, 64, 3, 256, 256, 3),)
+    cfg = TASKS["camelyon16" if path.startswith("camelyon16") else "kather"]
+    size, classes = cfg.image_size, cfg.num_classes
+    labels = lambda b: torch.randint(0, classes, (n, b), generator=gen, device=dev)  # noqa: E731
+    state = init_finetune_state("resnet18", classes, dev, lambda ps: make_optimizer(cfg.optimizer, ps, cfg.lr),
+                                modules=60 if "consistency" in path else 0, milestones_steps=[30 * 4, 60 * 4])
+    if path.endswith("finetune"):
+        b = cfg.rows_per_step(cfg.batch_size)
+        return S.make_finetune_multi_step(state, gen, k, cfg.task, bf16=True), (u8(n, b, size, size, 3), labels(b))
+    b = cfg.cr_batch
+    runner = S.make_consistency_multi_step(state, init_teacher(state), gen, k, cfg.task, n_aug=7,
+                                           host_gen=torch.Generator().manual_seed(1),
+                                           aug_mode=path.rsplit("_", 1)[1], bf16=True)
+    return runner, (u8(n, b, size, size, 3), labels(b), u8(n, 7 * b, size, size, 3))
+
+
+def phase_multi_step_timing(torch, dev, card: str) -> dict:
+    """Phase 16's timings: each path's StepGraph at K = 8 against K = 1
+    (eager steps, one a chunk of one) on chunks of 8 seeded batches on the
+    card, each runner warmed by one chunk (its eager first step and, at K =
+    8, the capture), then one chunk each in turns K = 1, 8, 8, 1
+    (``chunk_figures``, traced in each K's first turn)."""
+    import numpy as np
+
+    out = {}
+    for path in ("pretrain", "kather_finetune", "kather_consistency_fused", "kather_consistency_masked",
+                 "camelyon16_finetune"):
+        runs = {}
+        for k in (1, MULTI_STEP):
+            runner, chunk = multi_step_runners(torch, dev, path, k)
+            if k == 1:
+                run = lambda n, r=runner, c=chunk: [r.run(tuple(x[i:i + 1] for x in c), 1) for i in range(n)]
+            else:
+                run = lambda n, r=runner, c=chunk: r.run(c, n)
+            run(MULTI_STEP)
+            torch.cuda.synchronize()
+            check(runner.graphed == (k > 1) and (k == 1 or runner.graph is not None),
+                  f"phase 16: {path} K={k}: graphed {runner.graphed}")
+            runs[k] = run
+        figs = {1: [], MULTI_STEP: []}
+        for k in (1, MULTI_STEP, MULTI_STEP, 1):
+            figs[k].append(chunk_figures(torch, runs[k], profiled=not figs[k]))
+        del runs, runner, chunk
+        torch.cuda.empty_cache()
+        out[path] = figs
+        a, b = figs[1], figs[MULTI_STEP]
+        ms = lambda fs, key: ", ".join(f"{f[key]:.3f}" for f in fs)  # noqa: E731
+        med = lambda fs: float(np.median([f["event_ms"] for f in fs]))  # noqa: E731
+        print(f"phase 16: {path} step, K = 1 against K = {MULTI_STEP} (chunks in turns 1, 8, 8, 1): CUDA-event time "
+              f"{ms(a, 'event_ms')} against {ms(b, 'event_ms')} ms a step (median over the chunks {med(a):.3f} "
+              f"against {med(b):.3f}); host wall "
+              f"{ms(a, 'wall_ms')} against {ms(b, 'wall_ms')} ms a step; busy {a[0]['busy'] * 100:.1f}% against "
+              f"{b[0]['busy'] * 100:.1f}%; the host's launch calls a step {a[0]['launches']:.1f} against "
+              f"{b[0]['launches']:.1f} [{card}]", flush=True)
+    return out
+
+
+def phase_multi_step(torch, tmp: str, slides: str, nccl_world1_run: str, card: str, profile_dir: str) -> dict:
+    """Phase 16: ``--multi_step``, the stage CLIs' default of K = 8 train
+    steps a chunk, each step after a run's first a replay of one captured
+    CUDA graph.  At the config of record, cuDNN and PyTorch deterministic,
+    each path at ``--multi_step 8`` and then ``1``, every launch counter 0
+    before each run: the pretrain CLI for 11 steps (a chunk of 8 and a
+    partial one of 3; the K = 8 run traced: one ``rsp_augment_kernel`` a
+    step, replays included, and one graph launch a step after the first),
+    Kather's fine-tune and consistency (``--aug_mode`` fused and masked)
+    from phases 6-7's data and checkpoints, Camelyon16's fine-tune from
+    phase 9's; each pair's ``ckpt_1.pth`` must be bit-equal (weights, BN
+    statistics, optimizer state, schedule, Lookahead, step, generators,
+    meta), Adam's paths too: both run Adam in its capturable form on the
+    card (``train.optim.make_capturable``), so a replay runs the eager
+    step's kernels on the same tensors.  Then phase 12's NCCL world-1
+    pretrain CLI run (``torch.distributed.run --nproc_per_node 1``, the
+    same argv at the default of 8) ``nccl_world1_run``, bit-equal to the
+    plain run at 1.  Then ``phase_multi_step_timing``.  Returns each run's
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssl_cr_histo_tpu_torch.cli import consistency, finetune, pretrain
+    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
+    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+
+    t_phase = time.time()
+    pre = p12_argv(tmp, slides)
+    kather = ["--task", "kather", "--train_path", os.path.join(tmp, "kather"), "--model", "resnet18",
+              "--num_epoch", "1", "--save_freq", "1"]
+    cr = kather + ["--finetune_ckpt", os.path.join(tmp, "finetune", "best.pth"), "--batch_size", "8", "--mu", "7",
+                   "--NAug", "7"]
+    c16 = {k: os.path.join(tmp, k) for k in ("tumor", "normal", "tumor_valid", "normal_valid", "json")}
+    paths = {
+        "pretrain": (pretrain, "pretrain", pre, P12_STEPS),
+        "kather_finetune": (finetune, "finetune", kather + ["--model_path", os.path.join(tmp, "run", "ckpt_1.pth"),
+                                                            "--batch_size", "64"], 4),
+        "kather_consistency_fused": (consistency, "consistency", cr + ["--aug_mode", "fused"], 3),
+        "kather_consistency_masked": (consistency, "consistency", cr + ["--aug_mode", "masked"], 3),
+        "camelyon16_finetune": (finetune, "finetune", [
+            "--task", "camelyon16", "--train_path", f"{c16['tumor']},{c16['normal']}", "--json_path", c16["json"],
+            "--val_path", f"{c16['tumor_valid']},{c16['normal_valid']}", "--model_path",
+            os.path.join(tmp, "run", "ckpt_1.pth"), "--model", "resnet18", "--num_epoch", "1", "--save_freq", "1"], 4),
+    }
+    launches, runs = {}, {}
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for path, (cli, stage, argv, steps) in paths.items():
+            for k in (MULTI_STEP, 1):
+                run = os.path.join(tmp, f"p16_{path}_{k}")
+                PK.launches = RK.launches = 0
+                t0 = time.time()
+                traced = path == "pretrain" and k > 1
+                acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if traced else []
+                with recorded_steps(S, stage) as rows, profile(activities=acts) if traced else \
+                        contextlib.nullcontext() as prof, contextlib.redirect_stdout(io.StringIO()):
+                    cli.main(argv + ["--save_dir", run, "--multi_step", str(k)])
+                    torch.cuda.synchronize()
+                wall = time.time() - t0
+                n = launches[f"{path}_multi_step_{k}"] = {"photometric_chain": PK.launches,
+                                                          "rsp_augment": RK.launches}
+                want = steps if path == "pretrain" else 0
+                check(len(rows) == steps and n == {"photometric_chain": 0, "rsp_augment": want},
+                      f"phase 16: {path} at --multi_step {k}: {len(rows)} steps, launches {n}")
+                runs[path, k] = (run, wall)
+                if traced:
+                    names = {}
+                    for e in prof.key_averages():
+                        names[e.key] = names.get(e.key, 0) + e.count
+                    fused = sum(v for key, v in names.items() if "rsp_augment_kernel" in key)
+                    graphs = names.get("cudaGraphLaunch", 0)
+                    check(fused == steps and graphs == steps - 1,
+                          f"phase 16: the traced pretrain run holds rsp_augment_kernel {fused} times and "
+                          f"{graphs} graph launches in {steps} steps")
+                    print(f"phase 16: pretrain CLI at --multi_step {k}, {steps} steps (chunks of 8 and 3), traced: "
+                          f"rsp_augment_kernel {fused} times, cudaGraphLaunch {graphs} times (every step after the "
+                          f"first), fused launches counted {n['rsp_augment']} [{card}]", flush=True)
+                    if profile_dir:
+                        os.makedirs(profile_dir, exist_ok=True)
+                        table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
+                        with open(os.path.join(profile_dir, "multi_step_pretrain_profile.txt"), "w") as f:
+                            f.write(f"{card}\n{table}\n")
+            diff, gap, count = checkpoint_diff(torch, os.path.join(runs[path, MULTI_STEP][0], "ckpt_1.pth"),
+                                               os.path.join(runs[path, 1][0], "ckpt_1.pth"))
+            check(not diff, f"phase 16: {path}: ckpt_1.pth at --multi_step {MULTI_STEP} differs from --multi_step 1's "
+                            f"in {len(diff)} of {count} leaves ({diff[:6]}), largest gap {gap:.3e}")
+            print(f"phase 16: {path} CLI, {steps} steps, at --multi_step {MULTI_STEP} ({runs[path, MULTI_STEP][1]:.1f} s "
+                  f"of wall) and 1 ({runs[path, 1][1]:.1f} s): ckpt_1.pth bit-equal in all {count} leaves [{card}]",
+                  flush=True)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+        torch.use_deterministic_algorithms(False)
+
+    # phase 12's NCCL world-1 pretrain CLI run, at the default --multi_step 8,
+    # against the plain run at 1
+    diff, gap, count = checkpoint_diff(torch, os.path.join(nccl_world1_run, "ckpt_1.pth"),
+                                       os.path.join(runs["pretrain", 1][0], "ckpt_1.pth"))
+    check(not diff, f"phase 16: phase 12's NCCL world-1 run's ckpt_1.pth at --multi_step {MULTI_STEP} differs from "
+                    f"the plain run's at 1 in {diff[:6]}, largest gap {gap:.3e}")
+    print(f"phase 16: phase 12's NCCL world-1 pretrain CLI run at --multi_step {MULTI_STEP}: ckpt_1.pth bit-equal to "
+          f"the plain run's at 1 in all {count} leaves [{card}]", flush=True)
+    phase_multi_step_timing(torch, torch.device("cuda"), card)
+    print(f"phase 16: {time.time() - t_phase:.1f} s [{card}]", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke test of the PyTorch port on one NVIDIA GPU")
     ap.add_argument("--profile", default="",
@@ -2853,7 +3151,7 @@ def main() -> int:
         PK.launches = RK.launches = 0
         tee = Tee(sys.stdout)
         t0 = time.time()
-        with cuda_timed(torch, S, "pretrain_step") as pairs, contextlib.redirect_stdout(tee):
+        with cuda_timed(torch, S.StepGraph, "step") as pairs, contextlib.redirect_stdout(tee):
             pretrain.main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t0
@@ -2950,6 +3248,9 @@ def main() -> int:
         t0 = time.time()
         by_path.update(phase_quality_gate(torch, tmp, reports, card))
         print(f"phase 15: {time.time() - t0:.1f} s [{card}]", flush=True)
+
+        # phase 16: --multi_step, K train steps a chunk as CUDA-graph replays
+        by_path.update(phase_multi_step(torch, tmp, slides, by_path.pop("_nccl_world1_run"), card, opts.profile))
 
     replaces = {"photometric_chain": "ssl_cr_histo_tpu/ops/pallas_photometric.py:199",
                 "rsp_augment": "ssl_cr_histo_tpu/ops/pallas_photometric.py:199"}

@@ -11,6 +11,12 @@ Counterpart of ``ssl_cr_histo_tpu/cli/common.py:16-204``, ``:219-223`` and
   * a resumed run's random draws continue from the generators' states saved
     in its checkpoint, where the JAX CLIs advance their key chain.
 
+``--multi_step K`` (default 8, as in the JAX CLIs) runs K train steps a
+chunk: ``chunked_feed`` stacks K batches and copies them to the card at
+once, and ``parallel.steps.StepGraph`` replays one CUDA graph a step on the
+card; on the CPU it runs the eager step K times.  1 is one eager step a
+batch.
+
 Every CLI runs as N processes, one a card, under ``python3 -m
 torch.distributed.run --nproc_per_node N -m ssl_cr_histo_tpu_torch.cli.<name>
 ...`` (``parallel.distributed``): ``resolve_device`` joins the process group
@@ -27,6 +33,7 @@ import random
 import numpy as np
 import torch
 
+from ssl_cr_histo_tpu_torch.data.pipeline import chunk_batches, prefetch_iter, prefetch_to_device
 from ssl_cr_histo_tpu_torch.ops.batch import AUG_MODES
 from ssl_cr_histo_tpu_torch.parallel import distributed
 from ssl_cr_histo_tpu_torch.train import optim
@@ -112,6 +119,16 @@ def make_optimizer(kind: str, params, lr: float, weight_decay: float = 1e-4) -> 
     if kind == "adam":
         return optim.adam(params, lr, weight_decay=weight_decay)
     raise ValueError(f"unknown optimizer {kind}")
+
+
+def add_multi_step_arg(parser: argparse.ArgumentParser) -> None:
+    """``--multi_step`` of the three stage CLIs, with the JAX CLIs' default
+    (``cli/pretrain.py:103``, ``cli/finetune.py:86``,
+    ``cli/consistency.py:90``)."""
+    parser.add_argument("--multi_step", type=int, default=8,
+                        help="train steps a dispatch: K batches go to the card as one chunk and each step "
+                             "replays one captured CUDA graph (on the CPU, K eager steps); 1 = one eager "
+                             "step a batch")
 
 
 def add_common_args(parser: argparse.ArgumentParser) -> None:
@@ -223,3 +240,33 @@ def resume_training(args, state, best, generators: Generators) -> tuple:
         best.restore(float(value))
     print(f"==> resumed from {path} (epoch {start_epoch - 1})")
     return start_epoch, path
+
+
+def chunked_feed(device: torch.device, k: int, *its):
+    """The stage CLIs' feed of K steps a chunk (``common.py:289-299``).
+
+    ``its`` yield tuples of batch-aligned arrays, each a host-replicated
+    global batch; their tuples are zipped into one, and each iterator runs
+    on its own thread.  With ``k`` > 1 this process's rows of K consecutive
+    batches are stacked (``data.pipeline.chunk_batches``), pinned on a
+    thread, and copied to ``device`` once a chunk.  Yields (tuple of (K,
+    rows, ...) tensors, the chunk's valid steps); the rows of a partial last
+    chunk past its valid steps are zeros.  ``k`` = 1 is the per-batch feed
+    of ``prefetch_to_device``, each batch a chunk of one."""
+    if k < 1:
+        raise ValueError(f"--multi_step {k}: a chunk takes at least one step")
+    if k == 1:
+        for parts in zip(*(prefetch_to_device(it, device) for it in its)):
+            yield tuple(t.unsqueeze(0) for part in parts for t in part), 1
+        return
+    pinned = device.type == "cuda"
+
+    def host(item):
+        chunk, valid = item
+        ts = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (chunk if isinstance(chunk, tuple) else (chunk,)))
+        return (tuple(t.pin_memory() for t in ts) if pinned else ts), int(valid.sum())
+
+    batches = (tuple(distributed.local_rows(a) for part in parts for a in part)
+               for parts in zip(*(prefetch_iter(it) for it in its)))
+    for ts, n in prefetch_iter(chunk_batches(batches, k), map_fn=host):
+        yield tuple(t.to(device, non_blocking=pinned) for t in ts), n

@@ -31,7 +31,12 @@ file).  ``--mode evaluation`` scores ``--eval_ckpt`` (else
 transform_fix_batch``: fused, fast, masked or exact), ``--remat``
 recomputes the student's blocks in the backward pass, ``--reference_exact``
 applies the strict-parity preset (float32, exact views, with-replacement
-subsampling).  ``--multi_step`` is not carried.
+subsampling).  ``--multi_step K`` (default 8) trains K batch pairs a chunk
+(``parallel.steps.make_consistency_multi_step``): on the card each step's
+weak and strong views are made eagerly (their ops are grouped on the host),
+then one captured CUDA graph runs the rest of the step, under ``--ema`` the
+teacher's update too; the per-epoch teacher refresh, validation and
+evaluation stay eager.
 
 On N cards: ``python3 -m torch.distributed.run --nproc_per_node N -m
 ssl_cr_histo_tpu_torch.cli.consistency ...``; every process reads the same
@@ -50,8 +55,10 @@ import torch
 from ssl_cr_histo_tpu_torch.cli.common import (
     TASKS,
     add_common_args,
+    add_multi_step_arg,
     apply_reference_exact,
     apply_task_overrides,
+    chunked_feed,
     make_optimizer,
     resolve_device,
     resume_training,
@@ -65,7 +72,6 @@ from ssl_cr_histo_tpu_torch.cli.finetune import (
     train_batches,
     validate,
 )
-from ssl_cr_histo_tpu_torch.data.pipeline import prefetch_to_device
 from ssl_cr_histo_tpu_torch.parallel import steps as S
 from ssl_cr_histo_tpu_torch.parallel.mesh import rows_for_batch
 from ssl_cr_histo_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
@@ -111,6 +117,7 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=0.0, help="0 = task default")
     p.add_argument("--weight_decay", type=float, default=1e-4,
                    help="L2 added to grads before the update (torch semantics)")
+    add_multi_step_arg(p)
     p.add_argument("--resume", default="",
                    help="a ckpt_<N>.pth to resume from, or 'auto' for the latest under --save_dir")
     p.add_argument("--save_freq", type=int, default=10,
@@ -197,6 +204,10 @@ def run(args, cfg, labeled, train, val) -> FinetuneState:
     start_epoch, resume_path = resume_training(args, state, best, gens)
     if resume_path:
         resume_teacher(args, teacher, state, resume_path)
+    # captured after the restore: the graph reads the restored tensors
+    step = S.make_consistency_multi_step(state, teacher, gen, args.multi_step, cfg.task, args.lambda_u, args.NAug,
+                                         labeled_views=args.labeled_views, host_gen=host_gen,
+                                         aug_mode=args.aug_mode, bf16=args.bf16, global_batch=rows, ema=args.ema)
     for epoch in range(start_epoch, args.num_epoch + 1):
         t0 = time.time()
         # the sums stay on the device; reading them synchronises
@@ -205,17 +216,15 @@ def run(args, cfg, labeled, train, val) -> FinetuneState:
         lab_it = train_batches(cfg, labeled, batch_size, args.seed + epoch)
         unlab_it = ((imgs,) for imgs, _ in train_batches(cfg, train, batch_size * args.mu,
                                                          1000 + args.seed + epoch))
-        pairs = zip(prefetch_to_device(lab_it, device), prefetch_to_device(unlab_it, device))
-        for bi, ((x_l, y_l), (x_u,)) in enumerate(pairs):
-            m = S.consistency_step(state, teacher, x_l, y_l, x_u, gen, cfg.task, args.lambda_u, args.NAug,
-                                   labeled_views=args.labeled_views, host_gen=host_gen, aug_mode=args.aug_mode,
-                                   bf16=args.bf16, global_batch=rows)
-            sums += torch.stack([m["loss"], m["sup"], m["cons"]]) * rows
-            seen += rows
-            if args.ema > 0:
-                S.ema_update(teacher, state, args.ema)
-            if (bi + 1) % args.print_freq == 0:
-                print(f"Train: [{epoch}][{bi + 1}/{n_steps}] loss {float(m['loss']):.4f}")
+        bi = 0
+        for chunk, n_valid in chunked_feed(device, args.multi_step, lab_it, unlab_it):
+            ms = step.run(chunk, n_valid)
+            for i in range(n_valid):
+                sums += torch.stack([ms["loss"][i], ms["sup"][i], ms["cons"][i]]) * rows
+                seen += rows
+                bi += 1
+                if bi % args.print_freq == 0:
+                    print(f"Train: [{epoch}][{bi}/{n_steps}] loss {float(ms['loss'][i]):.4f}")
         if args.ema == 0:
             S.refresh_teacher(teacher, state)
         train_loss, sup_loss, cons_loss = (sums / max(seen, 1)).tolist()

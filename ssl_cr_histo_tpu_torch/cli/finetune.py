@@ -31,8 +31,11 @@ BreastPathQ's second rater ``--test_path_b``) and writes ``<task>_eval.json``
 and the task's plots.  ``--remat`` recomputes the backbone's blocks in the
 backward pass; ``--reference_exact`` applies the strict-parity preset
 (float32, with-replacement subsampling); ``--aug_mode`` is accepted as the
-JAX CLI accepts it, and the 3-view stack has no modes.  ``--multi_step`` is
-not carried.
+JAX CLI accepts it, and the 3-view stack has no modes.  ``--multi_step K``
+(default 8) trains K batches a chunk (``parallel.steps.
+make_finetune_multi_step``): on the card one captured CUDA graph replayed a
+step, the 3-view stack inside it; the LR schedule's milestones capture it
+again.  Validation and evaluation stay eager.
 
 On N cards: ``python3 -m torch.distributed.run --nproc_per_node N -m
 ssl_cr_histo_tpu_torch.cli.finetune ...``; every process reads the same
@@ -54,9 +57,11 @@ import torch
 from ssl_cr_histo_tpu_torch.cli.common import (
     TASKS,
     add_common_args,
+    add_multi_step_arg,
     apply_reference_exact,
     apply_task_overrides,
     balanced_epoch_len,
+    chunked_feed,
     make_optimizer,
     resolve_device,
     resume_training,
@@ -106,6 +111,7 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=0.0, help="0 = task default")
     p.add_argument("--weight_decay", type=float, default=1e-4,
                    help="L2 added to grads before the update (torch semantics)")
+    add_multi_step_arg(p)
     p.add_argument("--resume", default="",
                    help="a ckpt_<N>.pth to resume from, or 'auto' for the latest under --save_dir")
     p.add_argument("--save_freq", type=int, default=10,
@@ -350,18 +356,22 @@ def run(args, cfg, train, val) -> FinetuneState:
     gens = {"gen": gen}
     best = BestTracker(args.save_dir, mode="min", generators=gens)
     start_epoch, _ = resume_training(args, state, best, gens)
+    # captured after the restore: the graph reads the restored tensors
+    step = S.make_finetune_multi_step(state, gen, args.multi_step, cfg.task, bf16=args.bf16, global_batch=rows)
     for epoch in range(start_epoch, args.num_epoch + 1):
         t0 = time.time()
         # the sum stays on the device; reading it synchronises
         loss_sum = torch.zeros((), device=device)
-        seen = 0
+        seen = bi = 0
         batches = train_batches(cfg, train, batch_size, args.seed + epoch)
-        for bi, (imgs, labels) in enumerate(prefetch_to_device(batches, device)):
-            m = S.finetune_step(state, imgs, labels, gen, cfg.task, bf16=args.bf16, global_batch=rows)
-            loss_sum += m["loss"] * rows
-            seen += rows
-            if (bi + 1) % args.print_freq == 0:
-                print(f"Train: [{epoch}][{bi + 1}] loss {float(m['loss']):.4f} ({float(loss_sum) / seen:.4f})")
+        for chunk, n_valid in chunked_feed(device, args.multi_step, batches):
+            ms = step.run(chunk, n_valid)
+            for i in range(n_valid):
+                loss_sum += ms["loss"][i] * rows
+                seen += rows
+                bi += 1
+                if bi % args.print_freq == 0:
+                    print(f"Train: [{epoch}][{bi}] loss {float(ms['loss'][i]):.4f} ({float(loss_sum) / seen:.4f})")
         train_loss = float(loss_sum) / max(seen, 1)
 
         val_metric = validate(cfg, state, val, args.eval_batch_size, device, bf16=args.bf16)

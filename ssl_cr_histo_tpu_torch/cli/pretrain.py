@@ -12,7 +12,10 @@ exact).  v1's ``--aug_mode exact`` runs the pool op by op; fast and masked
 are the fused kernel, as in the JAX package.  ``--reference_exact``
 applies the strict-parity preset (float32, per-view BN, exact
 augmentation, the x6 orderings); ``--remat`` recomputes the backbone's
-blocks in the backward pass.
+blocks in the backward pass.  ``--multi_step K`` (default 8) trains K
+batches a chunk (``parallel.steps.make_pretrain_multi_step``): on the card
+one captured CUDA graph replayed a step, the fused kernel inside it; v1
+exact and v2 augment each step's views eagerly before its replay.
 
     python -m ssl_cr_histo_tpu_torch.cli.pretrain --train_image_pth SLIDES/ --save_dir RUN/
 
@@ -43,7 +46,9 @@ import torch
 
 from ssl_cr_histo_tpu_torch.cli.common import (
     add_common_args,
+    add_multi_step_arg,
     apply_reference_exact,
+    chunked_feed,
     resolve_device,
     resume_training,
     seed_everything,
@@ -101,6 +106,7 @@ def parse_args(argv=None):
                    help="a ckpt_<N>.pth to resume from, or 'auto' for the latest under --save_dir")
     p.add_argument("--steps_per_epoch", type=int, default=0,
                    help="0 = full pass over the sampled index")
+    add_multi_step_arg(p)
     p.add_argument("--joint_encode", action="store_true", default=True,
                    help="one backbone pass over the 3 views (BN statistics pooled "
                         "across them); on by default")
@@ -210,6 +216,8 @@ def main(argv=None):
     # resumed epoch that is not better cannot overwrite best.pth) and the
     # ordering and augmentation generators (``cli/pretrain.py:209-213``)
     start_epoch, _ = resume_training(args, state, best, gens)
+    # captured after the restore: the graph reads the restored tensors
+    step = S.make_pretrain_multi_step(state, gen, args.multi_step, global_batch=args.batch_size, **step_kwargs)
 
     readers = ReaderCache(capacity=64)
     tile_cache = {} if args.cache_tiles else None
@@ -228,24 +236,27 @@ def main(argv=None):
             batches = ((t,) for t in batches)
         if args.steps_per_epoch:
             batches = itertools.islice(batches, args.steps_per_epoch)
-        # a thread reads and pins the next batches while the card runs this
-        # one (``cli/pretrain.py:302-304``); the order and seeds are the
-        # sampler's, and under --expand_orderings its labels ride along
-        for bi, (tiles, *labels) in enumerate(prefetch_to_device(batches, device)):
-            m = S.pretrain_step(state, tiles, gen, labels=labels[0] if labels else None,
-                                global_batch=args.batch_size, **step_kwargs)
-            n = args.batch_size
-            loss_sum += m["loss"] * n
-            acc_sum += m["acc"] * n
-            seen += n
+        # threads read and pin the next chunks of K batches while the card
+        # runs this one (``cli/pretrain.py:248-270``); the order and seeds
+        # are the sampler's, and under --expand_orderings its labels ride
+        # along
+        bi = 0
+        for chunk, n_valid in chunked_feed(device, args.multi_step, batches):
+            ms = step.run(chunk, n_valid)
+            for i in range(n_valid):
+                n = args.batch_size
+                loss_sum += ms["loss"][i] * n
+                acc_sum += ms["acc"][i] * n
+                seen += n
+                bi += 1
+                if bi % args.print_freq == 0:
+                    print(f"Train: [{epoch}][{bi}] loss {float(ms['loss'][i]):.3f} "
+                          f"({float(loss_sum) / seen:.3f}) acc {float(acc_sum) / seen:.3f}")
             if args.tsne:
                 # the reference keeps every train batch's features for the
                 # best-epoch dump (pretrain_BreastPathQ.py:71-89)
-                epoch_feats.append(m["feats"].float().cpu().numpy())
-                epoch_targets.append(m["labels"].cpu().numpy().astype(np.int32))
-            if (bi + 1) % args.print_freq == 0:
-                print(f"Train: [{epoch}][{bi + 1}] loss {float(m['loss']):.3f} "
-                      f"({float(loss_sum) / seen:.3f}) acc {float(acc_sum) / seen:.3f}")
+                epoch_feats.extend(ms["feats"][:n_valid].float().cpu().numpy())
+                epoch_targets.extend(ms["labels"][:n_valid].cpu().numpy().astype(np.int32))
         train_loss = float(loss_sum) / max(seen, 1)
         train_acc = float(acc_sum) / max(seen, 1)
         print(f"Epoch time: {time.time() - t0:.2f} s.")

@@ -64,6 +64,41 @@ def pad_batches(it: Iterable, batch_size: int = 0, multiple: int = 1) -> Iterato
         yield (parts if is_tuple else parts[0]), valid
 
 
+def chunk_batches(it: Iterable, k: int) -> Iterator:
+    """Stack k consecutive batches along a new leading axis, the K steps a
+    dispatch of ``parallel.steps.StepGraph`` (``pipeline.py:75-94``).
+
+    Yields (stacked, valid): stacked arrays of shape (k, B, ...) (a tuple
+    when the batches are tuples) and a float32 (k,) mask.  A partial last
+    chunk is zero-padded with its padded steps marked invalid; the port
+    runs only the valid steps, which gives the JAX scan's result (padded
+    steps leave its state unchanged), so no batch is dropped."""
+    buf = []
+    for batch in it:
+        buf.append(batch if isinstance(batch, tuple) else (batch,))
+        if len(buf) == k:
+            yield _stack_chunk(buf, k)
+            buf = []
+    if buf:
+        yield _stack_chunk(buf, k)
+
+
+def _stack_chunk(buf, k):
+    """``pipeline.py:97-105``."""
+    n = len(buf)
+    valid = np.zeros(k, np.float32)
+    valid[:n] = 1.0
+    parts = []
+    for arrays in zip(*buf):
+        stacked = np.stack(arrays)
+        if n < k:
+            pad = np.zeros((k - n, *stacked.shape[1:]), stacked.dtype)
+            stacked = np.concatenate([stacked, pad])
+        parts.append(stacked)
+    out = parts[0] if len(parts) == 1 else tuple(parts)
+    return out, valid
+
+
 def balanced_batch_iterator(ds, batch_size: int, seed: int = 0) -> Iterator:
     """Pool-balanced batches, the reference's Camelyon16 dual loaders
     (eval_Camelyon_SSL.py:50-75, :281-291; ``pipeline.py:198-240``):

@@ -313,6 +313,6 @@ def normalize_batch(imgs: torch.Tensor, mean=DEFAULT_MEAN, std=DEFAULT_STD,
     """(x - mean) / std along ``channel_axis`` (``batch.py:163-173``)."""
     shape = [1] * imgs.ndim
     shape[channel_axis] = len(mean)
-    mean_t = torch.as_tensor(mean, dtype=torch.float32, device=imgs.device).view(shape)
-    std_t = torch.as_tensor(std, dtype=torch.float32, device=imgs.device).view(shape)
+    mean_t = geometry.device_constant(mean, imgs.device).view(shape)
+    std_t = geometry.device_constant(std, imgs.device).view(shape)
     return (imgs - mean_t) / std_t

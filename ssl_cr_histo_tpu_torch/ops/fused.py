@@ -41,7 +41,7 @@ def _maybe_mat(gen: torch.Generator, mats: torch.Tensor, p: float = 0.5) -> torc
 
 
 def _hflip_mat(w: int, n: int, device) -> torch.Tensor:
-    m = torch.tensor([[-1.0, 0.0, w - 1.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]], device=device)
+    m = geometry.device_constant([[-1.0, 0.0, w - 1.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]], device)
     return m.expand(n, 3, 3)
 
 

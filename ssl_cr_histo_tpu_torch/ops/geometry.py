@@ -30,6 +30,23 @@ def _f32(x, device=None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+_CONSTANTS: dict = {}
+
+
+def device_constant(values, device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``torch.as_tensor(values, dtype, device)``, made once a device off
+    the CPU and kept: a captured CUDA graph (``parallel.steps.StepGraph``)
+    may read it, but cannot copy it from the host while it is captured.
+    The caller must not write to it."""
+    if torch.device(device).type == "cpu":
+        return torch.as_tensor(values, dtype=dtype, device=device)
+    arr = np.asarray(values)
+    key = (arr.tobytes(), arr.shape, arr.dtype.str, dtype, str(device))
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = torch.as_tensor(arr, dtype=dtype, device=device)
+    return _CONSTANTS[key]
+
+
 def _mat(rows, like: torch.Tensor) -> torch.Tensor:
     """Stack a 3x3 nested list of scalars / same-shaped tensors into
     (..., 3, 3)."""
@@ -41,8 +58,8 @@ def _mat(rows, like: torch.Tensor) -> torch.Tensor:
 def _about_center(lin: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Conjugate a linear map so that it acts about the image center."""
     cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
-    to_origin = _f32([[1, 0, -cx], [0, 1, -cy], [0, 0, 1]], lin.device)
-    back = _f32([[1, 0, cx], [0, 1, cy], [0, 0, 1]], lin.device)
+    to_origin = device_constant([[1, 0, -cx], [0, 1, -cy], [0, 0, 1]], lin.device)
+    back = device_constant([[1, 0, cx], [0, 1, cy], [0, 0, 1]], lin.device)
     return back @ lin @ to_origin
 
 
@@ -216,12 +233,12 @@ def warp_pass_coefficients(inv_mats: torch.Tensor, size: int) -> torch.Tensor:
     # Fix-up 1: pre-rotate the lattice by 90 degrees where the map is
     # dominated by its off-diagonal terms.
     rot_dominant = m[:, 0, 0].abs() + m[:, 1, 1].abs() < m[:, 0, 1].abs() + m[:, 1, 0].abs()
-    m = sel(rot_dominant, _f32(_rot90_matrix(size, size), dev) @ m, m)
+    m = sel(rot_dominant, device_constant(_rot90_matrix(size, size), dev) @ m, m)
 
     # Fix-up 2: transpose so that the horizontal-first pass is well
     # conditioned.
     swap = m[:, 0, 0].abs() > m[:, 1, 1].abs()
-    sw = _f32(_SWAP_XY, dev)
+    sw = device_constant(_SWAP_XY, dev)
     m = sel(swap, sw @ m @ sw, m)
 
     a, b, c = m[:, 0, 0], m[:, 0, 1], m[:, 0, 2]
@@ -324,9 +341,9 @@ def resize(imgs: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     x = imgs.float()
     h, w = x.shape[-2:]
     if out_h != h:
-        wy = torch.from_numpy(_cv2_linear_weights(h, out_h)).to(x.device)
+        wy = device_constant(_cv2_linear_weights(h, out_h), x.device)
         x = torch.einsum("oh,...hw->...ow", wy, x)
     if out_w != w:
-        wx = torch.from_numpy(_cv2_linear_weights(w, out_w)).to(x.device)
+        wx = device_constant(_cv2_linear_weights(w, out_w), x.device)
         x = torch.einsum("ow,...hw->...ho", wx, x)
     return x

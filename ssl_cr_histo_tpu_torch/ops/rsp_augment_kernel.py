@@ -27,7 +27,7 @@ import functools
 import numpy as np
 import torch
 
-from ssl_cr_histo_tpu_torch.ops import fused
+from ssl_cr_histo_tpu_torch.ops import fused, geometry
 from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
 
 # Kernel launches made by ``rsp_augment_cuda`` (incremented only where the
@@ -51,7 +51,7 @@ RSP_PERMUTATIONS = np.array(
 
 def permute_triplets(tiles: torch.Tensor, perm_idx: torch.Tensor) -> torch.Tensor:
     """Reorder each triplet (dim 1) by its ordering index (``steps.py:51-54``)."""
-    perms = torch.as_tensor(RSP_PERMUTATIONS, device=tiles.device).long()[perm_idx.long()]
+    perms = geometry.device_constant(RSP_PERMUTATIONS, tiles.device, torch.int64)[perm_idx.long()]
     index = perms.view(perms.shape[0], 3, *([1] * (tiles.dim() - 2)))
     return torch.take_along_dim(tiles, index, dim=1)
 

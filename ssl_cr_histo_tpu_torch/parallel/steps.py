@@ -13,18 +13,27 @@ of the LR schedule.  A consistency step: the weak and strong views of the
 unlabeled images and the labeled 3-view stack (PyTorch ops), the teacher
 on the weak views in eval mode, one student pass over the labeled and strong
 views, supervised plus consistency loss, an optimizer step and one step of
-the LR schedule.  PyTorch runs eagerly, so there is no jit and no multi-step
-scan; the steps update ``state`` in place.
+the LR schedule.  The steps update ``state`` in place.
+
+K steps a dispatch (the JAX package's ``make_pretrain_multi_step`` and the
+``multi=True`` steps, ``steps.py:212-268``, ``:323-408``, ``:480-624``):
+``StepGraph`` runs a chunk of K stacked batches.  On the card each step
+after the run's first is one replay of a CUDA graph captured from the
+step's device work; on the CPU it runs the eager step.  Either way the
+steps equal K calls of the single step, bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ssl_cr_histo_tpu_torch.ops import batch as aug_batch
+from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
+from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
 from ssl_cr_histo_tpu_torch.ops.rsp_augment_kernel import RSP_PERMUTATIONS, permute_triplets
 from ssl_cr_histo_tpu_torch.parallel import distributed as D
 from ssl_cr_histo_tpu_torch.parallel.mesh import rows_for_batch
@@ -118,16 +127,25 @@ def pretrain_step(
     batch's (B, 768) TripletNet features the classifier read, and 'labels',
     its (B,) orderings (``steps.py:74-80``, ``:170``), still on the device.
     """
-    model, clf = state.model, state.classifier
-    model.train()
-    clf.train()
+    if labels is not None and bool(((labels < 0) | (labels >= len(RSP_PERMUTATIONS))).any()):
+        raise ValueError(f"labels must be ordering indices in [0, {len(RSP_PERMUTATIONS)})")
+    tiles, labels = _pretrain_views(tiles_u8, generator, labels, draws, augment=augment, n_aug=n_aug, m_aug=m_aug,
+                                    aug_mode=aug_mode, host_gen=host_gen, bf16=bf16, global_batch=global_batch)
+    out = _pretrain_update(state, tiles, labels, joint_encode=joint_encode, bf16=bf16, return_feats=return_feats)
+    state.step += 1
+    return out
+
+
+def _pretrain_views(tiles_u8: torch.Tensor, generator: torch.Generator, labels: Optional[torch.Tensor],
+                    draws: Optional[dict], *, augment: Optional[str], n_aug: int, m_aug: float, aug_mode: str,
+                    host_gen: Optional[torch.Generator], bf16: bool, global_batch: Optional[int]) -> tuple:
+    """``pretrain_step``'s labels (drawn from ``generator`` when None) and
+    its augmented (B, 3, 3, H, W) views."""
     b = tiles_u8.shape[0]
     shard = shard_of(b, global_batch)
     if labels is None:
         labels = torch.randint(0, len(RSP_PERMUTATIONS), (shard[1],), generator=generator,
                                device=generator.device)[shard[0]:shard[0] + b]
-    elif bool(((labels < 0) | (labels >= len(RSP_PERMUTATIONS))).any()):
-        raise ValueError(f"labels must be ordering indices in [0, {len(RSP_PERMUTATIONS)})")
     labels = labels.to(tiles_u8.device).long()
     # Each triplet is reordered by its label before the per-slot draws
     # apply, as in the JAX step: inside the fused kernel, where the uint8
@@ -146,7 +164,15 @@ def pretrain_step(
                                           channel_axis=2)
     else:
         raise ValueError(f"unknown augment {augment!r} (v1, v2 or None)")
+    return tiles, labels
 
+
+def _pretrain_update(state: TrainState, tiles: torch.Tensor, labels: torch.Tensor, *, joint_encode: bool,
+                     bf16: bool, return_feats: bool) -> dict:
+    """``pretrain_step``'s forward, loss and update on augmented views."""
+    model, clf = state.model, state.classifier
+    model.train()
+    clf.train()
     with _autocast(tiles.device, bf16):
         if joint_encode:
             feats = model.forward_joint(tiles)
@@ -155,7 +181,6 @@ def pretrain_step(
         logits = clf(feats)
     loss = cross_entropy(logits, labels)
     _update(state, loss)
-    state.step += 1
     acc = (logits.detach().argmax(-1) == labels).float().mean()
     out = _global_means({"loss": loss.detach(), "acc": acc})
     if return_feats:
@@ -234,6 +259,23 @@ def finetune_step(
     the LR schedule.  bf16: backbone and head under bfloat16 autocast; the
     loss is float32.  Returns the global batch's {'loss', 'metric'} as
     device tensors."""
+    out = _finetune_update(state, images_u8, labels, generator, task, draws, bf16=bf16, global_batch=global_batch)
+    _schedule(state)
+    return out
+
+
+def _schedule(state: FinetuneState) -> None:
+    """A fine-tune or consistency step's host bookkeeping: one step of the
+    LR schedule, one more step counted."""
+    state.scheduler.step()
+    state.step += 1
+
+
+def _finetune_update(state: FinetuneState, images_u8: torch.Tensor, labels: torch.Tensor,
+                     generator: torch.Generator, task: str, draws: Optional[dict], *, bf16: bool,
+                     global_batch: Optional[int]) -> dict:
+    """``finetune_step``'s device work: the 3-view stack, the forward, the
+    loss and the optimizer step."""
     model, head = state.model, state.head
     model.train()
     head.train()
@@ -250,8 +292,6 @@ def finetune_step(
         loss = cross_entropy(out, labels)
         metric = (out.detach().argmax(-1) == labels).float().mean()
     _update(state, loss)
-    state.scheduler.step()
-    state.step += 1
     return _global_means({"loss": loss.detach(), "metric": metric})
 
 
@@ -334,14 +374,32 @@ def consistency_step(
     teacher, student and head under bfloat16 autocast; losses in float32.
     Returns the global batch's {'loss', 'sup', 'cons', 'metric'} as device
     tensors."""
-    model, head = state.model, state.head
     if views is None:
-        weak, strong = aug_batch.transform_fix_batch(gen, x_u_u8, n_aug, mode=aug_mode, host_gen=host_gen,
-                                                     shard=shard_of(len(x_u_u8)))
+        weak, strong = _strong_views(x_u_u8, gen, n_aug, aug_mode, host_gen)
         x_l, y = expand_labeled_batch(gen, x_l_u8, y_l, labeled_views, shard=shard_of(len(x_l_u8), global_batch))
     else:
         x_l, weak, strong = views
         y = y_l.to(x_l.device).repeat_interleave(x_l.shape[0] // y_l.shape[0])
+    out = _consistency_update(state, teacher, x_l, y, weak, strong, task, lambda_u, bf16=bf16)
+    _schedule(state)
+    return out
+
+
+def _strong_views(x_u_u8: torch.Tensor, gen: torch.Generator, n_aug: int, aug_mode: str,
+                  host_gen: Optional[torch.Generator]) -> tuple:
+    """The unlabeled images' weak and strong views (``ops.batch.
+    transform_fix_batch``), this process's rows."""
+    return aug_batch.transform_fix_batch(gen, x_u_u8, n_aug, mode=aug_mode, host_gen=host_gen,
+                                         shard=shard_of(len(x_u_u8)))
+
+
+def _consistency_update(state: FinetuneState, teacher: Teacher, x_l: torch.Tensor, y: torch.Tensor,
+                        weak: torch.Tensor, strong: torch.Tensor, task: str, lambda_u: float, *,
+                        bf16: bool) -> dict:
+    """``consistency_step``'s teacher and student passes, losses and
+    optimizer step on its views (float32 planar in [0, 1]) and the labeled
+    views' labels."""
+    model, head = state.model, state.head
     norm = lambda t: aug_batch.normalize_batch(t, channel_axis=1)
     x_l, weak, strong = norm(x_l), norm(weak), norm(strong)
     b_l = x_l.shape[0]
@@ -365,8 +423,6 @@ def consistency_step(
         metric = (out_l.detach().argmax(-1) == y).float().mean()
     loss = sup + lambda_u * cons
     _update(state, loss)
-    state.scheduler.step()
-    state.step += 1
     return _global_means({"loss": loss.detach(), "sup": sup.detach(), "cons": cons.detach(), "metric": metric})
 
 
@@ -393,3 +449,202 @@ def ema_update(teacher: Teacher, state: FinetuneState, decay: float = 0.99) -> T
             if t.is_floating_point():
                 t.mul_(decay).add_(student[k], alpha=1.0 - decay)
     return teacher
+
+
+# ---------------------------------------------------------------------------
+# K steps a dispatch
+# ---------------------------------------------------------------------------
+
+# The kernel wrappers that count their launches (``launches``): a capture
+# records their kernels without launching them, and each replay launches
+# them once
+_COUNTED = (RK, PK)
+
+
+class StepGraph:
+    """K train steps a dispatch, the port of the JAX package's multi step
+    (``lax.scan`` over K steps, ``steps.py:212-268``).
+
+    ``run(chunk, n)`` takes the first ``n`` rows of a chunk of K stacked
+    batches, in order, and returns the steps' metrics stacked into (K, ...)
+    tensors (rows from ``n`` on zero): a partial last chunk trains exactly
+    its own batches, as the JAX scan's masked steps leave its state
+    unchanged.  ``eager(*row)`` is the single step (``pretrain_step`` and
+    the others) on a row of the chunk.
+
+    On the CPU, and with K = 1, every step is ``eager``: the plain version
+    of the graph.  On the card with K > 1 the run's first step is
+    ``eager`` and real (it builds the optimizer's state and the libraries'
+    handles); every later step is ``prologue(*row)``, run eagerly, which
+    returns the tensors the step's device work reads (None: the row
+    itself), then ``body(*inputs)``, that device work, whose metrics it
+    returns, then ``epilogue()``, its host bookkeeping (the step count, the
+    LR schedule): together the same step.  ``body`` is captured once as a
+    ``torch.cuda.CUDAGraph`` over static copies of its inputs; each step
+    copies its inputs into them and replays the graph, and ``run`` copies
+    the outputs into the chunk's rows before the next replay.  The graph
+    registers ``generators`` (the step's CUDA generators), so replay i
+    draws what eager step i would.  The learning rates are host floats
+    that the optimizer's step reads when it is captured: a change of the LR
+    schedule captures the graph again.  A capture that fails raises;
+    nothing falls back to eager steps.  A gloo world on the card cannot be
+    captured (its collectives run on the host) and raises."""
+
+    def __init__(self, name: str, eager: Callable, prologue: Optional[Callable], body: Callable,
+                 epilogue: Callable, k: int, device: torch.device, generators: Sequence[torch.Generator] = (),
+                 optimizer: Optional[torch.optim.Optimizer] = None):
+        if k < 1:
+            raise ValueError(f"--multi_step {k}: a chunk takes at least one step")
+        self.name, self.eager, self.prologue, self.body, self.epilogue = name, eager, prologue, body, epilogue
+        self.k = k
+        self.graphed = torch.device(device).type == "cuda" and k > 1
+        if self.graphed and D.process_count() > 1 and dist.get_backend() != "nccl":
+            raise ValueError(f"--multi_step {k} on CUDA needs an NCCL world to capture the step's collectives; "
+                             f"a {dist.get_backend()} world runs --multi_step 1")
+        self.generators = [g for g in generators if g.device.type == "cuda"]
+        self.optimizer = optimizer
+        self.warm = False
+        self.graph = self.static_in = self.static_out = self.lrs = None
+        self.graph_launches = [0] * len(_COUNTED)
+
+    def run(self, chunk: Sequence[torch.Tensor], n: int) -> dict:
+        out = None
+        for i in range(n):
+            m = self.step(*(x[i] for x in chunk))
+            if out is None:
+                out = {key: v.new_zeros((self.k, *v.shape)) for key, v in m.items()}
+            for key, v in m.items():
+                out[key][i].copy_(v)
+        return out
+
+    def step(self, *row) -> dict:
+        """One step on a row of the chunk; its metrics (on the card, the
+        graph's outputs, which the next replay overwrites)."""
+        if not (self.graphed and self.warm):
+            self.warm = True
+            return self.eager(*row)
+        out = self._replay(row if self.prologue is None else self.prologue(*row))
+        self.epilogue()
+        return out
+
+    def _replay(self, inputs) -> dict:
+        lrs = () if self.optimizer is None else tuple(float(g["lr"]) for g in self.optimizer.param_groups)
+        if self.graph is None or lrs != self.lrs:
+            self._capture(inputs)
+            self.lrs = lrs
+        for static, x in zip(self.static_in, inputs):
+            static.copy_(x)
+        self.graph.replay()
+        for module, n in zip(_COUNTED, self.graph_launches):
+            module.launches += n
+        return self.static_out
+
+    def _capture(self, inputs) -> None:
+        # the previous graph, and the memory it holds, goes first
+        self.graph = self.static_in = self.static_out = None
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            graph.register_generator_state(g)
+        static_in = tuple(x.clone() for x in inputs)
+        before = [m.launches for m in _COUNTED]
+        try:
+            # thread-local: the feed's threads keep pinning the next chunks
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                static_out = self.body(*static_in)
+        except Exception as e:
+            raise RuntimeError(f"the {self.name} step could not be captured as a CUDA graph: "
+                               f"{type(e).__name__}: {e}") from e
+        finally:
+            self.graph_launches = [m.launches - b for m, b in zip(_COUNTED, before)]
+            for m, b in zip(_COUNTED, before):
+                m.launches = b
+        self.graph, self.static_in, self.static_out = graph, static_in, static_out
+
+
+def make_pretrain_multi_step(state: TrainState, generator: torch.Generator, k: int, *,
+                             augment: Optional[str] = "v1", n_aug: int = 2, m_aug: float = 3.0,
+                             aug_mode: str = "fused", host_gen: Optional[torch.Generator] = None,
+                             joint_encode: bool = True, bf16: bool = False, return_feats: bool = False,
+                             global_batch: Optional[int] = None) -> StepGraph:
+    """``pretrain_step`` K steps a dispatch (``steps.py:212-268``): a
+    ``StepGraph`` over chunks (tiles_u8 (K, B, 3, H, W, 3)[, labels (K,
+    B)]).  The v1 pool's kernel path (``aug_mode`` fused, fast or masked)
+    and ``augment`` None are whole-step graphs, the orderings drawn inside;
+    v1 exact and v2 group their ops on the host
+    (``ops.randaugment.stage_groups``), so the graph's prologue draws their
+    orderings and makes their views.  Labels a chunk carries are checked
+    by the run's first step (``pretrain_step``) and then taken as they are,
+    as the JAX scan takes them."""
+    aug = dict(augment=augment, n_aug=n_aug, m_aug=m_aug, aug_mode=aug_mode, host_gen=host_gen, bf16=bf16)
+
+    def eager(tiles_u8, labels=None):
+        return pretrain_step(state, tiles_u8, generator, labels=labels, joint_encode=joint_encode,
+                             return_feats=return_feats, global_batch=global_batch, **aug)
+
+    def views(tiles_u8, labels=None):
+        return _pretrain_views(tiles_u8, generator, labels, None, global_batch=global_batch, **aug)
+
+    def update(tiles, labels):
+        return _pretrain_update(state, tiles, labels, joint_encode=joint_encode, bf16=bf16, return_feats=return_feats)
+
+    def epilogue():
+        state.step += 1
+
+    if augment is None or (augment == "v1" and aug_mode != "exact"):
+        prologue, body = None, lambda *row: update(*views(*row))
+    else:
+        prologue, body = views, update
+    return StepGraph("pretrain", eager, prologue, body, epilogue, k, generator.device, [generator],
+                     state.optimizer)
+
+
+def make_finetune_multi_step(state: FinetuneState, generator: torch.Generator, k: int,
+                             task: str = "classification", *, bf16: bool = False,
+                             global_batch: Optional[int] = None) -> StepGraph:
+    """``finetune_step`` K steps a dispatch (``make_finetune_step(multi=
+    True)``, ``steps.py:323-408``): a ``StepGraph`` over chunks (images_u8
+    (K, B, H, W, 3), labels (K, B)), the 3-view stack inside the graph."""
+    def eager(images_u8, labels):
+        return finetune_step(state, images_u8, labels, generator, task, bf16=bf16, global_batch=global_batch)
+
+    def body(images_u8, labels):
+        return _finetune_update(state, images_u8, labels, generator, task, None, bf16=bf16, global_batch=global_batch)
+
+    return StepGraph("finetune", eager, None, body, lambda: _schedule(state), k, generator.device, [generator],
+                     state.optimizer)
+
+
+def make_consistency_multi_step(state: FinetuneState, teacher: Teacher, gen: torch.Generator, k: int,
+                                task: str = "classification", lambda_u: float = 1.0, n_aug: int = 7,
+                                labeled_views: int = 3, host_gen: Optional[torch.Generator] = None, *,
+                                aug_mode: str = "fused", bf16: bool = False, global_batch: Optional[int] = None,
+                                ema: float = 0.0) -> StepGraph:
+    """``consistency_step`` K steps a dispatch, then under ``ema`` > 0 the
+    EMA teacher's update (``ema_update``, the JAX scan carry's;
+    ``make_consistency_step(multi=True)``, ``steps.py:480-624``): a
+    ``StepGraph`` over chunks (x_l_u8 (K, B, H, W, 3), y_l (K, B), x_u_u8
+    (K, mu B, H, W, 3)).  The strong views group their ops on the host
+    (``ops.randaugment.stage_groups``), so the graph's prologue makes the
+    weak and strong views; the labeled 3-view stack, both passes, the
+    update and the EMA update are the graph.  The per-epoch
+    ``refresh_teacher`` stays with the caller."""
+    def eager(x_l_u8, y_l, x_u_u8):
+        out = consistency_step(state, teacher, x_l_u8, y_l, x_u_u8, gen, task, lambda_u, n_aug,
+                               labeled_views=labeled_views, host_gen=host_gen, aug_mode=aug_mode, bf16=bf16,
+                               global_batch=global_batch)
+        if ema > 0:
+            ema_update(teacher, state, ema)
+        return out
+
+    def prologue(x_l_u8, y_l, x_u_u8):
+        return (x_l_u8, y_l, *_strong_views(x_u_u8, gen, n_aug, aug_mode, host_gen))
+
+    def body(x_l_u8, y_l, weak, strong):
+        x_l, y = expand_labeled_batch(gen, x_l_u8, y_l, labeled_views, shard=shard_of(len(x_l_u8), global_batch))
+        out = _consistency_update(state, teacher, x_l, y, weak, strong, task, lambda_u, bf16=bf16)
+        if ema > 0:
+            ema_update(teacher, state, ema)
+        return out
+
+    return StepGraph("consistency", eager, prologue, body, lambda: _schedule(state), k, gen.device, [gen],
+                     state.optimizer)

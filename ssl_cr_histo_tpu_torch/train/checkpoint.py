@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ssl_cr_histo_tpu_torch.parallel.distributed import barrier, is_primary
+from ssl_cr_histo_tpu_torch.train import optim
 from ssl_cr_histo_tpu_torch.train.state import FinetuneState, Teacher, TrainState
 
 Generators = Dict[str, torch.Generator]
@@ -78,6 +79,7 @@ def restore_checkpoint(path: str, state: "TrainState | FinetuneState | Teacher",
         state.step = int(raw.get("step", 0))
     if restore_opt:
         state.optimizer.load_state_dict(raw["optimizer"])
+        optim.make_capturable(state.optimizer)  # a checkpoint written on the CPU, resumed on a card
         if getattr(state, "scheduler", None) is not None:
             state.scheduler.load_state_dict(raw["scheduler"])
         if getattr(state, "slow", None) is not None and raw.get("slow") is not None:

@@ -28,8 +28,27 @@ def sgd_nesterov(params: Iterable[torch.nn.Parameter], lr: float, momentum: floa
 def adam(params: Iterable[torch.nn.Parameter], lr: float, weight_decay: float = 0.0) -> torch.optim.Adam:
     """Adam with L2 added to the gradient before the moments, torch's
     ``weight_decay`` (not AdamW's decoupled decay): the optax chain
-    ``add_decayed_weights`` then ``adam`` (``optim.py:58-63``)."""
-    return torch.optim.Adam(params, lr=lr, weight_decay=weight_decay)
+    ``add_decayed_weights`` then ``adam`` (``optim.py:58-63``).  On CUDA
+    parameters in its capturable form (``make_capturable``)."""
+    return make_capturable(torch.optim.Adam(params, lr=lr, weight_decay=weight_decay))
+
+
+def make_capturable(optimizer: torch.optim.Optimizer) -> torch.optim.Optimizer:
+    """Put the param groups of CUDA parameters of an optimizer that has a
+    capturable form (Adam, RAdam) in that form, in place, with the step
+    counts it holds on the device: its bias corrections are then computed
+    on the device, which a step captured as a CUDA graph
+    (``parallel.steps.StepGraph``) needs.  Eager steps take the same form,
+    so that eager and captured steps give the same numbers."""
+    for group in optimizer.param_groups:
+        if "capturable" not in group or not group["params"] or not group["params"][0].is_cuda:
+            continue
+        group["capturable"] = True
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if "step" in st:
+                st["step"] = st["step"].to(device=p.device, dtype=torch.float32)
+    return optimizer
 
 
 def radam(params: Iterable[torch.nn.Parameter], lr: float, weight_decay: float = 0.0) -> torch.optim.RAdam:

@@ -34,6 +34,28 @@ from ssl_cr_histo_tpu_torch.train import freeze as tfreeze
 from ssl_cr_histo_tpu_torch.train.checkpoint import from_jax_params, save_checkpoint
 from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_teacher, load_finetuned
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread_a_file():
+    """One intra-op thread for the file's torch work (restored after): at
+    the tests' sizes more threads buy nothing, and under the six-worker run
+    every worker's spinning thread pool contends with the others' for the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """Remove each test's temporary directory once it is done: the CLI
+    tests write ResNet checkpoints that they read once, and pytest keeps
+    its last three sessions' temporary directories."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 IMG, B, MU, N_AUG = 64, 2, 2, 7
 
 
@@ -324,7 +346,9 @@ def test_refresh_teacher_and_ema_match_jax(weights):
             if t.is_floating_point():
                 t.add_(0.05 * torch.randn(t.shape, generator=g))
     sd = lambda tc: {**tc.model.state_dict(), **tc.head.state_dict()}
-    floats = lambda d: {k: jnp.asarray(v.numpy()) for k, v in d.items() if v.is_floating_point()}
+    # copies: on the CPU jnp.asarray may alias a tensor's memory, which
+    # ema_update then writes while JAX's own update may still be reading it
+    floats = lambda d: {k: jnp.asarray(v.numpy().copy()) for k, v in d.items() if v.is_floating_point()}
     want = JS.ema_update(floats(sd(teacher)), floats(sd(state)), 0.9)
     TS.ema_update(teacher, state, 0.9)
     got = sd(teacher)

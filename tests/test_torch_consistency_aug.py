@@ -31,6 +31,19 @@ from ssl_cr_histo_tpu_torch.ops import photometric as TP
 from ssl_cr_histo_tpu_torch.ops import randaugment as RA
 from ssl_cr_histo_tpu_torch.ops import stain as TS
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread_a_file():
+    """One intra-op thread for the file's torch work (restored after): at
+    the tests' sizes more threads buy nothing, and under the six-worker run
+    every worker's spinning thread pool contends with the others' for the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N_AUG, M = 7, 10
 
 

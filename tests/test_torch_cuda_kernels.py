@@ -484,3 +484,126 @@ def test_evaluation_logits_card_match_cpu(cuda, monkeypatch, tmp_path):
     assert out["cuda"].shape == (70, 9)
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=1e-4)
     assert PK.launches == RK.launches == 0
+
+
+def _deterministic(monkeypatch):
+    """cuDNN and PyTorch in their deterministic modes for the test (a
+    non-deterministic backward would make two runs of one step differ)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
+def _graph_runs(cuda, stage: str, k: int) -> tuple:
+    """7 steps of ``stage`` at 64^2 through its StepGraph at ``k`` steps a
+    chunk (chunks of k, the last partial) on the card, bf16 as the CLIs
+    run it: (metrics, state dict, generator state, fused launches)."""
+    from ssl_cr_histo_tpu_torch.cli.common import make_optimizer
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+    from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_teacher, init_triplet_state
+
+    steps, size = 7, 64
+    g = torch.Generator().manual_seed(5)
+    torch.manual_seed(0)
+    gen, host_gen = torch.Generator(device=cuda).manual_seed(1), torch.Generator().manual_seed(2)
+    if stage == "pretrain":
+        state = init_triplet_state("resnet18", cuda, lr=0.01, weight_decay=1e-4)
+        runner = S.make_pretrain_multi_step(state, gen, k, host_gen=host_gen, bf16=True)
+        rows = [(torch.randint(0, 256, (4, 3, size, size, 3), dtype=torch.uint8, generator=g),)
+                for _ in range(steps)]
+    else:
+        opt = "sgd" if stage.endswith("sgd") else "adam"
+        state = init_finetune_state("resnet18", 3, cuda, lambda ps: make_optimizer(opt, ps, 1e-3),
+                                    milestones_steps=[2, 5])
+        x = lambda n: torch.randint(0, 256, (n, size, size, 3), dtype=torch.uint8, generator=g)
+        if stage.startswith("finetune"):
+            runner = S.make_finetune_multi_step(state, gen, k, bf16=True)
+            rows = [(x(2), torch.randint(0, 3, (2,), generator=g)) for _ in range(steps)]
+        else:
+            teacher = init_teacher(state)
+            runner = S.make_consistency_multi_step(state, teacher, gen, k, n_aug=2, host_gen=host_gen,
+                                                   aug_mode="masked", bf16=True,
+                                                   ema=0.9 if stage.endswith("ema") else 0.0)
+            rows = [(x(2), torch.randint(0, 3, (2,), generator=g), x(4)) for _ in range(steps)]
+    RK.launches = 0
+    metrics = []
+    for i in range(0, steps, k):
+        part = rows[i:i + k]
+        chunk = tuple(torch.stack(col + (torch.zeros_like(col[0]),) * (k - len(part))).to(cuda)
+                      for col in zip(*part))
+        ms = runner.run(chunk, len(part))
+        metrics += [{key: v[j].cpu() for key, v in ms.items()} for j in range(len(part))]
+    tree = dict(state.payload())
+    if stage.startswith("consistency"):
+        tree["teacher"] = teacher.payload()
+    cpu = lambda t: ({k2: cpu(v) for k2, v in t.items()} if isinstance(t, dict) else
+                     [cpu(v) for v in t] if isinstance(t, (list, tuple)) else
+                     t.detach().cpu() if isinstance(t, torch.Tensor) else t)
+    return metrics, cpu(tree), gen.get_state(), RK.launches, runner
+
+
+def _assert_same_tree(a, b, where=""):
+    if isinstance(a, torch.Tensor):
+        assert torch.equal(a, b), where
+    elif isinstance(a, dict):
+        assert set(a) == set(b), where
+        for key in a:
+            _assert_same_tree(a[key], b[key], f"{where}/{key}")
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b, strict=True)):
+            _assert_same_tree(x, y, f"{where}[{i}]")
+    else:
+        assert a == b, (where, a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["pretrain", "finetune-adam", "finetune-sgd", "consistency", "consistency-ema"])
+def test_step_graph_replays_equal_eager_steps(cuda, monkeypatch, stage):
+    """7 steps at 64^2 through the stage's StepGraph at K = 3 (the first
+    step eager, then one captured graph replayed a step, recaptured at the
+    LR milestones) against K = 1 (7 eager steps), cuDNN deterministic:
+    each step's metrics, the state (weights, BN statistics, the optimizer,
+    the schedule, the teacher) and the generator bit for bit; the fused
+    kernel counted once a pretrain step, replays included."""
+    _deterministic(monkeypatch)
+    eager = _graph_runs(cuda, stage, 1)
+    graphed = _graph_runs(cuda, stage, 3)
+    assert eager[4].graph is None and graphed[4].graph is not None
+    _assert_same_tree(eager[:3], graphed[:3])
+    assert eager[3] == graphed[3] == (7 if stage == "pretrain" else 0)
+
+
+@pytest.mark.cuda
+def test_step_graph_capture_failure_raises(cuda):
+    """A step whose device work reads the card from the host cannot be
+    captured: the second step raises, naming the step, and no step runs
+    eagerly in its place."""
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+
+    calls = []
+    body = lambda x: {"v": x * float(x.sum())}
+    eager = lambda x: calls.append(1) or body(x)
+    runner = S.StepGraph("host-read", eager, None, body, lambda: None, 2, cuda)
+    chunk = (torch.ones(2, 3, device=cuda),)
+    with pytest.raises(RuntimeError, match="the host-read step could not be captured as a CUDA graph"):
+        runner.run(chunk, 2)
+    assert calls == [1]
+
+
+@pytest.mark.cuda
+def test_gloo_world_on_cuda_refuses_multi_step(cuda, monkeypatch):
+    """A gloo world of more than one process on the card cannot capture its
+    collectives: --multi_step > 1 raises naming the flag, --multi_step 1
+    and an NCCL world do not."""
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+
+    monkeypatch.setattr(S.D, "process_count", lambda: 2)
+    backend = {"name": "gloo"}
+    monkeypatch.setattr(S.dist, "get_backend", lambda *a: backend["name"])
+    noop = lambda *a: None
+    with pytest.raises(ValueError, match="--multi_step 8 on CUDA needs an NCCL world"):
+        S.StepGraph("pretrain", noop, None, noop, noop, 8, cuda)
+    assert not S.StepGraph("pretrain", noop, None, noop, noop, 1, cuda).graphed
+    backend["name"] = "nccl"
+    assert S.StepGraph("pretrain", noop, None, noop, noop, 8, cuda).graphed

@@ -39,6 +39,19 @@ from ssl_cr_histo_tpu_torch.train.checkpoint import from_jax_params
 import torch_dist_worker as W
 from test_torch_pretrain_step import _head_sd, _jax_step_f64, _numpy_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread_a_file():
+    """One intra-op thread for the file's torch work (restored after): at
+    the tests' sizes more threads buy nothing, and under the six-worker run
+    every worker's spinning thread pool contends with the others' for the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMG = 64  # layer4 2x2, as tests/test_torch_pretrain_step.py takes it
 
@@ -58,7 +71,10 @@ def launch(case: str, world: int, inp: dict, tmp, timeout: float = 600) -> list:
             p.kill()
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r}:\n{log[-6000:]}"
-    return [torch.load(f"{out}.{r}", weights_only=False) for r in range(world)]
+    results = [torch.load(f"{out}.{r}", weights_only=False) for r in range(world)]
+    for r in range(world):  # each is up to ~0.8 GB of float64 states; the results stay in memory
+        os.remove(f"{out}.{r}")
+    return results
 
 
 # --- two processes: the primitives, the writes, the steps against one ----------------

@@ -6,6 +6,7 @@ on two processes, ``--mode evaluation`` and the heatmap CLI on two.  Only
 rank 0 writes."""
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -16,6 +17,19 @@ import torch
 from ssl_cr_histo_tpu_torch.cli.common import TASKS, make_optimizer
 from ssl_cr_histo_tpu_torch.train.checkpoint import save_checkpoint
 from ssl_cr_histo_tpu_torch.train.init import init_finetune_state
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread_a_file():
+    """One intra-op thread for the file's torch work (restored after): at
+    the tests' sizes more threads buy nothing, and under the six-worker run
+    every worker's spinning thread pool contends with the others' for the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -76,7 +90,8 @@ def pretrain_runs(tmp_path_factory):
         torch.set_num_threads(threads)
     records = {n: launch(n, tmp / f"world{n}", [("pretrain", args + ["--save_dir", str(tmp / f"world{n}_run")])])[0]
                for n in (1, 2)}
-    return tmp, records
+    yield tmp, records
+    shutil.rmtree(tmp, ignore_errors=True)  # six ResNet checkpoints, read by this module only
 
 
 def _ckpt(run):

@@ -21,6 +21,18 @@ from ssl_cr_histo_tpu_torch.data import pipeline as TP
 from ssl_cr_histo_tpu_torch.eval import metrics as TM
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread_a_file():
+    """One intra-op thread for the file's torch work (restored after): at
+    the tests' sizes more threads buy nothing, and under the six-worker run
+    every worker's spinning thread pool contends with the others' for the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def kather_dir(tmp_path_factory):
     """Four class folders (one unknown name, which maps to TUM) of .tif and

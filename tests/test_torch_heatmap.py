@@ -10,6 +10,7 @@ forwards on both sides); everything else exactly."""
 
 import json
 import os
+import shutil
 import sys
 
 import numpy as np
@@ -34,6 +35,28 @@ from ssl_cr_histo_tpu_torch.eval import heatmap as TH
 from ssl_cr_histo_tpu_torch.parallel import steps as TS
 from ssl_cr_histo_tpu_torch.train.checkpoint import from_jax_params, save_checkpoint
 from ssl_cr_histo_tpu_torch.train.init import init_finetune_state
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread_a_file():
+    """One intra-op thread for the file's torch work (restored after): at
+    the tests' sizes more threads buy nothing, and under the six-worker run
+    every worker's spinning thread pool contends with the others' for the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """Remove each test's temporary directory once it is done: the CLI
+    tests write ResNet checkpoints that they read once, and pytest keeps
+    its last three sessions' temporary directories."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 IMG = 64
 CPU = torch.device("cpu")

@@ -20,6 +20,18 @@ from ssl_cr_histo_tpu_torch.train import optim as TO
 from ssl_cr_histo_tpu_torch.utils import profiling as TP
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread_a_file():
+    """One intra-op thread for the file's torch work (restored after): at
+    the tests' sizes more threads buy nothing, and under the six-worker run
+    every worker's spinning thread pool contends with the others' for the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rgb_batch(seed: int) -> np.ndarray:
     """(4, 16, 16, 3) float32 RGB in [0, 1] with the corner cases of the
     companding and of the cube root's linear branch: black, white, values

@@ -19,6 +19,19 @@ from ssl_cr_histo_tpu.train.checkpoint import export_torch_state_dict
 from ssl_cr_histo_tpu_torch.models import Classifier, TripletNet
 from ssl_cr_histo_tpu_torch.train.checkpoint import from_jax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread_a_file():
+    """One intra-op thread for the file's torch work (restored after): at
+    the tests' sizes more threads buy nothing, and under the six-worker run
+    every worker's spinning thread pool contends with the others' for the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 IMG, B = 64, 2  # 64^2: layer4 is 2x2, so BN statistics are not degenerate
 
 

@@ -20,6 +20,18 @@ from ssl_cr_histo_tpu.ops import pallas_photometric as PP
 from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread_a_file():
+    """One intra-op thread for the file's torch work (restored after): at
+    the tests' sizes more threads buy nothing, and under the six-worker run
+    every worker's spinning thread pool contends with the others' for the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _base_params(rng, n):
     """Params drawn with the law of draw_params, numpy side."""
     p = np.zeros((n, PK.N_PARAMS), np.float32)

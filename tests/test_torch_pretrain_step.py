@@ -40,6 +40,28 @@ from ssl_cr_histo_tpu_torch.parallel import steps as TS
 from ssl_cr_histo_tpu_torch.train.checkpoint import from_jax_params
 from ssl_cr_histo_tpu_torch.train.init import init_triplet_state
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread_a_file():
+    """One intra-op thread for the file's torch work (restored after): at
+    the tests' sizes more threads buy nothing, and under the six-worker run
+    every worker's spinning thread pool contends with the others' for the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """Remove each test's temporary directory once it is done: the CLI
+    tests write ResNet checkpoints that they read once, and pytest keeps
+    its last three sessions' temporary directories."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 IMG, B = 64, 4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -422,12 +444,13 @@ def test_cli_end_to_end_and_checkpoint_loads_in_jax(tmp_path):
 
 def test_cli_prefetch_keeps_the_batches_and_the_state(tmp_path, monkeypatch):
     """The CLI feeds its train and validation batches through the prefetch
-    thread (``data.pipeline.prefetch_to_device``, each epoch's two feeds);
-    a run with that feed swapped for an inline read and copy (the CLI's
-    feed before it prefetched) gives the same train and validation batches,
-    in the same order, and bit-equal checkpoints, on the CPU over 2 epochs
-    of 3 steps."""
-    from ssl_cr_histo_tpu_torch.cli import pretrain
+    thread (``data.pipeline.prefetch_to_device``, each epoch's two feeds;
+    the train feed's through ``cli.common.chunked_feed`` at --multi_step 1,
+    one batch a chunk); a run with that feed swapped for an inline read and
+    copy (the CLI's feed before it prefetched) gives the same train and
+    validation batches, in the same order, and bit-equal checkpoints, on
+    the CPU over 2 epochs of 3 steps."""
+    from ssl_cr_histo_tpu_torch.cli import common, pretrain
 
     slides = str(tmp_path / "wsis")
     _write_slides(slides)
@@ -455,13 +478,14 @@ def test_cli_prefetch_keeps_the_batches_and_the_state(tmp_path, monkeypatch):
             return real_eval(state, tiles, valid, *a, **kw)
 
         monkeypatch.setattr(pretrain, "prefetch_to_device", counted)
+        monkeypatch.setattr(common, "prefetch_to_device", counted)
         monkeypatch.setattr(TS, "pretrain_step", step)
         monkeypatch.setattr(TS, "pretrain_eval_step", eval_step)
         run = tmp_path / name
         pretrain.main(["--train_image_pth", slides, "--save_dir", str(run), "--device", "cpu",
                        "--tile_h", "64", "--tile_w", "64", "--tile_stride", "32", "--batch_size", "4",
                        "--num_epoch", "2", "--steps_per_epoch", "3", "--validation_size", "6",
-                       "--save_freq", "2", "--index_cache_dir", "", "--no-bf16"])
+                       "--save_freq", "2", "--index_cache_dir", "", "--no-bf16", "--multi_step", "1"])
         monkeypatch.setattr(TS, "pretrain_step", real_step)
         monkeypatch.setattr(TS, "pretrain_eval_step", real_eval)
         runs[name] = (seen, torch.load(run / "ckpt_2.pth", weights_only=False))

@@ -8,6 +8,7 @@ loadfile`` spreads it apart from ``tests/test_torch_rehearsal.py``."""
 import json
 import math
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -16,6 +17,27 @@ import torch
 from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
 from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
 from ssl_cr_histo_tpu_torch.tools import rehearsal as P
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread_a_file():
+    """One intra-op thread for the file's torch work (restored after): at
+    the tests' sizes more threads buy nothing, and under the six-worker run
+    every worker's spinning thread pool contends with the others' for the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """Remove each test's temporary directory once it is done: the CLI
+    tests write ResNet checkpoints that they read once, and pytest keeps
+    its last three sessions' temporary directories."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(autouse=True)
