@@ -9,8 +9,8 @@ mode, v2 pretraining, --reference_exact and --remat, the pretrain CLI and
 step across processes (a world of one over NCCL, of two over gloo on the
 one card), the three tasks' full recipes at the config of record held to
 their quality bands, the label-efficiency protocol's dryrun, the step
-profiler and the label-efficiency gate, and times the steps, the serving
-forward, evaluation and the kernels.
+profiler and the label-efficiency gate, runs the bench tools, and times the
+steps, the serving forward, evaluation and the kernels.
 
     python3 chip_smoke.py                    # from the root of a checkout, on a GPU machine
     python3 chip_smoke.py --profile DIR      # also write torch.profiler tables of the steps, phase 14's trace
@@ -214,12 +214,25 @@ Phases (any failure exits non-zero and prints no result line):
      a step after the first; then each path's step at K = 8 against K = 1
      in turns: CUDA-event ms a step, the host's wall, the card's busy share
      and the host's launch calls a step
- 17. the whole run's wall time, the kernels line, then ``{"ok": true,
+ 17. the bench tools (``phase_bench``, ``ssl_cr_histo_tpu_torch.tools``):
+     ``reference_baseline`` (the reference's CPU augmentation pool on this
+     host, into a temporary file), ``bench.main`` (``measure_pretrain`` at
+     the config of record, K = 8, 1 + 3 chunks; its JSON line with
+     ``vs_baseline`` against that file), ``bench_suite.main`` into a
+     temporary file (a first run, no bands: pretrain, Camelyon16 CR fused
+     and fast, Kather fine-tune, the serving forward) and
+     ``bench_scaling.main`` (resnet18 at 64, 128, 256 and resnet50 at 64,
+     128 triplets, K = 4, each config a process of its own); every metric
+     finite and positive, no FAILED row; the fused kernel launched 32 times
+     by each pretrain measurement, 16 by each scaling config and never by
+     the other measurements, the chain kernel never
+ 18. the whole run's wall time, the kernels line, then ``{"ok": true,
      "device": {...}}`` as the last line.  A kernel's ``launches`` is phase
      5's count (the main path); ``launches_by_path`` adds each CLI path of
      phases 10 and 11, each process of phase 12's paths, each stage of
      phase 13's recipes and phase 14's dryruns, ``profile_step`` and each
-     gate of phase 15 and each run of phase 16, each counted from 0
+     gate of phase 15, each run of phase 16 and each measurement of phase
+     17, each counted from 0
 
 Imports nothing of JAX and nothing of the JAX package.  Tolerance 1e-4
 (phases 3-4) on outputs in [0, 1]: the kernels and PyTorch's CUDA ops
@@ -3075,6 +3088,79 @@ def phase_multi_step(torch, tmp: str, slides: str, nccl_world1_run: str, card: s
     return launches
 
 
+# fused-kernel launches of one call of ``tools.bench.measure_pretrain`` at K =
+# 8 (a warm-up chunk and 3 timed ones) and of one scaling config at K = 4 (a
+# warm-up chunk and 3 timed ones): one a step, eager or replayed
+BENCH_LAUNCHES = (1 + 3) * 8
+SCALING_LAUNCHES = (1 + 3) * 4
+
+
+def phase_bench(torch, tmp: str, card: str) -> dict:
+    """Phase 17: the port's bench tools (``ssl_cr_histo_tpu_torch.tools``),
+    each counted from 0: ``reference_baseline`` into a temporary ``--out``
+    (the reference's CPU augmentation on this host); ``bench.main``
+    (``measure_pretrain`` at the config of record, its JSON line with
+    ``vs_baseline`` against that file and ``vs_committed`` against the
+    committed suite artifact); ``bench_suite.main`` into a temporary
+    ``--out`` (a first run: no bands); ``bench_scaling.main``, five configs
+    in processes of their own.  Every metric finite and positive; the fused
+    kernel launched ``BENCH_LAUNCHES`` times by the pretrain measurement,
+    ``SCALING_LAUNCHES`` by each scaling config and never by the other
+    measurements, the chain kernel never.  Returns each one's launches."""
+    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
+    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+    from ssl_cr_histo_tpu_torch.tools import bench, bench_scaling, bench_suite, reference_baseline
+
+    t_phase = time.time()
+    fused = lambda n: {"photometric_chain": 0, "rsp_augment": n}  # noqa: E731
+    positive = lambda v: isinstance(v, (int, float)) and math.isfinite(v) and v > 0  # noqa: E731
+    launches = {}
+
+    baseline_path = os.path.join(tmp, "baseline_local.json")
+    with contextlib.redirect_stdout(io.StringIO()):
+        baseline = reference_baseline.main(["--out", baseline_path])
+    rate = baseline["reference_aug_patches_per_sec"]
+    check(positive(rate), f"phase 17: the reference augmentation's rate is {rate}")
+    print(f"phase 17: reference_baseline: {rate} patches/s ({baseline['per_triplet_seconds_single_worker']} s a "
+          f"triplet on one process x {baseline['assumed_workers']} workers) on {baseline['host_cpu']}, "
+          f"{baseline['host_cpu_count']} cores [{card}]", flush=True)
+
+    PK.launches = RK.launches = 0
+    line = bench.main(["--baseline", baseline_path])
+    n = launches["bench"] = {"photometric_chain": PK.launches, "rsp_augment": RK.launches}
+    check(positive(line["value"]) and positive(line["vs_baseline"]),
+          f"phase 17: bench printed {json.dumps({k: v for k, v in line.items() if k != 'measured'})}")
+    check(n == fused(BENCH_LAUNCHES) == line["measured"]["launches"],
+          f"phase 17: bench.measure_pretrain launched {n}, want {fused(BENCH_LAUNCHES)}")
+    print(f"phase 17: bench: {line['measured']['ms_per_step']} ms a step, {line['value']} patches/s, vs_baseline "
+          f"{line['vs_baseline']}, vs_committed {line.get('vs_committed')}; launches {n} [{card}]", flush=True)
+
+    PK.launches = RK.launches = 0
+    report = bench_suite.main(["--out", os.path.join(tmp, "bench_suite.json")])
+    check(report["violations"] == [] and len(report["results"]) == 5, f"phase 17: bench_suite reported {report}")
+    for r in report["results"]:
+        want = fused(BENCH_LAUNCHES if r["metric"] == "rsp_pretrain_aug_patches_per_sec_per_chip" else 0)
+        launches[f"bench_suite_{r['metric']}"] = r["launches"]
+        check(positive(r["value"]) and positive(r["ms_per_step"]) and r["launches"] == want,
+              f"phase 17: bench_suite {r['metric']}: {r['value']}, launches {r['launches']}, want {want}")
+        print(f"phase 17: bench_suite {r['metric']}: {r['value']} {r['unit']}, {r['ms_per_step']} ms a step "
+              f"({r['config']}); launches {r['launches']} [{card}]", flush=True)
+    check({"photometric_chain": PK.launches, "rsp_augment": RK.launches} == fused(BENCH_LAUNCHES),
+          f"phase 17: the suite launched {PK.launches} chain and {RK.launches} fused kernels")
+
+    rows = bench_scaling.main([])
+    check(len(rows) == len(bench_scaling.CONFIGS), f"phase 17: bench_scaling gave {len(rows)} rows")
+    for r in rows:
+        launches[f"bench_scaling_{r['model']}_b{r['batch']}"] = r["launches"]
+        ok = positive(r["ms_per_step"]) and positive(r["patches_per_sec"])
+        check(ok and r["launches"] == fused(SCALING_LAUNCHES),
+              f"phase 17: bench_scaling {r}: want launches {fused(SCALING_LAUNCHES)}")
+        print(f"phase 17: bench_scaling {bench_scaling.row(r)}; launches {r['launches']} [{r['platform']}]",
+              flush=True)
+    print(f"phase 17: {time.time() - t_phase:.1f} s [{card}]", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke test of the PyTorch port on one NVIDIA GPU")
     ap.add_argument("--profile", default="",
@@ -3251,6 +3337,9 @@ def main() -> int:
 
         # phase 16: --multi_step, K train steps a chunk as CUDA-graph replays
         by_path.update(phase_multi_step(torch, tmp, slides, by_path.pop("_nccl_world1_run"), card, opts.profile))
+
+        # phase 17: the bench tools
+        by_path.update(phase_bench(torch, tmp, card))
 
     replaces = {"photometric_chain": "ssl_cr_histo_tpu/ops/pallas_photometric.py:199",
                 "rsp_augment": "ssl_cr_histo_tpu/ops/pallas_photometric.py:199"}

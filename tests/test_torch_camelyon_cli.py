@@ -7,7 +7,6 @@ checkpoint loads into the JAX package, whose forward agrees with the
 port's within 1e-5 (float32 logits).  Patch trees are written through
 tests/camelyon_fixtures.py; weights are the port's, seeded."""
 
-import shutil
 from types import SimpleNamespace
 
 import numpy as np
@@ -31,6 +30,7 @@ from ssl_cr_histo_tpu_torch.cli import consistency, finetune
 from ssl_cr_histo_tpu_torch.parallel import steps as TS
 from ssl_cr_histo_tpu_torch.train.checkpoint import save_checkpoint
 from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_triplet_state
+from torch_tmp import release, tmp_path  # noqa: F401  (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -43,15 +43,6 @@ def _one_torch_thread_a_file():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-@pytest.fixture(autouse=True)
-def _drop_checkpoints(tmp_path):
-    """Remove each test's temporary directory once it is done: the CLI
-    tests write ResNet checkpoints that they read once, and pytest keeps
-    its last three sessions' temporary directories."""
-    yield
-    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 SIZE = 32
@@ -69,7 +60,8 @@ def tree(tmp_path_factory):
     normal = write_patch_dir(root / "normal", class_entries("Normal_040", 500, 36, seed=3))
     vt = write_patch_dir(root / "tumor_valid", class_entries("Tumor_030", 50, 6, seed=4))
     vn = write_patch_dir(root / "normal_valid", class_entries("Normal_050", 500, 6, seed=5))
-    return {"train": f"{tumor},{normal}", "val": f"{vt},{vn}", "json": str(jsons), "root": root}
+    yield {"train": f"{tumor},{normal}", "val": f"{vt},{vn}", "json": str(jsons), "root": root}
+    release(root)
 
 
 def _bright(imgs) -> int:

@@ -21,6 +21,7 @@ from ssl_cr_histo_tpu_torch.cli import common as TC
 from ssl_cr_histo_tpu_torch.data import annotations as TA
 from ssl_cr_histo_tpu_torch.data import datasets as TD
 from ssl_cr_histo_tpu_torch.data import pipeline as TP
+from torch_tmp import release, tmp_path  # noqa: F401  (a fixture)
 
 
 # --- point in polygon ----------------------------------------------------------
@@ -167,7 +168,8 @@ def patch_tree(tmp_path_factory):
                             + class_entries("Tumor_026", 500, 3, seed=2) + class_entries("Tumor_010", 50, 4, seed=3))
     normal = write_patch_dir(root / "normal", class_entries("Normal_040", 500, 11, seed=4)
                              + class_entries("Normal_020", 500, 5, seed=5))
-    return str(tumor), str(normal), str(jsons)
+    yield str(tumor), str(normal), str(jsons)
+    release(root)
 
 
 def _load_both(tree, split, lazy=False, size=32):

@@ -9,7 +9,6 @@ made with numpy.  IMG 64 for the model steps (layer4 2x2, as in
 tests/test_torch_finetune.py)."""
 
 import os
-import shutil
 
 import numpy as np
 import pytest
@@ -33,6 +32,7 @@ from ssl_cr_histo_tpu_torch.parallel import steps as TS
 from ssl_cr_histo_tpu_torch.train import freeze as tfreeze
 from ssl_cr_histo_tpu_torch.train.checkpoint import from_jax_params, save_checkpoint
 from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_teacher, load_finetuned
+from torch_tmp import tmp_path  # noqa: F401  (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -45,15 +45,6 @@ def _one_torch_thread_a_file():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-@pytest.fixture(autouse=True)
-def _drop_checkpoints(tmp_path):
-    """Remove each test's temporary directory once it is done: the CLI
-    tests write ResNet checkpoints that they read once, and pytest keeps
-    its last three sessions' temporary directories."""
-    yield
-    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 IMG, B, MU, N_AUG = 64, 2, 2, 7
@@ -519,7 +510,6 @@ def test_cli_rejects_unported(tmp_path, extra, monkeypatch, one_torch_thread):
     assert state.model.model.remat is remat and len(blocks) == (2 * 8 if remat else 0)
     if extra == ["--reference_exact"]:
         assert args["bf16"] is False and args["with_replacement"] is True
-    shutil.rmtree(tmp_path, ignore_errors=True)  # its checkpoints: pytest keeps its last three runs' temp dirs
 
 
 @pytest.mark.parametrize("extra,message", [

@@ -29,6 +29,7 @@ from ssl_cr_histo_tpu_torch.ops import fused as TF
 from ssl_cr_histo_tpu_torch.ops import geometry as TG
 from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
 from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+from torch_tmp import tmp_path  # noqa: F401  (a fixture)
 
 GATES = (3, 5, 10, 13)  # hsv, noise, blur, brightness/contrast
 IMAGENET = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))

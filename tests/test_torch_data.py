@@ -13,6 +13,7 @@ from ssl_cr_histo_tpu.data import wsi as JW
 from ssl_cr_histo_tpu_torch import data as TD
 from ssl_cr_histo_tpu_torch.data import sampler as TS
 from ssl_cr_histo_tpu_torch.data import wsi as TW
+from torch_tmp import tmp_path  # noqa: F401  (a fixture)
 
 
 def _write_slides(d):

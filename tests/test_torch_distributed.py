@@ -38,6 +38,7 @@ from ssl_cr_histo_tpu_torch.train.checkpoint import from_jax_params
 
 import torch_dist_worker as W
 from test_torch_pretrain_step import _head_sd, _jax_step_f64, _numpy_params
+from torch_tmp import release
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -102,7 +103,8 @@ def bundle(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dist2")
     os.makedirs(tmp / "writes")
     inp = _bundle_inputs(str(tmp / "writes"))
-    return launch("bundle2", 2, inp, tmp), inp
+    yield launch("bundle2", 2, inp, tmp), inp
+    release(tmp)
 
 
 def _assert_state_close(got: dict, want: dict, what: str) -> None:
@@ -320,7 +322,9 @@ def four_ranks(tmp_path_factory):
     inp = {"sd": sd, "head_sd": head_sd, "tiles": data["tiles"], "labels": data["labels"],
            "x_jax": np.asarray(x_jax, np.float64),
            "draws": {k: torch.from_numpy(data[k]) for k in ("geo", "params", "noise")}}
-    return launch("pretrain4", 4, inp, tmp_path_factory.mktemp("dist4")), x_jax, want, params, stats
+    tmp = tmp_path_factory.mktemp("dist4")
+    yield launch("pretrain4", 4, inp, tmp), x_jax, want, params, stats
+    release(tmp)
 
 
 def _misses(res: dict, want, params, stats) -> list:

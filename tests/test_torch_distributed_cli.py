@@ -6,7 +6,6 @@ on two processes, ``--mode evaluation`` and the heatmap CLI on two.  Only
 rank 0 writes."""
 
 import os
-import shutil
 import subprocess
 import sys
 
@@ -17,6 +16,7 @@ import torch
 from ssl_cr_histo_tpu_torch.cli.common import TASKS, make_optimizer
 from ssl_cr_histo_tpu_torch.train.checkpoint import save_checkpoint
 from ssl_cr_histo_tpu_torch.train.init import init_finetune_state
+from torch_tmp import release
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -91,7 +91,7 @@ def pretrain_runs(tmp_path_factory):
     records = {n: launch(n, tmp / f"world{n}", [("pretrain", args + ["--save_dir", str(tmp / f"world{n}_run")])])[0]
                for n in (1, 2)}
     yield tmp, records
-    shutil.rmtree(tmp, ignore_errors=True)  # six ResNet checkpoints, read by this module only
+    release(tmp)
 
 
 def _ckpt(run):
@@ -240,7 +240,8 @@ def serving_runs(tmp_path_factory):
     finally:
         finetune.predict_all = predict_all
         torch.set_num_threads(threads)
-    return tmp, {"outputs": outputs, "maps": maps}, launch(2, tmp / "world2", commands("world2"))
+    yield tmp, {"outputs": outputs, "maps": maps}, launch(2, tmp / "world2", commands("world2"))
+    release(tmp)
 
 
 def test_evaluation_on_two_processes_matches_one(serving_runs):

@@ -40,6 +40,7 @@ from ssl_cr_histo_tpu_torch.eval import metrics as TM
 from ssl_cr_histo_tpu_torch.eval import reporting as TR
 from ssl_cr_histo_tpu_torch.train.checkpoint import from_jax_params, save_checkpoint
 from ssl_cr_histo_tpu_torch.train.init import init_finetune_state
+from torch_tmp import release, tmp_path  # noqa: F401  (a fixture)
 
 S, BATCH = 32, 4
 TASK_NAMES = ("kather", "breastpathq", "camelyon16")
@@ -108,9 +109,10 @@ def test_sets(tmp_path_factory):
     entries = class_entries("Tumor_026", 50, 6, seed=1) + class_entries("Normal_040", 50, 6, seed=2)
     write_patch_dir(c16 / "test", entries)
     write_annotation_jsons(c16 / "json")
-    return {"kather": {"test_path": str(kather)},
-            "breastpathq": {"test_path": str(root / "bpq_a"), "test_path_b": str(root / "bpq_b")},
-            "camelyon16": {"test_path": str(c16 / "test"), "json_path": str(c16 / "json")}}
+    yield {"kather": {"test_path": str(kather)},
+           "breastpathq": {"test_path": str(root / "bpq_a"), "test_path_b": str(root / "bpq_b")},
+           "camelyon16": {"test_path": str(c16 / "test"), "json_path": str(c16 / "json")}}
+    release(root)
 
 
 def _jax_state(weights, n):
@@ -188,7 +190,9 @@ def evaluated(weights, test_sets, tmp_path_factory):
                                 out=np.asarray(jlogits)[:, 0] if task == "breastpathq" else jlogits)
         out[task] = SimpleNamespace(root=root, report=report, out=seen[0], jlogits=np.asarray(jlogits),
                                     jreport=jreport, labels=np.asarray(jds.labels))
-    return out
+    yield out
+    for e in out.values():
+        release(e.root)
 
 
 @pytest.mark.parametrize("task", TASK_NAMES)

@@ -10,7 +10,6 @@ and handed to the port.  IMG 64 for the model steps (layer4 2x2, see
 tests/test_torch_pretrain_step.py)."""
 
 import os
-import shutil
 
 import numpy as np
 import pytest
@@ -43,6 +42,7 @@ from ssl_cr_histo_tpu_torch.train import freeze as tfreeze
 from ssl_cr_histo_tpu_torch.train import optim as toptim
 from ssl_cr_histo_tpu_torch.train.checkpoint import _torch_name, from_jax_params
 from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, load_backbone
+from torch_tmp import release, tmp_path  # noqa: F401  (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -55,15 +55,6 @@ def _one_torch_thread_a_file():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-@pytest.fixture(autouse=True)
-def _drop_checkpoints(tmp_path):
-    """Remove each test's temporary directory once it is done: the CLI
-    tests write ResNet checkpoints that they read once, and pytest keeps
-    its last three sessions' temporary directories."""
-    yield
-    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 IMG, B = 64, 4
@@ -572,7 +563,7 @@ def plain_run(tmp_path_factory):
     finally:
         torch.set_num_threads(n)
     yield run
-    shutil.rmtree(root, ignore_errors=True)  # its checkpoints: pytest keeps its last three runs' temp dirs
+    release(root)
 
 
 @pytest.fixture
@@ -607,7 +598,6 @@ def test_cli_rejects_unported(tmp_path, extra, plain_run, monkeypatch, one_torch
     args = torch.load(run / "best.pth", weights_only=False)["meta"]["args"]
     final, plain = (torch.load(r / "final.pth", weights_only=False) for r in (run, plain_run))
     assert (len(blocks) > 0) is (extra == ["--remat"]) and len(blocks) % 8 == 0
-    shutil.rmtree(tmp_path, ignore_errors=True)  # its checkpoints: pytest keeps its last three runs' temp dirs
     if extra == ["--reference_exact"]:
         assert (args["bf16"], args["aug_mode"], args["with_replacement"]) == (False, "exact", True)
         return

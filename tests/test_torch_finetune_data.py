@@ -19,6 +19,7 @@ from ssl_cr_histo_tpu.eval import metrics as JM
 from ssl_cr_histo_tpu_torch.data import datasets as TD
 from ssl_cr_histo_tpu_torch.data import pipeline as TP
 from ssl_cr_histo_tpu_torch.eval import metrics as TM
+from torch_tmp import release
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -45,7 +46,8 @@ def kather_dir(tmp_path_factory):
         for i in range(5):
             img = rng.integers(0, 256, (40, 40, 3), dtype=np.uint8)
             cv2.imwrite(str(d / f"p{i}.{'tif' if i % 2 else 'png'}"), img)
-    return str(root)
+    yield str(root)
+    release(root)
 
 
 @pytest.fixture(scope="module")
@@ -58,7 +60,8 @@ def bpq_dir(tmp_path_factory):
         with h5py.File(root / f"train_{j}.h5", "w") as f:
             f["x"] = rng.random((7, 3, 40, 40)).astype(np.float32)
             f["y"] = rng.random((7, 1)).astype(np.float32)
-    return str(root)
+    yield str(root)
+    release(root)
 
 
 def _equal_ds(got, want):

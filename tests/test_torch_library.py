@@ -18,6 +18,7 @@ from ssl_cr_histo_tpu.utils import profiling as JP
 from ssl_cr_histo_tpu_torch.ops import color as TC
 from ssl_cr_histo_tpu_torch.train import optim as TO
 from ssl_cr_histo_tpu_torch.utils import profiling as TP
+from torch_tmp import tmp_path  # noqa: F401  (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -18,7 +18,6 @@ import argparse
 import importlib
 import os
 import pkgutil
-import shutil
 
 import numpy as np
 import pytest
@@ -41,6 +40,7 @@ from ssl_cr_histo_tpu_torch.data import pipeline as TP
 from ssl_cr_histo_tpu_torch.parallel import steps as TS
 from ssl_cr_histo_tpu_torch.train.checkpoint import from_jax_params, save_checkpoint
 from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_teacher, init_triplet_state
+from torch_tmp import release, tmp_path  # noqa: F401  (a fixture)
 
 CPU = torch.device("cpu")
 K, STEPS = 3, 7
@@ -55,15 +55,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-@pytest.fixture(autouse=True)
-def _drop_checkpoints(tmp_path):
-    """The CLI tests write ResNet checkpoints that they read once: remove
-    them after the test (pytest keeps its last three sessions' temp
-    directories)."""
-    yield
-    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _same(a, b, where=""):
@@ -383,7 +374,7 @@ def data(tmp_path_factory):
     ft = str(root / "ft" / "best.pth")
     save_checkpoint(ft, state, {"epoch": 1})
     yield slides, kather, ft
-    shutil.rmtree(root, ignore_errors=True)
+    release(root)
 
 
 def _loads_in_jax(path, head: bool):

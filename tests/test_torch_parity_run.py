@@ -12,12 +12,12 @@ import argparse
 import json
 import math
 import os
-import shutil
 import sys
 
 import numpy as np
 import pytest
 import torch
+from torch_tmp import tmp_path  # noqa: F401  (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -375,7 +375,6 @@ def test_dryrun_end_to_end_on_cpu(tmp_path, two_torch_threads):
     assert os.path.isfile(tmp_path / "w" / "stage1" / "ckpt_1.pth")
     assert report["config"]["pretrained"] == str(tmp_path / "w" / "stage1" / "ckpt_1.pth")
     assert json.loads(out.read_text())["table"] == report["table"]
-    shutil.rmtree(tmp_path / "w")  # ~650 MB of checkpoints: pytest keeps the temp dirs of its last three runs
 
 
 @pytest.mark.slow
@@ -389,4 +388,3 @@ def test_full_dryrun_on_cpu(tmp_path, two_torch_threads, task, extra):
                      "--device", "cpu", "--workdir", str(tmp_path / "w"), "--out", str(tmp_path / "out.json"),
                      *extra])
     check_report(report, task, [0.1, 1.0])
-    shutil.rmtree(tmp_path / "w")

@@ -11,7 +11,6 @@ float noise (the instability of tests/test_torch_training_parity.py's
 32^2 step)."""
 
 import os
-import shutil
 import subprocess
 import sys
 
@@ -39,6 +38,7 @@ from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
 from ssl_cr_histo_tpu_torch.parallel import steps as TS
 from ssl_cr_histo_tpu_torch.train.checkpoint import from_jax_params
 from ssl_cr_histo_tpu_torch.train.init import init_triplet_state
+from torch_tmp import tmp_path  # noqa: F401  (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -51,15 +51,6 @@ def _one_torch_thread_a_file():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-@pytest.fixture(autouse=True)
-def _drop_checkpoints(tmp_path):
-    """Remove each test's temporary directory once it is done: the CLI
-    tests write ResNet checkpoints that they read once, and pytest keeps
-    its last three sessions' temporary directories."""
-    yield
-    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 IMG, B = 64, 4
@@ -576,13 +567,15 @@ def test_cli_runs_each_flag(tmp_path, extra, monkeypatch, one_torch_thread):
     strict = extra == ["--reference_exact"]
     assert (labels is not None, kw["joint_encode"], kw["bf16"]) == (strict, not strict, False)
     assert len(blocks) == (2 * 8 if extra == ["--remat"] else 0)
-    shutil.rmtree(tmp_path, ignore_errors=True)  # its checkpoint: pytest keeps its last three runs' temp dirs
 
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import without jax,
     flax, optax or chex, and without any module of the JAX package
-    (``ssl_cr_histo_tpu``, even its numpy-only ones); nor do they load cv2,
+    (``ssl_cr_histo_tpu``, even its numpy-only ones); the port's bench tools
+    (``tools/bench.py``, ``bench_suite.py``, ``bench_scaling.py``,
+    ``reference_baseline.py``) load neither the repo's ``bench.py`` nor
+    any of its ``tools/``; nor do they load cv2,
     h5py, matplotlib or scikit-learn, which the GPU machine may lack (the
     functions that read images or .h5 files, or draw, import them).  A subprocess: this test process
     has jax loaded (tests/conftest.py)."""
@@ -598,6 +591,11 @@ def test_port_imports_no_jax():
         "assert not jax_pkg, jax_pkg\n"
         "optional = sorted(k for k in sys.modules if k.split('.')[0] in ('cv2', 'h5py', 'matplotlib', 'sklearn'))\n"
         "assert not optional, optional\n"
+        "for name in ('bench', 'bench_suite', 'bench_scaling', 'reference_baseline'):\n"
+        "    assert 'ssl_cr_histo_tpu_torch.tools.' + name in sys.modules, name\n"
+        "jax_tools = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "                   ('bench', 'tools', 'bench_suite', 'bench_scaling', 'measure_reference_baseline'))\n"
+        "assert not jax_tools, jax_tools\n"
         "print('ok', len([k for k in sys.modules if k.startswith('ssl_cr_histo_tpu_torch')]))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

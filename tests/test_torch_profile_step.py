@@ -14,6 +14,7 @@ import torch
 from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
 from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
 from ssl_cr_histo_tpu_torch.tools import profile_step as P
+from torch_tmp import tmp_path  # noqa: F401  (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 from ssl_cr_histo_tpu_torch.tools import quality_gate as Q
+from torch_tmp import release, tmp_path  # noqa: F401  (a fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -187,7 +188,9 @@ def test_main_names_the_failed_gate_and_defaults_to_cuda(tmp_path, monkeypatch):
 
 @pytest.fixture(scope="module")
 def gate_root(tmp_path_factory):
-    return Q.make_gate_data(str(tmp_path_factory.mktemp("quality_gate")))
+    root = tmp_path_factory.mktemp("quality_gate")
+    yield Q.make_gate_data(str(root))
+    release(root)
 
 
 @pytest.mark.slow

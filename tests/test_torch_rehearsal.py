@@ -21,6 +21,7 @@ import rehearsal as R  # noqa: E402  (tools/ path injected above)
 
 from ssl_cr_histo_tpu_torch.data import datasets as TD
 from ssl_cr_histo_tpu_torch.tools import rehearsal as P
+from torch_tmp import tmp_path  # noqa: F401  (a fixture)
 
 
 def tree_bytes(root: str) -> dict:

@@ -8,7 +8,6 @@ loadfile`` spreads it apart from ``tests/test_torch_rehearsal.py``."""
 import json
 import math
 import os
-import shutil
 
 import numpy as np
 import pytest
@@ -17,6 +16,7 @@ import torch
 from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
 from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
 from ssl_cr_histo_tpu_torch.tools import rehearsal as P
+from torch_tmp import tmp_path  # noqa: F401  (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -29,15 +29,6 @@ def _one_torch_thread_a_file():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-@pytest.fixture(autouse=True)
-def _drop_checkpoints(tmp_path):
-    """Remove each test's temporary directory once it is done: the CLI
-    tests write ResNet checkpoints that they read once, and pytest keeps
-    its last three sessions' temporary directories."""
-    yield
-    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(autouse=True)

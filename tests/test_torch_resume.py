@@ -11,7 +11,6 @@ batch 2 to 4.
 """
 
 import os
-import shutil
 
 import numpy as np
 import pytest
@@ -39,6 +38,7 @@ from ssl_cr_histo_tpu_torch.parallel import steps as TS
 from ssl_cr_histo_tpu_torch.train.checkpoint import from_jax_params, latest_checkpoint, save_checkpoint
 from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_teacher, init_triplet_state
 from ssl_cr_histo_tpu_torch.train.loop import BestTracker
+from torch_tmp import release, tmp_path  # noqa: F401  (a fixture)
 
 CPU = torch.device("cpu")
 
@@ -53,15 +53,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-@pytest.fixture(autouse=True)
-def _drop_checkpoints(tmp_path):
-    """Each CLI test here writes up to ~1 GB of checkpoints, and pytest keeps
-    the temporary directories of its last three sessions: remove them once
-    the test has read them."""
-    yield
-    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _same(a, b, where=""):
@@ -156,9 +147,11 @@ def _write_slides(d):
 
 @pytest.fixture(scope="module")
 def slides(tmp_path_factory):
-    d = str(tmp_path_factory.mktemp("resume_wsis") / "wsis")
+    root = tmp_path_factory.mktemp("resume_wsis")
+    d = str(root / "wsis")
     _write_slides(d)
-    return d
+    yield d
+    release(root)
 
 
 def _pretrain(slides, save_dir, *extra):
@@ -348,7 +341,8 @@ def kather(tmp_path_factory):
     state = init_finetune_state("resnet18", cfg.num_classes, CPU, lambda ps: make_optimizer("adam", ps, cfg.lr))
     ft = str(root / "ft" / "best.pth")
     save_checkpoint(ft, state, {"epoch": 1})
-    return data, ft
+    yield data, ft
+    release(root)
 
 
 def test_finetune_resume_equals_an_uninterrupted_run(kather, tmp_path):

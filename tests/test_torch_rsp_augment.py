@@ -29,6 +29,7 @@ from ssl_cr_histo_tpu_torch.ops import geometry as TG
 from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
 from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
 from ssl_cr_histo_tpu_torch.parallel import steps as TS
+from torch_tmp import tmp_path  # noqa: F401  (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
