@@ -9,7 +9,8 @@ mode, v2 pretraining, --reference_exact and --remat, the pretrain CLI and
 step across processes (a world of one over NCCL, of two over gloo on the
 one card), the three tasks' full recipes at the config of record held to
 their quality bands, the label-efficiency protocol's dryrun, the step
-profiler and the label-efficiency gate, runs the bench tools, and times the
+profiler and the label-efficiency gate, runs the bench tools, carries
+checkpoints of the JAX package's format to the port's CLIs, and times the
 steps, the serving forward, evaluation and the kernels.
 
     python3 chip_smoke.py                    # from the root of a checkout, on a GPU machine
@@ -226,13 +227,30 @@ Phases (any failure exits non-zero and prints no result line):
      finite and positive, no FAILED row; the fused kernel launched 32 times
      by each pretrain measurement, 16 by each scaling config and never by
      the other measurements, the chain kernel never
- 18. the whole run's wall time, the kernels line, then ``{"ok": true,
+ 18. checkpoints the JAX package trained (``phase_jax_checkpoint``): phase
+     5's pretrain ``ckpt_1.pth`` (SGD-Nesterov, Lookahead, a Classifier)
+     and phase 9's Camelyon16 fine-tune ``best.pth`` (Adam, a 2-way head)
+     written as the JAX package's checkpoint directories (the card's
+     machine has no flax: ``msgpack_pack`` and ``jax_tree``, the inverse of
+     ``from_jax_params``, write the format here), each converted back by
+     ``python3 -m ssl_cr_histo_tpu_torch.cli.convert_checkpoint`` in a
+     process of its own: every tensor bit-equal to the source's but
+     ``num_batches_tracked`` (0, as the JAX tool writes it), the epoch
+     kept; the heatmap CLI over the tumor slide from the fine-tune
+     directory against the ``.pth`` (maps bit-equal, or within 1e-6 with
+     the reason printed); the Camelyon16 fine-tune CLI for its 4 steps
+     with ``--model_path`` the pretrain directory; each CLI with every
+     launch counter at 0 before and read after (neither kernel may
+     launch); the conversion's wall for the resnet18 directories and a
+     resnet50 one from a fresh state with Adam's moments (as a process,
+     and read / to the reference layout / ``torch.save`` in this one)
+ 19. the whole run's wall time, the kernels line, then ``{"ok": true,
      "device": {...}}`` as the last line.  A kernel's ``launches`` is phase
      5's count (the main path); ``launches_by_path`` adds each CLI path of
      phases 10 and 11, each process of phase 12's paths, each stage of
      phase 13's recipes and phase 14's dryruns, ``profile_step`` and each
-     gate of phase 15, each run of phase 16 and each measurement of phase
-     17, each counted from 0
+     gate of phase 15, each run of phase 16, each measurement of phase 17
+     and each CLI run of phase 18, each counted from 0
 
 Imports nothing of JAX and nothing of the JAX package.  Tolerance 1e-4
 (phases 3-4) on outputs in [0, 1]: the kernels and PyTorch's CUDA ops
@@ -251,6 +269,7 @@ import json
 import math
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1120,7 +1139,7 @@ def check_no_launch(PK, RK, label: str) -> dict:
 
 
 def phase_camelyon(torch, dev, tmp: str, pretrain_ckpt: str, card: str, profile_dir: str, patch: int = 256,
-                   slide: int = 8192, resolution: int = 64) -> None:
+                   slide: int = 8192, resolution: int = 64) -> dict:
     """Phase 9: Camelyon16 from the pretrain checkpoint to a scored heatmap.
     The fine-tune CLI (--task camelyon16, 16 images a pool, 256^2, bf16,
     SGD-Nesterov 5e-4) for one epoch of 4 steps, then the consistency CLI
@@ -1132,7 +1151,7 @@ def phase_camelyon(torch, dev, tmp: str, pretrain_ckpt: str, card: str, profile_
     the maps; then the steps, the serving forward and each map's wall
     time (against the sum of its forwards) timed with CUDA events.  The
     sizes are parameters so that a CPU rehearsal can shrink them; the card
-    runs the defaults."""
+    runs the defaults.  Returns the data's paths (``write_camelyon``)."""
     import numpy as np
     import scipy
 
@@ -1236,7 +1255,7 @@ def phase_camelyon(torch, dev, tmp: str, pretrain_ckpt: str, card: str, profile_
     print("phase 9: FROC report " + json.dumps(rep), flush=True)
 
     if cpu:  # a rehearsal on the CPU stops here: the rest compares with the card and times it
-        return
+        return d
     # one map card vs CPU in float32, on a crop of the tumor slide (half of it tissue)
     crop, iters = 2048, 20
     level0 = np.load(os.path.join(d["wsi"], "tumor_001.npy"))
@@ -1332,6 +1351,7 @@ def phase_camelyon(torch, dev, tmp: str, pretrain_ckpt: str, card: str, profile_
             print(f"profile: map {name}, device time {device_ms:.3f} ms against {wall_ms:.3f} ms of wall "
                   f"({device_ms / wall_ms * 100:.1f}% busy, profiled); table in {profile_dir}/heatmap_profile.txt "
                   f"[{card}]", flush=True)
+    return d
 
 
 @contextlib.contextmanager
@@ -3161,6 +3181,268 @@ def phase_bench(torch, tmp: str, card: str) -> dict:
     return launches
 
 
+def _msgpack_header(n: int, fix: int, fix_max: int, wide: tuple) -> bytes:
+    """A msgpack length header: ``fix | n`` below ``fix_max``, else the 8-,
+    16- or 32-bit form whose first byte ``wide`` gives (None: no such form)."""
+    if n < fix_max:
+        return bytes([fix | n])
+    for code, fmt, limit in zip(wide, (">B", ">H", ">I"), (1 << 8, 1 << 16, 1 << 32)):
+        if code is not None and n < limit:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"a msgpack object of length {n}")
+
+
+def msgpack_pack(obj) -> bytes:
+    """``obj`` in the encoding of ``flax.serialization.msgpack_serialize``
+    (flax 0.12.3 ``serialization.py:249-315``; no leaf here reaches its
+    1 GiB chunking): str-keyed dicts (their keys sorted, as JAX's tree
+    flattening leaves them), lists, None, bools, ints, floats, str,
+    bytes, numpy arrays (ext type 1, whose payload is msgpack of (shape,
+    dtype name, C-order bytes)) and numpy scalars (ext type 3).  The card's
+    machine has neither flax nor ``msgpack``, so phase 18 writes the JAX
+    package's checkpoints with this; the port only reads them
+    (``ssl_cr_histo_tpu_torch/utils/flax_msgpack.py``)."""
+    import numpy as np
+
+    if obj is None or isinstance(obj, bool):
+        return bytes([{None: 0xC0, False: 0xC2, True: 0xC3}[obj]])
+    if isinstance(obj, (np.ndarray, np.generic)):
+        a = np.asarray(obj)
+        payload = msgpack_pack([list(a.shape), a.dtype.name, a.tobytes()])
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}.get(len(payload))
+        head = bytes([fixext]) if fixext else _msgpack_header(len(payload), 0, 0, (0xC7, 0xC8, 0xC9))
+        return head + bytes([1 if isinstance(obj, np.ndarray) else 3]) + payload
+    if isinstance(obj, int):
+        if -32 <= obj < 128:
+            return struct.pack(">b", obj)
+        forms = ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")) if obj >= 0 else \
+            ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q"))
+        for code, fmt in forms:
+            with contextlib.suppress(struct.error):
+                return bytes([code]) + struct.pack(fmt, obj)
+        raise ValueError(f"the integer {obj} is wider than msgpack's 64 bits")
+    if isinstance(obj, float):
+        return b"\xcb" + struct.pack(">d", obj)
+    if isinstance(obj, str):
+        data = obj.encode()
+        return _msgpack_header(len(data), 0xA0, 32, (0xD9, 0xDA, 0xDB)) + data
+    if isinstance(obj, bytes):
+        return _msgpack_header(len(obj), 0, 0, (0xC4, 0xC5, 0xC6)) + obj
+    if isinstance(obj, (list, tuple)):
+        return _msgpack_header(len(obj), 0x90, 16, (None, 0xDC, 0xDD)) + b"".join(map(msgpack_pack, obj))
+    if isinstance(obj, dict):
+        return _msgpack_header(len(obj), 0x80, 16, (None, 0xDE, 0xDF)) + b"".join(
+            msgpack_pack(k) + msgpack_pack(v) for k, v in sorted(obj.items()))
+    raise TypeError(f"msgpack_pack: a {type(obj).__name__}")
+
+
+def jax_tree(model_sd: dict, head_sd: dict) -> tuple:
+    """The inverse of ``train.checkpoint.from_jax_params``: a TripletNet
+    state_dict and a head's (a Classifier's ``classifier.{0,2}``, a
+    FinetuneHead's ``classifier.0``) -> the JAX package's ``params``
+    ({'model': {'backbone', 'fc'}, 'head'}) and ``batch_stats``
+    ({'backbone'}) as numpy trees: conv kernels OIHW -> HWIO, Dense kernels
+    transposed, BatchNorm weight / bias / running_mean / running_var ->
+    scale / bias / mean / var, ``num_batches_tracked`` dropped (flax keeps
+    none)."""
+    params, stats = {"model": {"backbone": {}, "fc": {}}}, {"backbone": {}}
+
+    def put(tree, path, value):
+        for k in path[:-1]:
+            tree = tree.setdefault(k, {})
+        tree[path[-1]] = value
+
+    def dense(tree, layer, leaf, v):
+        put(tree, [layer, "kernel" if leaf == "weight" else "bias"], v.T if leaf == "weight" else v)
+
+    for name, t in model_sd.items():
+        v, parts = t.detach().cpu().numpy(), name.split(".")
+        if parts[0] == "fc":  # the pair MLP's fc.0 and fc.2
+            dense(params["model"]["fc"], {"0": "fc1", "2": "fc2"}[parts[1]], parts[2], v)
+            continue
+        mods, leaf = parts[1:-1], parts[-1]
+        if leaf == "num_batches_tracked":
+            continue
+        if mods[0].startswith("layer"):  # layer1.0.conv1 -> layer1_0/conv1
+            mods = [f"{mods[0]}_{mods[1]}"] + mods[2:]
+        if "downsample" in mods:
+            i = mods.index("downsample")
+            mods[i: i + 2] = [{"0": "downsample_conv", "1": "downsample_bn"}[mods[i + 1]]]
+        if leaf in ("running_mean", "running_var"):
+            put(stats["backbone"], mods + [leaf[len("running_"):]], v)
+        elif leaf == "weight" and v.ndim == 4:
+            put(params["model"]["backbone"], mods + ["kernel"], v.transpose(2, 3, 1, 0))
+        else:
+            put(params["model"]["backbone"], mods + ["scale" if leaf == "weight" else "bias"], v)
+    layers = {"0": "fc"} if {k.split(".")[1] for k in head_sd} == {"0"} else {"0": "fc1", "2": "fc2"}
+    for name, t in head_sd.items():
+        _, i, leaf = name.split(".")
+        dense(params.setdefault("head", {}), layers[i], leaf, t.detach().cpu().numpy())
+    return params, stats
+
+
+def write_jax_checkpoint(path: str, model_sd: dict, head_sd: dict, optimizer: str, epoch: int, step: int) -> None:
+    """A checkpoint directory as the JAX package's ``save_checkpoint``
+    writes it (``ssl_cr_histo_tpu/train/checkpoint.py:32-55``):
+    ``checkpoint.msgpack``, its ``TrainState`` as a state dict (params and
+    batch_stats from ``jax_tree``; the optimizer's state at its real size,
+    zeros: SGD-Nesterov's trace and Lookahead's slow weights (``sgd``), or
+    Adam's moments without Lookahead), and ``meta.json``."""
+    import numpy as np
+
+    params, stats = jax_tree(model_sd, head_sd)
+    zeros = lambda t: {k: zeros(v) if isinstance(v, dict) else np.zeros_like(v) for k, v in t.items()}  # noqa: E731
+    if optimizer == "sgd":  # optax's chain as the JAX package builds it, as a state dict
+        opt = {"0": {}, "1": {"0": {"trace": zeros(params)}, "1": {}}}
+        slow, la_count = jax_tree(model_sd, head_sd)[0], np.zeros((), np.int32)
+    else:
+        opt = {"0": {"count": np.asarray(step, np.int32), "mu": zeros(params), "nu": zeros(params)}, "1": {}}
+        slow = la_count = None
+    state = {"params": params, "batch_stats": stats, "opt_state": opt, "step": np.asarray(step, np.int32),
+             "slow_params": slow, "la_count": la_count}
+    os.makedirs(path)
+    with open(os.path.join(path, "checkpoint.msgpack"), "wb") as f:
+        f.write(msgpack_pack(state))
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump({"epoch": epoch, "step": step}, f, indent=2)
+
+
+def phase_jax_checkpoint(torch, dev, tmp: str, pretrain_ckpt: str, finetune_ckpt: str, d: dict, card: str,
+                         patch: int = 256) -> dict:
+    """Phase 18: checkpoints the JAX package trained, carried to the port
+    without JAX.  Phase 5's pretrain ``ckpt_1.pth`` (SGD-Nesterov,
+    Lookahead, a Classifier head) and phase 9's Camelyon16 fine-tune
+    ``best.pth`` (Adam, a 2-way FinetuneHead) are written as the JAX
+    package's checkpoint directories (``write_jax_checkpoint``), and
+    ``python3 -m ssl_cr_histo_tpu_torch.cli.convert_checkpoint`` carries
+    each back, a process each: every tensor bit-equal to the source's but
+    ``num_batches_tracked`` (0, as the JAX tool writes it), the epoch kept.
+    Then the heatmap CLI over the tumor slide with ``--finetune_ckpt`` the
+    fine-tune directory and the ``.pth`` (maps bit-equal, or within 1e-6
+    with the reason printed), and the Camelyon16 fine-tune CLI for its 4
+    steps with ``--model_path`` the pretrain directory, each with every
+    launch counter at 0 before and read after (neither kernel may launch).
+    Last, the conversion of a resnet50 directory (a fresh port state with
+    Adam's moments) as a process and in this one (read, to the reference
+    layout, ``torch.save``).  ``d``: phase 9's data (``write_camelyon``).
+    Returns each CLI path's launches."""
+    import numpy as np
+
+    from ssl_cr_histo_tpu_torch.cli import finetune
+    from ssl_cr_histo_tpu_torch.cli import heatmap as heatmap_cli
+    from ssl_cr_histo_tpu_torch.cli.common import make_optimizer
+    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
+    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+    from ssl_cr_histo_tpu_torch.train.checkpoint import jax_to_reference, read_jax_checkpoint
+    from ssl_cr_histo_tpu_torch.train.init import init_finetune_state
+
+    t_phase = time.time()
+    cpu = dev.type == "cpu"
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+    common = ["--model", "resnet18", "--device", dev.type] + (["--image_size", str(patch)] if cpu else [])
+    launches = {}
+
+    def carry(src: dict, optimizer: str, label: str) -> str:
+        """``src`` written as a JAX directory, converted back by the CLI in a
+        process of its own and held to ``src``; returns the directory."""
+        jax_dir = os.path.join(tmp, f"jax_{label}")
+        epoch = src.get("meta", {}).get("epoch", 0)
+        write_jax_checkpoint(jax_dir, src["model"], src["classifier"], optimizer, epoch, src.get("step", 0))
+        out = jax_dir + ".pt"
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-m", "ssl_cr_histo_tpu_torch.cli.convert_checkpoint", "--input",
+                               jax_dir, "--output", out], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                              capture_output=True, text=True, timeout=600)
+        wall = time.time() - t0
+        check(proc.returncode == 0, f"phase 18: convert_checkpoint {label} exited {proc.returncode}: "
+                                    f"{proc.stderr[-3000:]}")
+        got = torch.load(out, map_location="cpu", weights_only=False)
+        check(got["epoch"] == epoch, f"phase 18: {label}: epoch {got['epoch']}, want {epoch}")
+        for part in ("model", "classifier"):
+            check(set(got[part]) == set(src[part]), f"phase 18: {label}: the {part} keys differ: "
+                                                    f"{sorted(set(got[part]) ^ set(src[part]))}")
+            for k, want in src[part].items():
+                g = got[part][k]
+                same = (g.dtype == torch.int64 and g.dim() == 0 and int(g) == 0) if k.endswith(
+                    "num_batches_tracked") else (g.dtype == want.dtype and torch.equal(g, want.cpu()))
+                check(same, f"phase 18: {label}: {part}[{k}] is not the source's")
+        size = os.path.getsize(os.path.join(jax_dir, "checkpoint.msgpack"))
+        print(f"phase 18: convert_checkpoint {label} ({size} bytes of checkpoint.msgpack): "
+              f"{len(got['model']) + len(got['classifier'])} tensors bit-equal "
+              f"to the source .pth's (num_batches_tracked 0), epoch {epoch}; {wall:.3f} s wall as a process "
+              f"({proc.stdout.strip()}) [{card}]", flush=True)
+        return jax_dir
+
+    load = lambda p: torch.load(p, map_location="cpu", weights_only=False)  # noqa: E731
+    jax_pretrain = carry(load(pretrain_ckpt), "sgd", "pretrain_resnet18")
+    jax_finetune = carry(load(finetune_ckpt), "adam", "finetune_resnet18")
+
+    # the heatmap CLI over the tumor slide from the JAX directory and from the .pth
+    one = {k: os.path.join(tmp, f"p18_{k}") for k in ("wsi", "mask")}
+    for k, name in (("wsi", "tumor_001.npy"), ("mask", "tumor_001_tissue.npy")):
+        os.makedirs(one[k])
+        os.symlink(os.path.join(d[k], name), os.path.join(one[k], name))
+    maps, walls = {}, {}
+    for route, ckpt in (("jax_dir", jax_finetune), ("pth", finetune_ckpt)):
+        argv = ["--test_image_pth", one["wsi"], "--test_mask_pth", one["mask"], "--probs_map_path",
+                os.path.join(tmp, f"p18_maps_{route}"), "--finetune_ckpt", ckpt, "--batch_size", "256"] + common
+        PK.launches = RK.launches = 0
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            maps[route] = heatmap_cli.main(argv)["tumor_001"]
+        sync()
+        walls[route] = time.time() - t0
+        launches[f"jax_checkpoint_heatmap_{route}"] = check_no_launch(PK, RK, f"heatmap from the {route}")
+    diff = float(np.abs(maps["jax_dir"] - maps["pth"]).max())
+    why = "" if diff == 0 else (f" (the same weights and patches: cuDNN chose another algorithm in one of the "
+                                f"two runs; cudnn.deterministic {torch.backends.cudnn.deterministic})")
+    print(f"phase 18: heatmap CLI over tumor_001 ({maps['pth'].size} cells) with --finetune_ckpt the JAX directory "
+          f"/ the .pth: {walls['jax_dir']:.3f} / {walls['pth']:.3f} s wall; maps' max abs diff {diff:.3e}{why} "
+          f"[{card}]", flush=True)
+    check(diff <= 1e-6, f"phase 18: the map from the JAX directory differs from the .pth's by {diff}")
+
+    # the fine-tune CLI from the pretrain JAX directory
+    run = os.path.join(tmp, "p18_finetune")
+    argv = ["--task", "camelyon16", "--train_path", f"{d['tumor']},{d['normal']}", "--json_path", d["json"],
+            "--val_path", f"{d['tumor_valid']},{d['normal_valid']}", "--model_path", jax_pretrain,
+            "--save_dir", run, "--num_epoch", "1", "--save_freq", "1"] + common
+    print("phase 18: fine-tune CLI " + " ".join(argv), flush=True)
+    PK.launches = RK.launches = 0
+    t0 = time.time()
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        finetune.main(argv)
+    sync()
+    wall = time.time() - t0
+    launches["jax_checkpoint_finetune"] = check_no_launch(PK, RK, "fine-tune from a JAX directory")
+    check(f"loaded pretrained backbone from {jax_pretrain}" in tee.buf.getvalue(),
+          "phase 18: the fine-tune CLI did not load the JAX directory")
+    with open(os.path.join(run, "fine_tuned_results.csv")) as f:
+        row = f.read().splitlines()[1]
+    ckpt = load(os.path.join(run, "final.pth"))
+    check(all(math.isfinite(float(v)) for v in row.split(",")) and ckpt["step"] == 4,
+          f"phase 18: fine-tune from the JAX directory: CSV {row}, step {ckpt['step']}")
+    print(f"phase 18: fine-tune CLI from the JAX directory: 4 steps in {wall:.2f} s wall, CSV (epoch, train_loss, "
+          f"val_err) {row}, kernel launches {launches['jax_checkpoint_finetune']} [{card}]", flush=True)
+
+    # resnet50: a fresh port state as a JAX directory with Adam's moments
+    torch.manual_seed(0)
+    state = init_finetune_state("resnet50", 2, torch.device("cpu"), lambda ps: make_optimizer("adam", ps, 1e-5))
+    src = {"model": state.model.state_dict(), "classifier": state.head.state_dict(), "meta": {"epoch": 0}}
+    jax_r50 = carry(src, "adam", "resnet50")
+    t0 = time.time()
+    tree, meta = read_jax_checkpoint(jax_r50)
+    t1 = time.time()
+    ref = jax_to_reference(tree, meta)
+    t2 = time.time()
+    torch.save(ref, os.path.join(tmp, "resnet50_in_process.pt"))
+    t3 = time.time()
+    print(f"phase 18: resnet50 in this process: read {t1 - t0:.3f} s, to the reference layout {t2 - t1:.3f} s, "
+          f"torch.save {t3 - t2:.3f} s [{card}]", flush=True)
+    print(f"phase 18: {time.time() - t_phase:.1f} s [{card}]", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke test of the PyTorch port on one NVIDIA GPU")
     ap.add_argument("--profile", default="",
@@ -3300,7 +3582,7 @@ def main() -> int:
         del tiles
 
         # phase 9: Camelyon16 from the pretrain checkpoint to a heatmap and its FROC
-        phase_camelyon(torch, dev, tmp, os.path.join(run, "ckpt_1.pth"), card, opts.profile)
+        camelyon = phase_camelyon(torch, dev, tmp, os.path.join(run, "ckpt_1.pth"), card, opts.profile)
 
         # phase 10: the stage CLIs' remaining modes (resume, the pretrain flags, evaluation)
         t0 = time.time()
@@ -3340,6 +3622,10 @@ def main() -> int:
 
         # phase 17: the bench tools
         by_path.update(phase_bench(torch, tmp, card))
+
+        # phase 18: checkpoints the JAX package trained, carried to the port
+        by_path.update(phase_jax_checkpoint(torch, dev, tmp, os.path.join(run, "ckpt_1.pth"),
+                                            os.path.join(tmp, "c16_finetune", "best.pth"), camelyon, card))
 
     replaces = {"photometric_chain": "ssl_cr_histo_tpu/ops/pallas_photometric.py:199",
                 "rsp_augment": "ssl_cr_histo_tpu/ops/pallas_photometric.py:199"}

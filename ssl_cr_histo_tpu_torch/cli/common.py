@@ -121,6 +121,10 @@ def make_optimizer(kind: str, params, lr: float, weight_decay: float = 1e-4) -> 
     raise ValueError(f"unknown optimizer {kind}")
 
 
+# what --model_path, --finetune_ckpt and --eval_ckpt take (``train.checkpoint.load_checkpoint``)
+CHECKPOINT_HELP = "a .pth of the port or the reference, or a checkpoint directory of the JAX package"
+
+
 def add_multi_step_arg(parser: argparse.ArgumentParser) -> None:
     """``--multi_step`` of the three stage CLIs, with the JAX CLIs' default
     (``cli/pretrain.py:103``, ``cli/finetune.py:86``,
@@ -225,12 +229,19 @@ def resume_training(args, state, best, generators: Generators) -> tuple:
     meta's ``best_val``, else ``best``, else ``val_metric``), and each of
     the run's ``generators``, so the resumed epochs draw what the
     uninterrupted run would have.  Returns (start epoch, the checkpoint's
-    path or "")."""
+    path or "").  A directory (the JAX package's checkpoint) is refused:
+    its optimizer, Lookahead and schedule state do not carry over, as the
+    reference's stage handoff never carries them (``checkpoint.py:58-66``),
+    and a resumed run without them would not be the run that stopped."""
     path = args.resume
     if path == "auto":
         path = latest_checkpoint(args.save_dir) or ""
     if not path:
         return 1, ""
+    if os.path.isdir(path):
+        raise SystemExit(f"--resume {path}: a directory; --resume takes the port's own .pth, since the JAX "
+                         f"package's optimizer, Lookahead and schedule state do not carry over (its weights do: "
+                         f"--model_path or --finetune_ckpt, or cli.convert_checkpoint)")
     if not os.path.isfile(path):
         raise SystemExit(f"--resume {path}: no such checkpoint file")
     _, meta = restore_checkpoint(path, state, generators=generators)

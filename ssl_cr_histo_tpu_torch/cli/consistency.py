@@ -11,7 +11,9 @@ lambda_u 1, the tensors below ``--modules_student`` 60 frozen, Adam 1e-5
 with L2 1e-4 added to the gradient, MultiStepLR at epochs [30, 60] (in
 steps) with gamma 0.1, bf16 autocast, and the teacher refreshed from the
 student at the end of each epoch.  Teacher and student start from a
-fine-tune checkpoint.  Camelyon16's CR config (eval_Camelyon_SSL_CR.py:247): 8 labeled images from each of the
+fine-tune checkpoint (``--finetune_ckpt``: a ``.pth`` of the port or the
+reference, or a checkpoint directory of the JAX package).  Camelyon16's
+CR config (eval_Camelyon_SSL_CR.py:247): 8 labeled images from each of the
 tumor and normal pools and 56 unlabeled from each (mu 7) a step at 256^2,
 the four balanced iterators (tumor/normal x labeled/unlabeled) zipped,
 SGD-Nesterov 5e-4.
@@ -53,6 +55,7 @@ import time
 import torch
 
 from ssl_cr_histo_tpu_torch.cli.common import (
+    CHECKPOINT_HELP,
     TASKS,
     add_common_args,
     add_multi_step_arg,
@@ -98,11 +101,10 @@ def parse_args(argv=None):
     p.add_argument("--test_path", default="", help="eval data dir (mode=evaluation)")
     p.add_argument("--test_path_b", default="", help="BreastPathQ second-rater dir")
     p.add_argument("--finetune_ckpt", default="",
-                   help="stage-2 checkpoint (.pth with 'model' and 'classifier') initializing "
-                        "teacher and student")
+                   help="stage-2 checkpoint initializing teacher and student: " + CHECKPOINT_HELP)
     p.add_argument("--eval_ckpt", default="",
                    help="trained consistency checkpoint to evaluate (mode=evaluation; default "
-                        "--finetune_ckpt)")
+                        "--finetune_ckpt): " + CHECKPOINT_HELP)
     p.add_argument("--mu", type=int, default=7, help="unlabeled batch multiplier")
     p.add_argument("--NAug", type=int, default=7, help="strong-augmentation stages")
     p.add_argument("--lambda_u", type=float, default=1.0, help="weight of the consistency loss")

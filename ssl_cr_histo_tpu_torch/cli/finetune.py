@@ -25,10 +25,12 @@ iterator's epochs.
 Writes ``fine_tuned_results.csv``, ``best.pth``, ``ckpt_<epoch>.pth`` and
 ``final.pth`` under ``--save_dir``: the TripletNet under ``'model'`` and the
 head under ``'classifier'`` (``classifier.0.*``), the reference's layout.
-``--resume ckpt_<N>.pth|auto`` continues a run from its checkpoint.
-``--mode evaluation`` scores ``--finetune_ckpt`` on ``--test_path`` (and
-BreastPathQ's second rater ``--test_path_b``) and writes ``<task>_eval.json``
-and the task's plots.  ``--remat`` recomputes the backbone's blocks in the
+``--model_path`` and ``--finetune_ckpt`` take a ``.pth`` of the port or
+the reference, or a checkpoint directory of the JAX package (a TPU run's
+``RUN/best``, read without JAX).  ``--resume ckpt_<N>.pth|auto`` continues
+a run from its checkpoint.  ``--mode evaluation`` scores
+``--finetune_ckpt`` on ``--test_path`` (and BreastPathQ's second rater
+``--test_path_b``) and writes ``<task>_eval.json`` and the task's plots.  ``--remat`` recomputes the backbone's blocks in the
 backward pass; ``--reference_exact`` applies the strict-parity preset
 (float32, with-replacement subsampling); ``--aug_mode`` is accepted as the
 JAX CLI accepts it, and the 3-view stack has no modes.  ``--multi_step K``
@@ -55,6 +57,7 @@ import numpy as np
 import torch
 
 from ssl_cr_histo_tpu_torch.cli.common import (
+    CHECKPOINT_HELP,
     TASKS,
     add_common_args,
     add_multi_step_arg,
@@ -96,8 +99,8 @@ def parse_args(argv=None):
     p.add_argument("--test_path", default="", help="eval data dir (mode=evaluation)")
     p.add_argument("--test_path_b", default="", help="BreastPathQ second-rater dir")
     p.add_argument("--model_path", default="",
-                   help="stage-1 pretraining checkpoint (.pth with a 'model' state_dict)")
-    p.add_argument("--finetune_ckpt", default="", help="checkpoint to evaluate (mode=evaluation)")
+                   help="stage-1 pretraining checkpoint: " + CHECKPOINT_HELP)
+    p.add_argument("--finetune_ckpt", default="", help="checkpoint to evaluate (mode=evaluation): " + CHECKPOINT_HELP)
     p.add_argument("--modules", type=int, default=0,
                    help="freeze the first N torch-ordered tensors "
                         "(0 full FT / 15 from-layer2 / 30 / 45 / 60 head-only / 64)")

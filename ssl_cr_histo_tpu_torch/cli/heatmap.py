@@ -12,8 +12,9 @@ what the JAX CLI writes (``eval.heatmap.save_heatmap_artifacts``):
         --probs_map_path MAPS/ --finetune_ckpt CR_RUN/best.pth
 
 ``--finetune_ckpt`` is a fine-tune or consistency ``.pth`` of the port or
-the reference (``'model'`` and ``'classifier'``), whose 2-way head is
-loaded (the reference leaves it random, test_Camelyon16.py:126-127).
+the reference (``'model'`` and ``'classifier'``), or a checkpoint directory
+of the JAX package, whose 2-way head is loaded (the reference leaves it
+random, test_Camelyon16.py:126-127).
 ``--reference_exact`` turns bf16 off; ``--remat`` and ``--aug_mode`` are
 accepted as the JAX CLI accepts them: an eval forward keeps no activations
 for a backward pass and augments nothing.
@@ -33,7 +34,13 @@ import time
 
 import numpy as np
 
-from ssl_cr_histo_tpu_torch.cli.common import add_common_args, apply_reference_exact, resolve_device, seed_everything
+from ssl_cr_histo_tpu_torch.cli.common import (
+    CHECKPOINT_HELP,
+    add_common_args,
+    apply_reference_exact,
+    resolve_device,
+    seed_everything,
+)
 from ssl_cr_histo_tpu_torch.data.wsi import open_slide
 from ssl_cr_histo_tpu_torch.eval.heatmap import compute_probs_map, pair_wsi_masks, save_heatmap_artifacts
 from ssl_cr_histo_tpu_torch.parallel.distributed import is_primary
@@ -47,7 +54,7 @@ def parse_args(argv=None):
     p.add_argument("--test_mask_pth", required=True, help="dir of tissue masks (.npy)")
     p.add_argument("--probs_map_path", required=True, help="output dir")
     p.add_argument("--finetune_ckpt", required=True,
-                   help="fine-tune or consistency checkpoint (.pth with 'model' and a 2-way 'classifier')")
+                   help="fine-tune or consistency checkpoint with a 2-way head: " + CHECKPOINT_HELP)
     p.add_argument("--batch_size", type=int, default=256, help="patches per forward")
     add_common_args(p)  # --image_size 0 = 256 here
     return p.parse_args(argv)

@@ -2,8 +2,9 @@
 "parity table exists".
 
 The port's counterpart of ``tools/parity_run.py``.  Given a real dataset and
-a stage-1 pretraining checkpoint (the port's ``ckpt_<N>.pth``, or the
-reference's torch ``.pt``), this executes the reference's label-efficiency
+a stage-1 pretraining checkpoint (the port's ``ckpt_<N>.pth``, the
+reference's torch ``.pt``, or a checkpoint directory of the JAX package),
+this executes the reference's label-efficiency
 protocol at the 10/25/50/100% operating points (eval_BreastPathQ_SSL.py:264;
 README.md:78,91) in strict parity mode (``--reference_exact``: per-view BN,
 with-replacement subsampling, eager x6 orderings, op-by-op exact
@@ -201,9 +202,9 @@ def main(argv=None):
     p.add_argument("--task", required=True,
                    choices=["breastpathq", "camelyon16", "kather"])
     p.add_argument("--pretrained", required=True,
-                   help="stage-1 RSP checkpoint file: the port's ckpt_<N>.pth or the reference's torch "
-                        ".pt (the same format).  A directory the JAX package trained goes through "
-                        "its convert_checkpoint CLI first")
+                   help="stage-1 RSP checkpoint: the port's ckpt_<N>.pth or the reference's torch .pt "
+                        "(the same format), or a checkpoint directory of the JAX package (its "
+                        "checkpoint.msgpack is read without JAX; cli.convert_checkpoint makes the .pth)")
     p.add_argument("--train_path", required=True)
     p.add_argument("--val_path", default="",
                    help="held-out validation dirs (camelyon16 VALID layout)")
@@ -238,9 +239,12 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.bpq_data == "arrays" and not (args.dryrun and args.task == "breastpathq"):
         p.error("--bpq_data arrays is the BreastPathQ dryrun's in-memory data; real data comes as .h5 files")
-    if not (args.dryrun and args.pretrained == "dryrun") and os.path.isdir(args.pretrained):
-        p.error(f"--pretrained {args.pretrained} is a directory: a checkpoint the JAX package trained "
-                f"goes through its convert_checkpoint CLI first, to the .pth this tool reads")
+    from ssl_cr_histo_tpu_torch.train.checkpoint import JAX_CHECKPOINT
+
+    if (not (args.dryrun and args.pretrained == "dryrun") and os.path.isdir(args.pretrained)
+            and not os.path.isfile(os.path.join(args.pretrained, JAX_CHECKPOINT))):
+        p.error(f"--pretrained {args.pretrained} is a directory without {JAX_CHECKPOINT}: give a .pth, or a "
+                f"checkpoint directory of the JAX package (cli.convert_checkpoint carries one to a .pth)")
 
     data = test = None
     if args.dryrun:

@@ -937,7 +937,8 @@ def main(argv=None):
     p.add_argument("--out", default="",
                    help="report path (default: the recipe's REHEARSAL*.json under --workdir)")
     p.add_argument("--stage1_ckpt", default="",
-                   help="reuse an existing stage-1 pretraining checkpoint (a ckpt_<N>.pth) "
+                   help="reuse an existing stage-1 pretraining checkpoint (a ckpt_<N>.pth, or a "
+                        "checkpoint directory of the JAX package) "
                         "instead of training one (the reference transfers "
                         "its Camelyon16 pretraining to Kather)")
     p.add_argument("--pretrain_epochs", type=int, default=25)

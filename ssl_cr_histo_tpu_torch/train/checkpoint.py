@@ -11,10 +11,16 @@ the reference's layout, which the JAX package reads with
 schedule, the step, the run's random generators and a ``meta`` dict ride
 along under their own keys, so that ``restore_checkpoint`` resumes a run
 where it stopped (``ssl_cr_histo_tpu/train/checkpoint.py:58-118``).
+
+A checkpoint directory of the JAX package (``checkpoint.msgpack`` and
+``meta.json``, ``ssl_cr_histo_tpu/train/checkpoint.py:32-55``) is read with
+``read_jax_checkpoint`` (no flax needed) and carried to the reference layout
+with ``jax_to_reference``; ``load_checkpoint`` takes either kind.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 from typing import Dict, Optional, Tuple
@@ -25,6 +31,7 @@ import torch
 from ssl_cr_histo_tpu_torch.parallel.distributed import barrier, is_primary
 from ssl_cr_histo_tpu_torch.train import optim
 from ssl_cr_histo_tpu_torch.train.state import FinetuneState, Teacher, TrainState
+from ssl_cr_histo_tpu_torch.utils import flax_msgpack
 
 Generators = Dict[str, torch.Generator]
 
@@ -148,3 +155,50 @@ def from_jax_params(model_params: dict, batch_stats: dict,
             head_sd[f"classifier.{idx}.weight"] = t(np.asarray(head_params[name]["kernel"]).T)
             head_sd[f"classifier.{idx}.bias"] = t(np.asarray(head_params[name]["bias"]))
     return sd, head_sd
+
+
+JAX_CHECKPOINT = "checkpoint.msgpack"
+
+
+def read_jax_checkpoint(path: str) -> Tuple[dict, dict]:
+    """A checkpoint directory of the JAX package -> (the tree
+    ``flax.serialization.msgpack_restore`` gives for its
+    ``checkpoint.msgpack``: ``params``, ``batch_stats``, ``opt_state``,
+    ``step``, ``slow_params``, ``la_count``; its ``meta.json`` as a dict, {}
+    when absent).  Raises FileNotFoundError naming ``path`` when it holds no
+    ``checkpoint.msgpack``."""
+    file = os.path.join(path, JAX_CHECKPOINT)
+    if not os.path.isfile(file):
+        raise FileNotFoundError(f"{path}: no {JAX_CHECKPOINT}, so not a checkpoint directory of the JAX package")
+    meta_path = os.path.join(path, "meta.json")
+    meta = {}
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    return flax_msgpack.read(file), meta
+
+
+def jax_to_reference(tree: dict, meta: dict) -> dict:
+    """A JAX checkpoint (``read_jax_checkpoint``) -> the reference-layout
+    dict the JAX package's ``cli/convert_checkpoint.py:69-84`` saves:
+    ``model`` (the TripletNet state_dict, ``num_batches_tracked`` 0), the
+    head's ``classifier`` where the params hold a ``head`` (a Classifier's
+    ``classifier.{0,2}.*``, a FinetuneHead's ``classifier.0.*``), and the
+    meta's ``epoch`` (0 without one)."""
+    params = tree["params"]
+    model, head = from_jax_params(params["model"], tree["batch_stats"], params.get("head"))
+    out = {"model": model, "epoch": meta.get("epoch", 0)}
+    if "head" in params:
+        if not head:
+            raise KeyError(f"unrecognized head params: {sorted(params['head'])}")
+        out["classifier"] = head
+    return out
+
+
+def load_checkpoint(path: str) -> dict:
+    """The dict of a ``.pth`` (the port's or the reference's), or of a
+    checkpoint directory of the JAX package in the reference layout
+    (``jax_to_reference``), on the CPU."""
+    if os.path.isdir(path):
+        return jax_to_reference(*read_jax_checkpoint(path))
+    return torch.load(path, map_location="cpu", weights_only=False)

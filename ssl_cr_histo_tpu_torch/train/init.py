@@ -15,6 +15,7 @@ import torch
 from ssl_cr_histo_tpu_torch.models import Classifier, FinetuneHead, TripletNet, feature_dim
 from ssl_cr_histo_tpu_torch.parallel.distributed import broadcast_
 from ssl_cr_histo_tpu_torch.train import optim
+from ssl_cr_histo_tpu_torch.train.checkpoint import load_checkpoint
 from ssl_cr_histo_tpu_torch.train.freeze import freeze
 from ssl_cr_histo_tpu_torch.train.state import FinetuneState, Teacher, TrainState
 
@@ -73,21 +74,22 @@ def _state_dict(raw: dict, key: str) -> dict:
 def load_backbone(state: FinetuneState, path: str) -> FinetuneState:
     """Stage handoff: load the backbone, the pairwise fc and the BN
     statistics from a pretraining checkpoint's ``'model'`` state_dict (the
-    port's ``.pth``, or the reference's, whose keys may carry DataParallel's
-    ``module.`` prefix), in place, keeping the fresh head
-    (``init.py:49-59``; reference eval_BreastPathQ_SSL.py:342-353)."""
-    state.model.load_state_dict(_state_dict(torch.load(path, map_location="cpu", weights_only=False), "model"))
+    port's ``.pth``, the reference's, whose keys may carry DataParallel's
+    ``module.`` prefix, or a checkpoint directory of the JAX package), in
+    place, keeping the fresh head (``init.py:49-59``, ``cli/finetune.py:
+    213-226``; reference eval_BreastPathQ_SSL.py:342-353)."""
+    state.model.load_state_dict(_state_dict(load_checkpoint(path), "model"))
     return state
 
 
 def load_finetuned(state: FinetuneState, path: str) -> FinetuneState:
     """Stage 2 -> 3 handoff: load the TripletNet (``'model'``, BN statistics
     included) and the head (``'classifier'``) of a fine-tune checkpoint (the
-    port's ``.pth``, or the reference's, with or without ``module.``) into
-    the student, in place; its optimizer and schedule stay fresh
-    (``cli/consistency.py:188-194``; reference
-    eval_BreastPathQ_SSL_CR.py:391-402)."""
-    raw = torch.load(path, map_location="cpu", weights_only=False)
+    port's ``.pth``, the reference's, with or without ``module.``, or a
+    checkpoint directory of the JAX package) into the student, in place;
+    its optimizer and schedule stay fresh (``cli/consistency.py:188-194``;
+    reference eval_BreastPathQ_SSL_CR.py:391-402)."""
+    raw = load_checkpoint(path)
     if not isinstance(raw, dict) or "model" not in raw or "classifier" not in raw:
         raise ValueError(f"{path}: not a fine-tune checkpoint (needs 'model' and 'classifier')")
     state.model.load_state_dict(_state_dict(raw, "model"))

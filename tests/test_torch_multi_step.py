@@ -469,17 +469,15 @@ def _cli_modules(package: str) -> set:
 # A JAX flag the port leaves out, with its reason: the device picks the
 # photometric path (the CUDA kernel on a card, the plain chain on the CPU)
 NOT_PORTED_FLAGS = {"--photometric"}
-# A JAX CLI the port leaves out, with its reason: it converts the JAX
-# package's native checkpoints, and the port writes the torch layout itself
-NOT_PORTED_CLIS = {"convert_checkpoint"}
+# Every JAX CLI has its port
+NOT_PORTED_CLIS = set()
 
 
 @pytest.mark.parametrize("name", sorted(_cli_modules("ssl_cr_histo_tpu.cli") - NOT_PORTED_CLIS))
 def test_cli_flags_match_jax(name, monkeypatch):
     """Every flag of each JAX CLI is a flag of the port's CLI of the same
-    name, but --photometric; the only JAX CLI the port has not is
-    convert_checkpoint; --multi_step defaults to 8 in both where JAX has
-    it."""
+    name, but --photometric; every JAX CLI has a port of the same name;
+    --multi_step defaults to 8 in both where JAX has it."""
     assert _cli_modules("ssl_cr_histo_tpu.cli") - _cli_modules("ssl_cr_histo_tpu_torch.cli") == NOT_PORTED_CLIS
     want = _flags(importlib.import_module(f"ssl_cr_histo_tpu.cli.{name}"), monkeypatch)
     got = _flags(importlib.import_module(f"ssl_cr_histo_tpu_torch.cli.{name}"), monkeypatch)

@@ -103,8 +103,10 @@ def test_main_flags_and_defaults_match_the_original(tmp_path, monkeypatch):
     (["--task", "kather", "--pretrained", "DIR"], "convert_checkpoint"),
 ])
 def test_main_rejects_arrays_outside_the_dryrun_and_a_directory(tmp_path, capsys, extra, message):
-    """--bpq_data arrays only for the BreastPathQ dryrun; a directory as
-    --pretrained points to the JAX package's converter."""
+    """--bpq_data arrays only for the BreastPathQ dryrun; a directory
+    without checkpoint.msgpack as --pretrained is refused, naming the
+    converter (a JAX checkpoint directory is taken:
+    tests/test_torch_convert_checkpoint.py)."""
     argv = ["--pretrained", "p.pt", "--train_path", "t", "--test_path", "t", "--workdir", str(tmp_path / "w"),
             *[str(tmp_path) if a == "DIR" else a for a in extra]]
     with pytest.raises(SystemExit):

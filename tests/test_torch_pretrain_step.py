@@ -577,7 +577,10 @@ def test_port_imports_no_jax():
     ``reference_baseline.py``) load neither the repo's ``bench.py`` nor
     any of its ``tools/``; nor do they load cv2,
     h5py, matplotlib or scikit-learn, which the GPU machine may lack (the
-    functions that read images or .h5 files, or draw, import them).  A subprocess: this test process
+    functions that read images or .h5 files, or draw, import them), nor
+    msgpack, which it lacks (the reader of the JAX package's checkpoints,
+    ``utils/flax_msgpack.py``, and ``cli/convert_checkpoint.py`` decode
+    flax's format themselves).  A subprocess: this test process
     has jax loaded (tests/conftest.py)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -591,6 +594,9 @@ def test_port_imports_no_jax():
         "assert not jax_pkg, jax_pkg\n"
         "optional = sorted(k for k in sys.modules if k.split('.')[0] in ('cv2', 'h5py', 'matplotlib', 'sklearn'))\n"
         "assert not optional, optional\n"
+        "assert not [k for k in sys.modules if k.split('.')[0] == 'msgpack'], 'msgpack'\n"
+        "for name in ('cli.convert_checkpoint', 'utils.flax_msgpack'):\n"
+        "    assert 'ssl_cr_histo_tpu_torch.' + name in sys.modules, name\n"
         "for name in ('bench', 'bench_suite', 'bench_scaling', 'reference_baseline'):\n"
         "    assert 'ssl_cr_histo_tpu_torch.tools.' + name in sys.modules, name\n"
         "jax_tools = sorted(k for k in sys.modules if k.split('.')[0] in\n"
