@@ -193,9 +193,9 @@ Phases (any failure exits non-zero and prints no result line):
      read after: the fused kernel once a stage-1 pretrain step and never
      in a ``--reference_exact`` stage, the chain kernel never; then
      ``tools.profile_step`` at the config of record (pretrain, resnet18, 64
-     triplets of 256^2, bf16, fused, 3 traced steps): ms/step, its top 10
-     device operations, and its trace file must hold the fused kernel 3
-     times
+     triplets of 256^2, bf16, fused, ``--multi_step 1``, 3 traced steps):
+     ms/step, its top 10 device operations, and its trace file must hold
+     the fused kernel 3 times
  15. the label-efficiency quality gate (``tools.quality_gate``), cuDNN and
      PyTorch deterministic: the main gate with every threshold of
      ``tests/test_quality_gate.py`` enforced (a miss fails the run); the
@@ -1047,7 +1047,7 @@ def phase_pretrain_feeds(torch, pretrain, S, argv: list, tmp: str, steps: int, c
 
     real = common.prefetch_to_device
 
-    def inline(it, device, size=2):
+    def inline(it, device, size=2, counters=None, slot=0):
         for batch in it:
             yield tuple(torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(device, non_blocking=True)
                         for a in batch)
@@ -2690,9 +2690,10 @@ def phase_parity_run(torch, tmp: str, reports: str, profile_dir: str, card: str)
     once a step of the dryrun's stage-1 pretraining and never in a
     --reference_exact stage, the chain kernel never.  Then ``profile_step``
     at the config of record (pretrain, resnet18, 64 triplets of 256^2,
-    bf16, fused, 3 traced steps): its trace must hold the fused kernel 3
-    times.  The tool's prints go to ``reports/parity_<task>.log``, its
-    report beside them.  Returns each stage's launches."""
+    bf16, fused, one eager step a batch, 3 traced steps): its trace must
+    hold the fused kernel 3 times.  The tool's prints go to
+    ``reports/parity_<task>.log``, its report beside them.  Returns each
+    stage's launches."""
     from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
     from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
     from ssl_cr_histo_tpu_torch.parallel import steps as S
@@ -2739,7 +2740,7 @@ def phase_parity_run(torch, tmp: str, reports: str, profile_dir: str, card: str)
 
     logdir = os.path.join(profile_dir or tmp, "profile_step_trace")
     argv = ["--stage", "pretrain", "--model", "resnet18", "--batch_size", "64", "--image_size", "256",
-            "--aug_mode", "fused", "--steps", "3", "--device", "cuda", "--logdir", logdir]
+            "--aug_mode", "fused", "--multi_step", "1", "--steps", "3", "--device", "cuda", "--logdir", logdir]
     print("phase 14: profile_step " + " ".join(argv), flush=True)
     PK.launches = RK.launches = 0
     prof = profile_step.main(argv)

@@ -29,11 +29,13 @@ import argparse
 import dataclasses
 import os
 import random
+import time
 
 import numpy as np
 import torch
 
-from ssl_cr_histo_tpu_torch.data.pipeline import chunk_batches, prefetch_iter, prefetch_to_device
+from ssl_cr_histo_tpu_torch.data.pipeline import (FeedCounters, batch_groups, prefetch_iter, prefetch_to_device,
+                                                  stack_chunk, timed)
 from ssl_cr_histo_tpu_torch.ops.batch import AUG_MODES
 from ssl_cr_histo_tpu_torch.parallel import distributed
 from ssl_cr_histo_tpu_torch.train import optim
@@ -253,31 +255,82 @@ def resume_training(args, state, best, generators: Generators) -> tuple:
     return start_epoch, path
 
 
-def chunked_feed(device: torch.device, k: int, *its):
+class Feed:
+    """``chunked_feed``'s iterator of (chunk, valid steps), with the feed's
+    ``counters`` (``data.pipeline.FeedCounters``): a caller reads
+    ``counters.snapshot()`` before and after a stretch of steps."""
+
+    def __init__(self, chunks, counters: FeedCounters):
+        self.chunks, self.counters = chunks, counters
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self.chunks)
+
+    def close(self):
+        """Stop the feed's threads."""
+        self.chunks.close()
+
+
+def chunked_feed(device: torch.device, k: int, *its) -> Feed:
     """The stage CLIs' feed of K steps a chunk (``common.py:289-299``).
 
     ``its`` yield tuples of batch-aligned arrays, each a host-replicated
     global batch; their tuples are zipped into one, and each iterator runs
     on its own thread.  With ``k`` > 1 this process's rows of K consecutive
-    batches are stacked (``data.pipeline.chunk_batches``), pinned on a
-    thread, and copied to ``device`` once a chunk.  Yields (tuple of (K,
-    rows, ...) tensors, the chunk's valid steps); the rows of a partial last
-    chunk past its valid steps are zeros.  ``k`` = 1 is the per-batch feed
-    of ``prefetch_to_device``, each batch a chunk of one."""
+    batches are grouped and stacked (``data.pipeline.batch_groups``,
+    ``stack_chunk``), pinned on a thread, and copied to
+    ``device`` once a chunk.  Yields (tuple of (K, rows, ...) tensors, the
+    chunk's valid steps); the rows of a partial last chunk past its valid
+    steps are zeros.  ``k`` = 1 is the per-batch feed of
+    ``prefetch_to_device``, each batch a chunk of one.
+
+    The counters: source i's ``next()`` in ``reads[i]``; the stacking and
+    pinning in ``pins[0]`` (``k`` > 1, the chunk thread) or ``pins[i]``
+    (``k`` = 1, source i's thread); the main thread's waits for a chunk,
+    each in the span ``port.feed.wait``, in ``starved``/``starved_s``."""
     if k < 1:
         raise ValueError(f"--multi_step {k}: a chunk takes at least one step")
+    counters = FeedCounters(len(its), len(its) if k == 1 else 1)
+    sources = [timed(it, counters.reads, i) for i, it in enumerate(its)]
     if k == 1:
-        for parts in zip(*(prefetch_to_device(it, device) for it in its)):
-            yield tuple(t.unsqueeze(0) for part in parts for t in part), 1
-        return
+        return Feed(_batch_chunks(device, sources, counters), counters)
+    return Feed(_stacked_chunks(device, k, sources, counters), counters)
+
+
+def _batch_chunks(device, sources, counters):
+    feeds = (prefetch_to_device(it, device, counters=counters, slot=i) for i, it in enumerate(sources))
+    for parts in zip(*feeds):
+        yield tuple(t.unsqueeze(0) for part in parts for t in part), 1
+
+
+def _stacked_chunks(device, k, sources, counters):
     pinned = device.type == "cuda"
 
-    def host(item):
-        chunk, valid = item
+    def host(batches):
+        t0 = time.perf_counter()
+        chunk, valid = stack_chunk(batches, k)
         ts = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (chunk if isinstance(chunk, tuple) else (chunk,)))
-        return (tuple(t.pin_memory() for t in ts) if pinned else ts), int(valid.sum())
+        ts = tuple(t.pin_memory() for t in ts) if pinned else ts
+        counters.pins[0] += time.perf_counter() - t0
+        return ts, int(valid.sum())
 
     batches = (tuple(distributed.local_rows(a) for part in parts for a in part)
-               for parts in zip(*(prefetch_iter(it) for it in its)))
-    for ts, n in prefetch_iter(chunk_batches(batches, k), map_fn=host):
+               for parts in zip(*(prefetch_iter(it) for it in sources)))
+    for ts, n in prefetch_iter(batch_groups(batches, k), map_fn=host, counters=counters):
         yield tuple(t.to(device, non_blocking=pinned) for t in ts), n
+
+
+def counters_line(feed: Feed, step, before: dict, feed_before: dict | None = None) -> str:
+    """The epoch line's read of the feed's counters and of the step's
+    (``parallel.steps.StepGraph.counts()``), less ``before`` and
+    ``feed_before``, their values at the stretch's start (a feed made for
+    the stretch counts from zero)."""
+    f = feed.counters.snapshot()
+    f = {key: v - (feed_before or {}).get(key, 0) for key, v in f.items()}
+    s = {key: v - before[key] for key, v in step.counts().items()}
+    return (f"feed starved {f['starved_s']:.3f} s in {f['starved']} waits, read {f['read_s']:.3f} s, "
+            f"pin {f['pin_s']:.3f} s; step {s['eager_steps']} eager, {s['replays']} replays, "
+            f"{s['captures']} captures ({s['capture_s']:.3f} s)")

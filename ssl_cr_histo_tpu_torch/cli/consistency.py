@@ -62,6 +62,7 @@ from ssl_cr_histo_tpu_torch.cli.common import (
     apply_reference_exact,
     apply_task_overrides,
     chunked_feed,
+    counters_line,
     make_optimizer,
     resolve_device,
     resume_training,
@@ -219,7 +220,8 @@ def run(args, cfg, labeled, train, val) -> FinetuneState:
         unlab_it = ((imgs,) for imgs, _ in train_batches(cfg, train, batch_size * args.mu,
                                                          1000 + args.seed + epoch))
         bi = 0
-        for chunk, n_valid in chunked_feed(device, args.multi_step, lab_it, unlab_it):
+        feed, before = chunked_feed(device, args.multi_step, lab_it, unlab_it), step.counts()
+        for chunk, n_valid in feed:
             ms = step.run(chunk, n_valid)
             for i in range(n_valid):
                 sums += torch.stack([ms["loss"][i], ms["sup"][i], ms["cons"][i]]) * rows
@@ -230,11 +232,12 @@ def run(args, cfg, labeled, train, val) -> FinetuneState:
         if args.ema == 0:
             S.refresh_teacher(teacher, state)
         train_loss, sup_loss, cons_loss = (sums / max(seen, 1)).tolist()
+        counters = counters_line(feed, step, before)
 
         val_metric = validate(cfg, state, val, args.eval_batch_size, device, bf16=args.bf16)
         log.append(epoch, train_loss, sup_loss, cons_loss, val_metric)
         print(f"epoch {epoch}: loss {train_loss:.4f} (sup {sup_loss:.4f} cons {cons_loss:.4f}) val "
-              f"{'mse' if cfg.task == 'regression' else 'err'} {val_metric:.4f} ({time.time() - t0:.1f}s)")
+              f"{'mse' if cfg.task == 'regression' else 'err'} {val_metric:.4f} ({time.time() - t0:.1f}s); {counters}")
         meta = {"epoch": epoch, "args": vars(args), "val_metric": val_metric}
         if best.update(val_metric, epoch, state, meta):
             print(f"==> new best {val_metric:.4f}")

@@ -65,6 +65,7 @@ from ssl_cr_histo_tpu_torch.cli.common import (
     apply_task_overrides,
     balanced_epoch_len,
     chunked_feed,
+    counters_line,
     make_optimizer,
     resolve_device,
     resume_training,
@@ -367,7 +368,8 @@ def run(args, cfg, train, val) -> FinetuneState:
         loss_sum = torch.zeros((), device=device)
         seen = bi = 0
         batches = train_batches(cfg, train, batch_size, args.seed + epoch)
-        for chunk, n_valid in chunked_feed(device, args.multi_step, batches):
+        feed, before = chunked_feed(device, args.multi_step, batches), step.counts()
+        for chunk, n_valid in feed:
             ms = step.run(chunk, n_valid)
             for i in range(n_valid):
                 loss_sum += ms["loss"][i] * rows
@@ -376,11 +378,12 @@ def run(args, cfg, train, val) -> FinetuneState:
                 if bi % args.print_freq == 0:
                     print(f"Train: [{epoch}][{bi}] loss {float(ms['loss'][i]):.4f} ({float(loss_sum) / seen:.4f})")
         train_loss = float(loss_sum) / max(seen, 1)
+        counters = counters_line(feed, step, before)
 
         val_metric = validate(cfg, state, val, args.eval_batch_size, device, bf16=args.bf16)
         log.append(epoch, train_loss, val_metric)
         print(f"epoch {epoch}: train_loss {train_loss:.4f} val "
-              f"{'mse' if cfg.task == 'regression' else 'err'} {val_metric:.4f} ({time.time() - t0:.1f}s)")
+              f"{'mse' if cfg.task == 'regression' else 'err'} {val_metric:.4f} ({time.time() - t0:.1f}s); {counters}")
         meta = {"epoch": epoch, "args": vars(args), "val_metric": val_metric}
         if best.update(val_metric, epoch, state, meta):
             print(f"==> new best {val_metric:.4f}")

@@ -49,6 +49,7 @@ from ssl_cr_histo_tpu_torch.cli.common import (
     add_multi_step_arg,
     apply_reference_exact,
     chunked_feed,
+    counters_line,
     resolve_device,
     resume_training,
     seed_everything,
@@ -241,7 +242,8 @@ def main(argv=None):
         # are the sampler's, and under --expand_orderings its labels ride
         # along
         bi = 0
-        for chunk, n_valid in chunked_feed(device, args.multi_step, batches):
+        feed, before = chunked_feed(device, args.multi_step, batches), step.counts()
+        for chunk, n_valid in feed:
             ms = step.run(chunk, n_valid)
             for i in range(n_valid):
                 n = args.batch_size
@@ -259,7 +261,7 @@ def main(argv=None):
                 epoch_targets.extend(ms["labels"][:n_valid].cpu().numpy().astype(np.int32))
         train_loss = float(loss_sum) / max(seen, 1)
         train_acc = float(acc_sum) / max(seen, 1)
-        print(f"Epoch time: {time.time() - t0:.2f} s.")
+        print(f"Epoch time: {time.time() - t0:.2f} s; {counters_line(feed, step, before)}")
 
         # validation: every held-out triplet under all 6 orderings; the last
         # partial batch is zero-padded with a validity mask; both come through

@@ -5,19 +5,69 @@ ported slices use (that module imports jax): epoch order, padding, and a
 thread that runs a host iterator ahead of the consumer.  Samplers and
 datasets ship raw uint8 batches; augmentation runs on the device.  Under
 data parallelism every process iterates the same host batches and feeds its
-own rows of each (``parallel.distributed.put_sharded``).
+own rows of each (``parallel.distributed.put_sharded``).  A feed given
+``FeedCounters`` counts where its threads' time goes.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterable, Iterator
+import time
+from typing import Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
 from ssl_cr_histo_tpu_torch.parallel.distributed import local_rows
+from ssl_cr_histo_tpu_torch.utils.profiling import span
+
+
+class FeedCounters:
+    """Where a feed's threads spend their time, as plain numbers that a
+    caller reads before and after a stretch of steps (``snapshot``).  Each
+    is written by one thread only:
+
+    - ``starved``, ``starved_s``: the consumer's waits on its queue that
+      found it empty, and the seconds it was blocked in them (``wait``);
+    - ``reads[i]``: seconds the thread of source i spent in its iterator's
+      ``next()`` (a sampler's reads, its tile cache's gather; ``timed``);
+    - ``pins[j]``: seconds producer thread j spent stacking and pinning."""
+
+    def __init__(self, sources: int, pinners: int):
+        self.starved, self.starved_s = 0, 0.0
+        self.reads, self.pins = [0.0] * sources, [0.0] * pinners
+
+    def snapshot(self) -> dict:
+        """starved, starved_s, read_s (all sources), pin_s (all producers)."""
+        return {"starved": self.starved, "starved_s": self.starved_s, "read_s": sum(self.reads),
+                "pin_s": sum(self.pins)}
+
+    def wait(self, q: "queue.Queue"):
+        """The consumer's ``q.get()``, inside the span ``port.feed.wait``;
+        one clock pair when ``q`` is empty, none when it is not."""
+        with span("feed.wait"):
+            if not q.empty():
+                return q.get()
+            t = time.perf_counter()
+            item = q.get()
+            self.starved += 1
+            self.starved_s += time.perf_counter() - t
+            return item
+
+
+def timed(it: Iterable, seconds: list, slot: int) -> Iterator:
+    """``it``'s items, the seconds of each ``next()`` added to
+    ``seconds[slot]`` by the thread that iterates."""
+    it = iter(it)
+    while True:
+        t = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        seconds[slot] += time.perf_counter() - t
+        yield item
 
 
 def epoch_indices(n: int, batch_size: int, shuffle: bool = True, seed: int = 0,
@@ -64,27 +114,28 @@ def pad_batches(it: Iterable, batch_size: int = 0, multiple: int = 1) -> Iterato
         yield (parts if is_tuple else parts[0]), valid
 
 
-def chunk_batches(it: Iterable, k: int) -> Iterator:
-    """Stack k consecutive batches along a new leading axis, the K steps a
-    dispatch of ``parallel.steps.StepGraph`` (``pipeline.py:75-94``).
-
-    Yields (stacked, valid): stacked arrays of shape (k, B, ...) (a tuple
-    when the batches are tuples) and a float32 (k,) mask.  A partial last
-    chunk is zero-padded with its padded steps marked invalid; the port
-    runs only the valid steps, which gives the JAX scan's result (padded
-    steps leave its state unchanged), so no batch is dropped."""
+def batch_groups(it: Iterable, k: int) -> Iterator[list]:
+    """Lists of k consecutive batches, each a tuple, the last list shorter
+    where the batches run out: the K steps a dispatch of
+    ``parallel.steps.StepGraph`` (``pipeline.py:75-94``), each list
+    stacked by ``stack_chunk``."""
     buf = []
     for batch in it:
         buf.append(batch if isinstance(batch, tuple) else (batch,))
         if len(buf) == k:
-            yield _stack_chunk(buf, k)
+            yield buf
             buf = []
     if buf:
-        yield _stack_chunk(buf, k)
+        yield buf
 
 
-def _stack_chunk(buf, k):
-    """``pipeline.py:97-105``."""
+def stack_chunk(buf: list, k: int) -> tuple:
+    """(stacked, valid) of a list of at most k batch tuples
+    (``pipeline.py:97-105``): stacked arrays of shape (k, B, ...) (a tuple
+    when the batches hold more than one array) and a float32 (k,) mask.  A
+    partial chunk is zero-padded with its padded steps marked invalid; the
+    port runs only the valid steps, which gives the JAX scan's result
+    (padded steps leave its state unchanged), so no batch is dropped."""
     n = len(buf)
     valid = np.zeros(k, np.float32)
     valid[:n] = 1.0
@@ -126,10 +177,11 @@ def balanced_batch_iterator(ds, batch_size: int, seed: int = 0) -> Iterator:
         yield gather(sel), ds.labels[sel]
 
 
-def prefetch_iter(it: Iterable, size: int = 2, map_fn=None) -> Iterator:
+def prefetch_iter(it: Iterable, size: int = 2, map_fn=None, counters: Optional[FeedCounters] = None) -> Iterator:
     """Run ``it`` (and ``map_fn`` on each item) on a background thread,
     ``size`` items ahead of the consumer (``pipeline.py:151-196``).  Stops
-    the worker if the consumer goes away early; re-raises worker errors."""
+    the worker if the consumer goes away early; re-raises worker errors.
+    With ``counters`` the consumer's waits are ``counters.wait``."""
     q: "queue.Queue" = queue.Queue(maxsize=size)
     end = object()
     stop = threading.Event()
@@ -158,7 +210,7 @@ def prefetch_iter(it: Iterable, size: int = 2, map_fn=None) -> Iterator:
     t.start()
     try:
         while True:
-            item = q.get()
+            item = q.get() if counters is None else counters.wait(q)
             if item is end:
                 break
             yield item
@@ -169,18 +221,25 @@ def prefetch_iter(it: Iterable, size: int = 2, map_fn=None) -> Iterator:
         raise errors[0]
 
 
-def prefetch_to_device(it: Iterable, device: torch.device, size: int = 2) -> Iterator:
+def prefetch_to_device(it: Iterable, device: torch.device, size: int = 2,
+                       counters: Optional[FeedCounters] = None, slot: int = 0) -> Iterator:
     """Device tensors of this process's rows of the array tuples ``it``
     yields, each a host-replicated global batch (``put_sharded``'s rows;
     the whole batch in one process).  A thread runs ``it`` (decoding and
     stacking a batch), keeps the rows and copies them into pinned memory
     ``size`` batches ahead; the consumer's thread starts each copy to the
-    GPU without blocking (the JAX CLI's ``prefetch_to_device``)."""
+    GPU without blocking (the JAX CLI's ``prefetch_to_device``).  With
+    ``counters`` the consumer's waits are counted and the thread's pinning
+    goes to ``counters.pins[slot]``."""
     pinned = device.type == "cuda"
 
     def host(batch):
+        t0 = time.perf_counter()
         ts = tuple(torch.from_numpy(np.ascontiguousarray(local_rows(a))) for a in batch)
-        return tuple(t.pin_memory() for t in ts) if pinned else ts
+        ts = tuple(t.pin_memory() for t in ts) if pinned else ts
+        if counters is not None:
+            counters.pins[slot] += time.perf_counter() - t0
+        return ts
 
-    for batch in prefetch_iter(it, size=size, map_fn=host):
+    for batch in prefetch_iter(it, size=size, map_fn=host, counters=counters):
         yield tuple(t.to(device, non_blocking=pinned) for t in batch)

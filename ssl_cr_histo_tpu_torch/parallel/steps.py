@@ -25,6 +25,7 @@ steps equal K calls of the single step, bit for bit.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -38,6 +39,7 @@ from ssl_cr_histo_tpu_torch.ops.rsp_augment_kernel import RSP_PERMUTATIONS, perm
 from ssl_cr_histo_tpu_torch.parallel import distributed as D
 from ssl_cr_histo_tpu_torch.parallel.mesh import rows_for_batch
 from ssl_cr_histo_tpu_torch.train.state import FinetuneState, Teacher, TrainState
+from ssl_cr_histo_tpu_torch.utils.profiling import span
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -488,7 +490,13 @@ class StepGraph:
     that the optimizer's step reads when it is captured: a change of the LR
     schedule captures the graph again.  A capture that fails raises;
     nothing falls back to eager steps.  A gloo world on the card cannot be
-    captured (its collectives run on the host) and raises."""
+    captured (its collectives run on the host) and raises.
+
+    Counters, always on (``counts()``): ``eager_steps``, ``replays``,
+    ``captures`` (the first and each recapture) and ``capture_s``, the
+    captures' host seconds (the capture's own synchronize with the card
+    included).  Each ``prologue`` call is the span ``port.step.prologue``
+    (``utils.profiling.span``)."""
 
     def __init__(self, name: str, eager: Callable, prologue: Optional[Callable], body: Callable,
                  epilogue: Callable, k: int, device: torch.device, generators: Sequence[torch.Generator] = (),
@@ -506,6 +514,14 @@ class StepGraph:
         self.warm = False
         self.graph = self.static_in = self.static_out = self.lrs = None
         self.graph_launches = [0] * len(_COUNTED)
+        self.eager_steps = self.replays = self.captures = 0
+        self.capture_s = 0.0
+
+    def counts(self) -> dict:
+        """The step's counters, for a caller to read before and after a
+        stretch of steps."""
+        return {"eager_steps": self.eager_steps, "replays": self.replays, "captures": self.captures,
+                "capture_s": self.capture_s}
 
     def run(self, chunk: Sequence[torch.Tensor], n: int) -> dict:
         out = None
@@ -522,8 +538,14 @@ class StepGraph:
         graph's outputs, which the next replay overwrites)."""
         if not (self.graphed and self.warm):
             self.warm = True
+            self.eager_steps += 1
             return self.eager(*row)
-        out = self._replay(row if self.prologue is None else self.prologue(*row))
+        if self.prologue is None:
+            inputs = row
+        else:
+            with span("step.prologue"):
+                inputs = self.prologue(*row)
+        out = self._replay(inputs)
         self.epilogue()
         return out
 
@@ -535,6 +557,7 @@ class StepGraph:
         for static, x in zip(self.static_in, inputs):
             static.copy_(x)
         self.graph.replay()
+        self.replays += 1
         for module, n in zip(_COUNTED, self.graph_launches):
             module.launches += n
         return self.static_out
@@ -545,6 +568,7 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         for g in self.generators:
             graph.register_generator_state(g)
+        t0 = time.perf_counter()
         static_in = tuple(x.clone() for x in inputs)
         before = [m.launches for m in _COUNTED]
         try:
@@ -559,6 +583,8 @@ class StepGraph:
             for m, b in zip(_COUNTED, before):
                 m.launches = b
         self.graph, self.static_in, self.static_out = graph, static_in, static_out
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
 
 
 def make_pretrain_multi_step(state: TrainState, generator: torch.Generator, k: int, *,

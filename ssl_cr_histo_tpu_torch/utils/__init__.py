@@ -1,2 +1,3 @@
-"""Shared utilities: tracing and throughput meters (``utils.profiling``), and a
-reader of the JAX package's flax msgpack checkpoints (``utils.flax_msgpack``)."""
+"""Shared utilities: tracing (``utils.profiling``: a profiler trace, the
+port's ``port.`` spans), and a reader of the JAX package's flax msgpack
+checkpoints (``utils.flax_msgpack``)."""

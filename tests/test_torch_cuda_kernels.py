@@ -576,6 +576,63 @@ def test_step_graph_replays_equal_eager_steps(cuda, monkeypatch, stage):
 
 
 @pytest.mark.cuda
+def test_step_graph_counts_and_prologue_spans(cuda):
+    """The consistency step's StepGraph on the card at K = 4 over 7 steps
+    (one LR throughout), under torch.profiler: the first step eager, one
+    capture, a replay each later step, and one ``port.step.prologue``
+    event each replayed step (the eager views), a host range that the
+    profiler does not copy onto the device's timeline."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssl_cr_histo_tpu_torch.cli.common import make_optimizer
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+    from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_teacher
+
+    k, steps, size = 4, 7, 64
+    g = torch.Generator().manual_seed(5)
+    torch.manual_seed(0)
+    state = init_finetune_state("resnet18", 3, cuda, lambda ps: make_optimizer("sgd", ps, 1e-3))
+    runner = S.make_consistency_multi_step(state, init_teacher(state), torch.Generator(device=cuda).manual_seed(1),
+                                           k, n_aug=2, host_gen=torch.Generator().manual_seed(2), bf16=True)
+    x = lambda n: torch.randint(0, 256, (k, n, size, size, 3), dtype=torch.uint8, generator=g).to(cuda)
+    chunk = (x(2), torch.randint(0, 3, (k, 2), generator=g).to(cuda), x(4))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        runner.run(chunk, k)
+        runner.run(chunk, steps - k)
+        torch.cuda.synchronize()
+    counts = runner.counts()
+    assert {key: counts[key] for key in ("eager_steps", "replays", "captures")} == {
+        "eager_steps": 1, "replays": steps - 1, "captures": 1}
+    assert counts["capture_s"] > 0.0
+    spans = [e for e in prof.events() if e.name.startswith("port.")]
+    assert [e.name for e in spans] == ["port.step.prologue"] * (steps - 1)
+    # host ranges only: none is copied onto the device's timeline
+    assert all(e.device_type == DeviceType.CPU for e in spans)
+
+
+@pytest.mark.cuda
+def test_profile_step_reads_the_prologue_span(cuda, tmp_path):
+    """``tools.profile_step`` on the consistency step at K = 4 (64^2, 2
+    labeled and 4 unlabeled images), 6 traced steps after its warm steps:
+    6 replays and no capture or eager step in the trace, one
+    ``port.step.prologue`` a step, the card idle inside it for at most its
+    host time and at most the card's idle share of the traced wall."""
+    from ssl_cr_histo_tpu_torch.tools import profile_step as P
+
+    out = P.main(["--stage", "consistency", "--model", "resnet18", "--image_size", "64", "--batch_size", "2",
+                  "--mu", "2", "--multi_step", "4", "--steps", "6", "--logdir", str(tmp_path / "trace")])
+    assert {key: out["counts"][key] for key in ("eager_steps", "replays", "captures")} == {
+        "eager_steps": 0, "replays": 6, "captures": 0}
+    spans = out["spans"]
+    pro = spans["spans"]["port.step.prologue"]
+    assert pro["calls"] == 6 and pro["host_ms"] > 0
+    assert 0 <= pro["idle_ms"] <= pro["host_ms"]
+    assert 0 < pro["idle_share"] <= spans["device_idle_share"] <= 1
+    assert spans["spans"]["port.feed.wait"]["calls"] == 2
+
+
+@pytest.mark.cuda
 def test_step_graph_capture_failure_raises(cuda):
     """A step whose device work reads the card from the host cannot be
     captured: the second step raises, naming the step, and no step runs

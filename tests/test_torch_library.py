@@ -1,7 +1,7 @@
 """The port's last library modules against the JAX package's functions on
 seeded numpy inputs: ``ops/color.py``'s ``rgb2lab`` and
 ``rgb_to_luminance``, ``train/optim.py``'s ``radam`` and
-``utils/profiling.py`` (``trace``, ``StepTimer``, ``Throughput``)."""
+``utils/profiling.py``'s ``trace``."""
 
 import os
 
@@ -14,7 +14,6 @@ import torch
 
 from ssl_cr_histo_tpu.ops import color as JC
 from ssl_cr_histo_tpu.train import optim as JO
-from ssl_cr_histo_tpu.utils import profiling as JP
 from ssl_cr_histo_tpu_torch.ops import color as TC
 from ssl_cr_histo_tpu_torch.train import optim as TO
 from ssl_cr_histo_tpu_torch.utils import profiling as TP
@@ -127,60 +126,6 @@ def test_radam_matches_optax_float32():
     assert moved > 0.05
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4)
-
-
-class FakeClock:
-    def __init__(self, times):
-        self.times = list(times)
-
-    def __call__(self):
-        return self.times.pop(0)
-
-
-class Scalar:
-    """A step's scalar: counts the host fetches ``float`` makes of it."""
-
-    def __init__(self):
-        self.fetches = 0
-
-    def __float__(self):
-        self.fetches += 1
-        return 1.0
-
-
-def test_step_timer_matches_the_original(monkeypatch):
-    """Same clock readings, same elapsed times; ``elapsed(x)`` fetches x to
-    the host (a sync) before reading the clock, ``elapsed()`` does not."""
-    out = {}
-    for mod in (JP, TP):
-        monkeypatch.setattr(mod.time, "time", FakeClock([10.0, 10.5, 11.25, 20.0, 20.125]))
-        timer, scalar = mod.StepTimer(), Scalar()
-        timer.reset()  # the constructor's default reads the clock it was defined with
-        out[mod] = [timer.elapsed(scalar), timer.elapsed()]
-        timer.reset()
-        out[mod].append(timer.elapsed(scalar))
-        assert scalar.fetches == 2
-    assert out[TP] == out[JP] == [0.5, 1.25, 0.125]
-
-
-@pytest.mark.parametrize("window", [1, 3, 50])
-def test_throughput_matches_the_original(window):
-    """The same sliding window: items/s after each update equal the
-    original's, the window dropping the oldest step."""
-    rng = np.random.default_rng(window)
-    meters = (JP.Throughput(window=window), TP.Throughput(window=window))
-    assert meters[0].items_per_sec == meters[1].items_per_sec == 0.0
-    for _ in range(8):
-        n, secs = int(rng.integers(1, 100)), float(rng.random()) + 0.01
-        for m in meters:
-            m.update(n, secs)
-        assert meters[1].items_per_sec == meters[0].items_per_sec
-    assert len(meters[1]._times) == min(window, 8)
-    # a step of no time: with a window of one the meter reads 0, not a division by 0
-    for m in meters:
-        m.update(5, 0.0)
-    assert meters[1].items_per_sec == meters[0].items_per_sec
-    assert window > 1 or meters[1].items_per_sec == 0.0
 
 
 def test_trace_writes_a_profiler_trace(tmp_path):

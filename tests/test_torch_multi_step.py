@@ -1,6 +1,7 @@
 """``--multi_step K`` in the port on the CPU: K train steps a chunk.
 
-``data.pipeline.chunk_batches`` against the JAX package's; each of the
+``data.pipeline.batch_groups`` and ``stack_chunk``, as the feed runs them,
+against the JAX package's ``chunk_batches``; each of the
 pretrain, fine-tune and consistency steps (with and without ``--ema``) run
 by ``parallel.steps.StepGraph`` at K = 3 over 7 steps (chunks of 3, 3 and
 a partial 1) against 7 calls of the single step, bit for bit, both as the
@@ -82,20 +83,22 @@ def _same_ckpt(path_a, path_b):
     _same(a, b, os.path.basename(str(path_a)))
 
 
-# --- chunk_batches ------------------------------------------------------------
+# --- batch_groups and stack_chunk ---------------------------------------------
 
 
 @pytest.mark.parametrize("n,tupled", [(6, False), (7, False), (6, True), (8, True)],
                          ids=["full", "partial", "full-tuples", "partial-tuples"])
 def test_chunk_batches_matches_jax(n, tupled):
-    """The same numpy batches chunked by the port and by the JAX package:
+    """The same numpy batches chunked by the port (``stack_chunk`` over
+    ``batch_groups``, the feed's composition) and by the JAX package:
     the same stacked arrays (dtype and shape too) and valid masks, full
     chunks and a zero-padded partial last one."""
     rng = np.random.default_rng(n)
     batches = [rng.integers(0, 256, (4, 5, 5, 3), dtype=np.uint8) for _ in range(n)]
     if tupled:
         batches = [(b, rng.integers(0, 9, 4)) for b in batches]
-    got, want = list(TP.chunk_batches(iter(batches), K)), list(JP.chunk_batches(iter(batches), K))
+    got = [TP.stack_chunk(group, K) for group in TP.batch_groups(iter(batches), K)]
+    want = list(JP.chunk_batches(iter(batches), K))
     assert len(got) == len(want) == -(-n // K)
     for (g, gv), (w, wv) in zip(got, want, strict=True):
         np.testing.assert_array_equal(gv, wv)

@@ -447,7 +447,7 @@ def test_cli_prefetch_keeps_the_batches_and_the_state(tmp_path, monkeypatch):
     _write_slides(slides)
     real_prefetch = pretrain.prefetch_to_device
 
-    def inline(it, device, size=2):
+    def inline(it, device, size=2, counters=None, slot=0):
         for batch in it:
             yield tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in batch)
 
@@ -456,9 +456,9 @@ def test_cli_prefetch_keeps_the_batches_and_the_state(tmp_path, monkeypatch):
         seen = {"train": [], "val": [], "feeds": 0}
         real_step, real_eval = TS.pretrain_step, TS.pretrain_eval_step
 
-        def counted(it, device, size=2, feed=feed, seen=seen):
+        def counted(it, device, size=2, feed=feed, seen=seen, **counting):
             seen["feeds"] += 1
-            return feed(it, device, size)
+            return feed(it, device, size, **counting)
 
         def step(state, tiles, *a, seen=seen, real_step=real_step, **kw):
             seen["train"].append(tiles.clone())
