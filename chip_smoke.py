@@ -22,7 +22,7 @@ steps, the serving forward, evaluation and the kernels.
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit); no CUDA -> exit 1
-  2. build both kernels from csrc/ with nvcc, in parallel, and print each
+  2. build the three kernels from csrc/ with nvcc, in parallel, and print each
      build's -Xptxas -v report (registers, shared memory, spills); a kernel
      that spills fails the run
   3. the photometric chain kernel vs its plain version, host-noise mode, at
@@ -38,7 +38,12 @@ Phases (any failure exits non-zero and prints no result line):
      triplet ordering: finite, float32 out within 1e-4, bf16 out within one
      bf16 ulp of the plain float32 result (or 1e-4 where an ulp is
      smaller); the warp plan the kernel computes (``plan_out``) equal to
-     ``warp_pass_coefficients`` on the card and on the CPU
+     ``warp_pass_coefficients`` on the card and on the CPU; then the strong
+     views kernel (``phase_views_vs_plain``) against its plain version on
+     the card at the CR cell's (112, 256, 256, 3), NAug 7: fused, fast and
+     masked as drawn and fused with every gate on, weak and strong within
+     1e-5, one launch a call; the wrapper, the whole call and the plain
+     version timed in turns, and the kernel's byte bound
   5. main path: a small float32 step on the card must agree with the same
      step on the CPU (plain versions); then ``ssl_cr_histo_tpu_torch.cli.
      pretrain.main`` on two synthetic slides at resnet18 / batch 64 / 256^2 /
@@ -71,10 +76,11 @@ Phases (any failure exits non-zero and prints no result line):
      of record (resnet18, 8 labeled + 56 unlabeled images at 224^2, NAug 7,
      bf16, Adam 1e-5) for one epoch on phase 6's PNG class folders from
      phase 6's ``best.pth``, with every launch counter set to 0 just before
-     and read just after: neither kernel may launch (the views are PyTorch
-     ops, as they are XLA ops in the JAX package); the CSV row and the best
-     / final checkpoints; BreastPathQ's regression variant through
-     ``consistency.run`` on numpy data (batch 4, mu 7, 256^2); the bf16 step
+     and read just after: the strong views kernel launches once a step
+     (the steps the CLI's StepGraph takes) and neither pretraining kernel
+     ever; the CSV row and the best / final checkpoints; BreastPathQ's
+     regression variant through ``consistency.run`` on numpy data (batch
+     4, mu 7, 256^2), counted the same way; the bf16 step
      and the views alone timed with CUDA events (``--profile``: the step's
      profile table too)
   8. timing with CUDA events, in turns (old, fused, fused, old): the bf16
@@ -95,7 +101,8 @@ Phases (any failure exits non-zero and prints no result line):
      labeled + 56 unlabeled images a pool) for one step from its
      ``best.pth``, ``cli.heatmap`` (batch 256, 256^2, bf16) over both slides
      from that ``best.pth``, each with every launch counter set to 0 just
-     before and read just after (neither kernel may launch); each map's
+     before and read just after (the strong views kernel once in the
+     consistency step, no other launch); each map's
      shape, values in [0, 1], 0 exactly off the mask, the artifacts; one
      map card vs CPU in float32 on a 2048^2 crop (max abs diff <= 1e-4);
      ``cli.froc`` on the maps and its report; the fine-tune step, the
@@ -118,7 +125,8 @@ Phases (any failure exits non-zero and prints no result line):
      and Camelyon16 (phase 9's best.pth on its VALID patches); ``cli.
      consistency --mode evaluation`` on phase 7's best.pth, and a run with
      ``--ema`` resumed for a second epoch, its teacher restored bit-equal to
-     teacher_ckpt_1.pth.  Neither kernel may launch on an evaluation path.
+     teacher_ckpt_1.pth.  No kernel may launch on an evaluation path; the
+     strong views kernel launches once a consistency training step.
      Where matplotlib or scikit-learn is missing, the plots are recorded,
      not drawn, and the phase prints which it did not draw
  11. the augmentation modes and the last stage-CLI flags: each new op
@@ -131,8 +139,9 @@ Phases (any failure exits non-zero and prints no result line):
      64, 256^2, bf16, 4 steps; neither kernel), ``--aug_mode fast`` (the
      fused kernel once a step) and ``--reference_exact`` (no kernel,
      float32, per-view BN, the x6 orderings), and ``cli.consistency`` at
-     Kather's CR config under ``--aug_mode fast``, ``masked`` and
-     ``exact`` (no kernel), each with every launch counter set to 0 just
+     Kather's CR config under ``--aug_mode fast``, ``masked`` (the strong
+     views kernel once a step) and ``exact`` (no kernel), each with every
+     launch counter set to 0 just
      before and read just after; a float32 ``--remat`` step card vs CPU and
      against the step without it; resnet50 at 64 triplets of 256^2, bf16,
      with and without ``--remat`` in turns: peak memory and step time; the
@@ -202,7 +211,8 @@ Phases (any failure exits non-zero and prints no result line):
      aug-on gate at the JAX test's argv: its transfer check enforced, its
      pretext check's verdict printed and the check enforced as a majority
      over its pretraining at seeds 42 and 1-12 (ROADMAP Queue 3 item 4);
-     neither kernel may launch
+     neither pretraining kernel may launch, the strong views kernel once a
+     consistency step
  16. ``--multi_step`` (``phase_multi_step``), cuDNN and PyTorch
      deterministic: each stage CLI at the config of record at
      ``--multi_step 8`` and then 1 (the pretrain CLI for 11 steps, Kather's
@@ -245,9 +255,11 @@ Phases (any failure exits non-zero and prints no result line):
      resnet50 one from a fresh state with Adam's moments (as a process,
      and read / to the reference layout / ``torch.save`` in this one)
  19. the whole run's wall time, the kernels line, then ``{"ok": true,
-     "device": {...}}`` as the last line.  A kernel's ``launches`` is phase
-     5's count (the main path); ``launches_by_path`` adds each CLI path of
-     phases 10 and 11, each process of phase 12's paths, each stage of
+     "device": {...}}`` as the last line.  A kernel's ``launches`` is the
+     count on its main path: phase 5's pretrain CLI for the two pretraining
+     kernels, phase 7's consistency CLI for the strong views kernel;
+     ``launches_by_path`` adds phase 7's two consistency paths, each CLI
+     path of phases 10 and 11, each process of phase 12's paths, each stage of
      phase 13's recipes and phase 14's dryruns, ``profile_step`` and each
      gate of phase 15, each run of phase 16, each measurement of phase 17
      and each CLI run of phase 18, each counted from 0
@@ -277,8 +289,10 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 TOL = 1e-4
+# the strong views kernel against its plain version (PyTorch ops on the card)
+VIEWS_TOL = 1e-5
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("photometric_chain", "rsp_augment")
+KERNELS = ("photometric_chain", "rsp_augment", "strong_views")
 # (triplets, tile edge) of the main path (the config of record) and of the
 # odd shape that exercises the kernels' ragged edges
 MAIN, ODD = (64, 256), (2, 37)
@@ -307,6 +321,7 @@ PIXEL_OPS = {
     "hed": 60,        # 3 log, 2 3x3 products, the shift, 3 exp, (e - 1) / 2, clip
     "bc": 15,         # x * (1 + c) + b, clipped, 3 channels
     "normalize": 12,  # clip, (x - mean) / std, 3 channels
+    "clip": 6,        # min and max, 3 channels
 }
 
 
@@ -325,6 +340,26 @@ def card_line() -> str:
                          capture_output=True, text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_counters() -> dict:
+    """Each hand-written kernel's wrapper module, whose ``launches`` counts
+    the kernel's launches, by the kernel's name in ``KERNELS``."""
+    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
+    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+    from ssl_cr_histo_tpu_torch.ops import strong_views_kernel as SV
+
+    return {"photometric_chain": PK, "rsp_augment": RK, "strong_views": SV}
+
+
+def reset_launches() -> None:
+    for module in kernel_counters().values():
+        module.launches = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches since the last ``reset_launches``."""
+    return {name: module.launches for name, module in kernel_counters().items()}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -395,6 +430,23 @@ def fused_ops(params, pixels: int, philox: bool) -> float:
     """Operations of the fused kernel: the warp, the chain, the normalize."""
     extra = (PIXEL_OPS["warp"] + PIXEL_OPS["normalize"]) * params.shape[0] * pixels
     return chain_ops(params, pixels, philox) + extra
+
+
+def views_ops(table, pixels: int) -> float:
+    """Operations of the strong views kernel for this packed table
+    (``strong_views_kernel.pack_table``) over images of ``pixels`` pixels:
+    each image's active photometric stages (noise read, not drawn), its
+    warp, and both views' clip."""
+    from ssl_cr_histo_tpu_torch.ops import randaugment as RA
+    from ssl_cr_histo_tpu_torch.ops import strong_views_kernel as SV
+
+    kind = {"hsv": "hsv", "noise": "noise", "color": "hed", "blur": "blur", "brightness": "bc", "contrast": "bc"}
+    b, n = table.shape[0], (table.shape[1] - SV.TABLE_HEAD) // SV.STAGE_WIDTH
+    stages = table[:, SV.TABLE_HEAD:].view(b, n, SV.STAGE_WIDTH)
+    per_image = PIXEL_OPS["warp"] + 2 * PIXEL_OPS["clip"]
+    total = b * per_image + sum(PIXEL_OPS[kind[RA.V1_POOL[int(op)]]]
+                                for op, on in stages[..., :2].reshape(-1, 2).tolist() if on > 0.5)
+    return float(total) * pixels
 
 
 def bf16_ulp(x):
@@ -575,6 +627,71 @@ def phase_fused_vs_plain(RK, PK, fused, torch, dev) -> float:
     return worst
 
 
+def phase_views_vs_plain(torch, dev, card: str) -> tuple:
+    """Phase 4, the consistency views: the strong views kernel, through
+    ``ops.batch.transform_fix_batch`` on the card, against its plain
+    version on the card (``fused.transform_fix_fused`` with
+    ``randaugment_v1_fused``, the PyTorch ops it replaced) on the same
+    draws, at the CR cell's shape (112 unlabeled images of 256^2, NAug 7):
+    fused, fast and masked as drawn, and fused with every gate on, each
+    within ``VIEWS_TOL`` and one launch a call.  Then, under fused as
+    drawn, the wrapper on a packed table and the whole call (its host
+    packing included) against the plain version, in turns (CUDA events),
+    and the kernel's bound from its bytes.  Returns (the largest error, the
+    timing for the kernels line)."""
+    from ssl_cr_histo_tpu_torch.ops import batch as TB
+    from ssl_cr_histo_tpu_torch.ops import fused
+    from ssl_cr_histo_tpu_torch.ops import randaugment as RA
+    from ssl_cr_histo_tpu_torch.ops import strong_views_kernel as SV
+
+    b, s, n = 112, 256, 7
+    host = torch.Generator().manual_seed(4)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    imgs = torch.randint(0, 256, (b, s, s, 3), dtype=torch.uint8, device=dev, generator=gen)
+
+    def plain(d):
+        x = TB.to_float(imgs.permute(0, 3, 1, 2).contiguous())
+        return [torch.clamp(v, 0.0, 1.0) for v in fused.transform_fix_fused(x, d)]
+
+    cases = [(mode, mode, TB.draw_transform_fix(gen, b, s, n, host_gen=host, mode=mode))
+             for mode in ("fused", "fast", "masked")]
+    on = dict(cases[0][2], params=cases[0][2]["params"].clone())
+    on["params"][..., RA.GATE] = 1.0
+    cases.append(("fused, every gate on", "fused", on))
+    worst = 0.0
+    for label, mode, d in cases:
+        before = SV.launches
+        got = TB.transform_fix_batch(None, imgs, n, mode=mode, draws=d)
+        launched = SV.launches - before
+        err = max((a - w).abs().max().item() for a, w in zip(got, plain(d)))
+        active = int(SV.pack_table(d, s)[:, SV.TABLE_HEAD + 1::SV.STAGE_WIDTH].sum())
+        print(f"phase 4: strong views ({b}, {s}, {s}, 3) {label}: {active} active stages, {d['noise'].shape[0]} "
+              f"noise fields, {launched} launch; weak and strong against the plain version max abs err {err:.2e}",
+              flush=True)
+        check(launched == 1, f"strong views {label}: {launched} launches in one call")
+        check(err <= VIEWS_TOL, f"strong views {label}: kernel vs plain differ by {err} > {VIEWS_TOL}")
+        worst = max(worst, err)
+
+    d = cases[0][2]
+    table = SV.pack_table(d, s)
+    fns = {"kernel": lambda: SV.strong_views_cuda(imgs, table, d["noise"]),
+           "call": lambda: TB.transform_fix_batch(None, imgs, n, draws=d),
+           "plain": lambda: plain(d)}
+    t = in_turns(fns, ["plain", "kernel", "call", "kernel", "call", "plain"], {"plain": 5, "kernel": 50, "call": 50})
+    ms = {k: min(v) for k, v in t.items()}
+    bytes_ = imgs.numel() + d["noise"].numel() * 4 + 2 * b * 3 * s * s * 4 + table.numel() * 4
+    b_ms, b_by = bound_ms(bytes_, views_ops(table, s * s))
+    cluster, rows, smem = SV.launch_plan(s, s, n)
+    runs = lambda k: ", ".join(f"{v * 1e3:.1f}" for v in t[k])
+    print(f"phase 4: strong views kernel ({b}, {s}, {s}, 3) fused as drawn, NAug {n}: wrapper {ms['kernel'] * 1e3:.1f} "
+          f"us (CUDA events, runs {runs('kernel')}), {b_ms / ms['kernel'] * 100:.1f}% of its bound; the whole call "
+          f"with its host packing {ms['call'] * 1e3:.1f} us (runs {runs('call')}); plain version "
+          f"{ms['plain'] * 1e3:.1f} us (runs {runs('plain')}) = {ms['plain'] / ms['kernel']:.1f}x; bound "
+          f"{b_ms * 1e3:.1f} us by {b_by} ({bytes_ / 1e6:.1f} MB); a cluster of {cluster} CTAs of {rows} rows an "
+          f"image, {smem} bytes of shared memory a CTA [{card}]", flush=True)
+    return worst, {"ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": b_ms, "bound_by": b_by}
+
+
 def phase_step_card_vs_cpu(torch) -> float:
     """One float32 pretrain step on a small input (batch 4, 64^2) with the
     same weights and injected draws, on the card (kernel path) and on the
@@ -719,8 +836,6 @@ def phase_finetune(torch, dev, tmp: str, pretrain_ckpt: str, card: str, profile_
     from ssl_cr_histo_tpu_torch.cli.common import TASKS, make_optimizer
     from ssl_cr_histo_tpu_torch.data import datasets as D
     from ssl_cr_histo_tpu_torch.ops import batch as TB
-    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
-    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
     from ssl_cr_histo_tpu_torch.parallel import steps as S
     from ssl_cr_histo_tpu_torch.train.init import init_finetune_state
 
@@ -731,12 +846,12 @@ def phase_finetune(torch, dev, tmp: str, pretrain_ckpt: str, card: str, profile_
     argv = ["--task", "kather", "--train_path", data, "--model_path", pretrain_ckpt, "--save_dir", run,
             "--model", "resnet18", "--batch_size", "64", "--num_epoch", "1", "--save_freq", "1"]
     print("phase 6: fine-tune CLI " + " ".join(argv), flush=True)
-    PK.launches = RK.launches = 0
+    reset_launches()
     t0 = time.time()
     finetune.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"photometric_chain": PK.launches, "rsp_augment": RK.launches}
+    launches = launch_counts()
     print(f"phase 6: fine-tune CLI wall {wall:.2f} s, kernel launches {launches} (the 3-view stack is "
           f"PyTorch ops, as in the JAX package)", flush=True)
     check(not any(launches.values()), f"a kernel launched on the fine-tune path: {launches}")
@@ -762,9 +877,9 @@ def phase_finetune(torch, dev, tmp: str, pretrain_ckpt: str, card: str, profile_
     bpq = D.ArrayDataset(rng.integers(0, 256, (20, 256, 256, 3), dtype=np.uint8), rng.random(20).astype(np.float32))
     args = finetune.parse_args(["--task", "breastpathq", "--save_dir", os.path.join(tmp, "bpq"), "--num_epoch", "1",
                                 "--save_freq", "0", "--model_path", pretrain_ckpt])
-    PK.launches = RK.launches = 0
+    reset_launches()
     finetune.run(args, TASKS["breastpathq"], *D.train_val_split(bpq, args.validation_split, seed=args.seed))
-    check(PK.launches == RK.launches == 0, "a kernel launched on the BreastPathQ fine-tune path")
+    check(not any(launch_counts().values()), "a kernel launched on the BreastPathQ fine-tune path")
     with open(os.path.join(tmp, "bpq", "fine_tuned_results.csv")) as f:
         row = f.read().splitlines()[1]
     check(all(math.isfinite(float(v)) for v in row.split(",")), f"BreastPathQ CSV row {row}")
@@ -889,21 +1004,21 @@ def phase_consistency_card_vs_cpu(torch) -> None:
           flush=True)
 
 
-def phase_consistency(torch, dev, tmp: str, card: str, profile_dir: str) -> None:
+def phase_consistency(torch, dev, tmp: str, card: str, profile_dir: str) -> dict:
     """Phase 7: the consistency slice from phase 6's fine-tune checkpoints
     (the stage 2 -> 3 handoff).  Card vs CPU; the CLI at Kather's CR config
     (resnet18, 8 labeled images and 56 unlabeled at 224^2, NAug 7, bf16,
-    Adam 1e-5) for one epoch on phase 6's PNG class folders, with both
-    kernels' launch counters at 0 before and read after; BreastPathQ through
-    ``run`` on numpy data; the bf16 step and the views alone timed."""
+    Adam 1e-5) for one epoch on phase 6's PNG class folders, and
+    BreastPathQ through ``run`` on numpy data, each with every launch
+    counter at 0 before and read after: the strong views kernel once a
+    step, no other kernel; the bf16 step and the views alone timed.
+    Returns both paths' launches."""
     import numpy as np
 
     from ssl_cr_histo_tpu_torch.cli import consistency
     from ssl_cr_histo_tpu_torch.cli.common import TASKS, make_optimizer
     from ssl_cr_histo_tpu_torch.data import datasets as D
     from ssl_cr_histo_tpu_torch.ops import batch as TB
-    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
-    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
     from ssl_cr_histo_tpu_torch.parallel import steps as S
     from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_teacher
 
@@ -914,15 +1029,16 @@ def phase_consistency(torch, dev, tmp: str, card: str, profile_dir: str) -> None
             os.path.join(tmp, "finetune", "best.pth"), "--save_dir", run, "--model", "resnet18",
             "--batch_size", "8", "--mu", "7", "--NAug", "7", "--num_epoch", "1", "--save_freq", "1"]
     print("phase 7: consistency CLI " + " ".join(argv), flush=True)
-    PK.launches = RK.launches = 0
+    reset_launches()
     t0 = time.time()
-    consistency.main(argv)
+    with recorded_steps(S, "consistency") as steps:
+        consistency.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"photometric_chain": PK.launches, "rsp_augment": RK.launches}
-    print(f"phase 7: consistency CLI wall {wall:.2f} s, kernel launches {launches} (the views are PyTorch ops, "
-          f"as they are XLA ops in the JAX package)", flush=True)
-    check(not any(launches.values()), f"a kernel launched on the consistency path: {launches}")
+    check(len(steps) > 0, "the consistency CLI took no step")
+    launches = check_launches("consistency CLI", views=len(steps))
+    print(f"phase 7: consistency CLI wall {wall:.2f} s, {len(steps)} steps, kernel launches {launches} (the views: "
+          f"one strong_views launch a step)", flush=True)
     with open(os.path.join(run, "consistency_results.csv")) as f:
         rows = [r.strip() for r in f.read().splitlines()[1:] if r.strip()]
     check(len(rows) == 1, f"expected one consistency CSV row, got {rows}")
@@ -947,9 +1063,10 @@ def phase_consistency(torch, dev, tmp: str, card: str, profile_dir: str) -> None
                                    "--num_epoch", "1", "--save_freq", "0", "--labeled_train", "0.25"])
     train, val = D.train_val_split(bpq, args.validation_split, seed=args.seed)
     labeled = D.labeled_fraction(train, args.labeled_train, seed=args.seed)
-    PK.launches = RK.launches = 0
-    consistency.run(args, TASKS["breastpathq"], labeled, train, val)
-    check(PK.launches == RK.launches == 0, "a kernel launched on the BreastPathQ consistency path")
+    reset_launches()
+    with recorded_steps(S, "consistency") as bpq_steps:
+        consistency.run(args, TASKS["breastpathq"], labeled, train, val)
+    bpq_launches = check_launches("BreastPathQ consistency", views=len(bpq_steps))
     with open(os.path.join(tmp, "bpq_cr", "consistency_results.csv")) as f:
         row = f.read().splitlines()[1]
     check(all(math.isfinite(float(v)) for v in row.split(",")), f"BreastPathQ consistency CSV row {row}")
@@ -957,7 +1074,8 @@ def phase_consistency(torch, dev, tmp: str, card: str, profile_dir: str) -> None
     check(tuple(ckpt["classifier"]["classifier.0.weight"].shape) == (1, 768) and ckpt["step"] == 2,
           "BreastPathQ consistency final checkpoint")
     print(f"phase 7: BreastPathQ consistency run (16 labeled / 64 unlabeled / 16 val at 256^2, batch 4, mu 7, "
-          f"MSE), CSV (epoch, train_loss, sup_loss, cons_loss, val_mse) {row}, kernel launches 0", flush=True)
+          f"MSE), CSV (epoch, train_loss, sup_loss, cons_loss, val_mse) {row}, kernel launches {bpq_launches}",
+          flush=True)
 
     # the bf16 step at Kather's CR config and the consistency views alone
     cfg, b, mu = TASKS["kather"], TASKS["kather"].cr_batch, 7
@@ -985,6 +1103,7 @@ def phase_consistency(torch, dev, tmp: str, card: str, profile_dir: str) -> None
     if profile_dir:
         profile_steps(torch, step, profile_dir, "consistency_step_profile.txt", "consistency", card)
     del state, teacher
+    return {"consistency_cli": launches, "consistency_breastpathq": bpq_launches}
 
 
 def with_events(torch, fn, pairs: list):
@@ -1132,9 +1251,13 @@ def write_camelyon(root: str, patch: int, n_per_pool: int, n_valid: int, slide: 
     return d
 
 
-def check_no_launch(PK, RK, label: str) -> dict:
-    launches = {"photometric_chain": PK.launches, "rsp_augment": RK.launches}
-    check(not any(launches.values()), f"a kernel launched on the {label} path: {launches}")
+def check_launches(label: str, views: int = 0) -> dict:
+    """The launches since the last ``reset_launches``: neither pretraining
+    kernel, and the strong views kernel ``views`` times (once a consistency
+    training step under a composed ``--aug_mode``)."""
+    launches = launch_counts()
+    want = {"photometric_chain": 0, "rsp_augment": 0, "strong_views": views}
+    check(launches == want, f"the {label} path launched {launches}, want {want}")
     return launches
 
 
@@ -1146,8 +1269,8 @@ def phase_camelyon(torch, dev, tmp: str, pretrain_ckpt: str, card: str, profile_
     (8 labeled + 56 unlabeled images a pool) for one step from its
     best.pth, then the heatmap CLI (batch 256, 256^2, bf16) over two
     ``slide``^2 slides from the consistency best.pth, each with every
-    launch counter at 0 before and read after (neither kernel may launch);
-    one map card vs CPU in float32 on a 2048^2 crop; the FROC CLI on
+    launch counter at 0 before and read after (the strong views kernel once
+    in the consistency step, no other launch); one map card vs CPU in float32 on a 2048^2 crop; the FROC CLI on
     the maps; then the steps, the serving forward and each map's wall
     time (against the sum of its forwards) timed with CUDA events.  The
     sizes are parameters so that a CPU rehearsal can shrink them; the card
@@ -1161,8 +1284,6 @@ def phase_camelyon(torch, dev, tmp: str, pretrain_ckpt: str, card: str, profile_
     from ssl_cr_histo_tpu_torch.cli.common import TASKS, make_optimizer
     from ssl_cr_histo_tpu_torch.data.wsi import ArrayPyramid, open_slide
     from ssl_cr_histo_tpu_torch.eval import heatmap as H
-    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
-    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
     from ssl_cr_histo_tpu_torch.parallel import steps as S
     from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_serving_state, init_teacher
 
@@ -1182,12 +1303,12 @@ def phase_camelyon(torch, dev, tmp: str, pretrain_ckpt: str, card: str, profile_
             "--val_path", f"{d['tumor_valid']},{d['normal_valid']}", "--model_path", pretrain_ckpt,
             "--save_dir", run, "--num_epoch", "1", "--save_freq", "1"] + common
     print("phase 9: fine-tune CLI " + " ".join(argv), flush=True)
-    PK.launches = RK.launches = 0
+    reset_launches()
     t0 = time.time()
     finetune.main(argv)
     sync()
     wall = time.time() - t0
-    launches = check_no_launch(PK, RK, "Camelyon16 fine-tune")
+    launches = check_launches("Camelyon16 fine-tune")
     with open(os.path.join(run, "fine_tuned_results.csv")) as f:
         row = f.read().splitlines()[1]
     vals = [float(v) for v in row.split(",")]
@@ -1205,12 +1326,12 @@ def phase_camelyon(torch, dev, tmp: str, pretrain_ckpt: str, card: str, profile_
             os.path.join(run, "best.pth"), "--save_dir", cr, "--labeled_train", "0.125", "--num_epoch", "1",
             "--save_freq", "1"] + common
     print("phase 9: consistency CLI " + " ".join(argv), flush=True)
-    PK.launches = RK.launches = 0
+    reset_launches()
     t0 = time.time()
     consistency.main(argv)
     sync()
     wall = time.time() - t0
-    launches = check_no_launch(PK, RK, "Camelyon16 consistency")
+    launches = check_launches("Camelyon16 consistency", views=0 if cpu else 1)
     with open(os.path.join(cr, "consistency_results.csv")) as f:
         row = f.read().splitlines()[1]
     check(all(math.isfinite(float(v)) for v in row.split(",")), f"Camelyon16 consistency CSV row {row}")
@@ -1227,12 +1348,12 @@ def phase_camelyon(torch, dev, tmp: str, pretrain_ckpt: str, card: str, profile_
     argv = ["--test_image_pth", d["wsi"], "--test_mask_pth", d["mask"], "--probs_map_path", maps_dir,
             "--finetune_ckpt", best, "--batch_size", "256"] + common
     print("phase 9: heatmap CLI " + " ".join(argv), flush=True)
-    PK.launches = RK.launches = 0
+    reset_launches()
     t0 = time.time()
     maps = heatmap_cli.main(argv)
     sync()
     wall = time.time() - t0
-    launches = check_no_launch(PK, RK, "serving")
+    launches = check_launches("serving")
     cells = slide // resolution
     for name, pm in sorted(maps.items()):
         mask = np.load(os.path.join(d["mask"], f"{name}_tissue.npy"))
@@ -1402,7 +1523,8 @@ def phase_remaining_modes(torch, dev, tmp: str, slides: str, card: str, profile_
        feed alone and its forward alone (``--profile``: one call traced);
     6. the consistency CLI's --mode evaluation, and --resume auto --ema for
        a second epoch with the teacher restored bit-equal.
-    Neither kernel may launch on an evaluation path."""
+    No kernel may launch on an evaluation path; the strong views kernel
+    launches once a consistency training step."""
     import warnings
 
     import numpy as np
@@ -1412,8 +1534,7 @@ def phase_remaining_modes(torch, dev, tmp: str, slides: str, card: str, profile_
     from ssl_cr_histo_tpu_torch.data import RSPTripletSampler
     from ssl_cr_histo_tpu_torch.data import datasets as D
     from ssl_cr_histo_tpu_torch.eval import reporting as RP
-    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
-    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
     from ssl_cr_histo_tpu_torch.train.init import init_serving_state
 
     tile, stride, expand_stride, batch, image, patch = 256, 16, 80, 64, 224, 256
@@ -1423,7 +1544,7 @@ def phase_remaining_modes(torch, dev, tmp: str, slides: str, card: str, profile_
     launches = {}
 
     def read_launches(path: str) -> dict:
-        launches[path] = {"photometric_chain": PK.launches, "rsp_augment": RK.launches}
+        launches[path] = launch_counts()
         return launches[path]
 
     # 1. pretrain --resume, bit for bit
@@ -1440,7 +1561,7 @@ def phase_remaining_modes(torch, dev, tmp: str, slides: str, card: str, profile_
             for name, extra in (("straight", ["--num_epoch", "2"]), ("first", ["--num_epoch", "1"]),
                                 ("resumed", ["--num_epoch", "2", "--resume", "auto"])):
                 run = os.path.join(tmp, "resume", "resumed" if name != "straight" else "straight")
-                PK.launches = RK.launches = 0
+                reset_launches()
                 t0 = time.time()
                 with contextlib.redirect_stdout(io.StringIO()):
                     pretrain.main(base + ["--save_dir", run] + extra)
@@ -1485,7 +1606,7 @@ def phase_remaining_modes(torch, dev, tmp: str, slides: str, card: str, profile_
     argv = ["--train_image_pth", slides, "--batch_size", str(batch), "--tile_h", str(tile), "--tile_w", str(tile),
             "--tile_stride", str(expand_stride), "--validation_size", "8", "--num_epoch", "2", "--save_freq", "0",
             "--index_cache_dir", "", "--expand_orderings", "--cache_tiles", "--tsne", "--save_dir", run] + common
-    PK.launches = RK.launches = 0
+    reset_launches()
     t0 = time.time()
     try:
         with plot_recorders(RP, "phase 10: pretrain --tsne") as plots, contextlib.redirect_stdout(io.StringIO()):
@@ -1523,10 +1644,10 @@ def phase_remaining_modes(torch, dev, tmp: str, slides: str, card: str, profile_
     argv = ["--task", "kather", "--mode", "evaluation", "--test_path", test_dir, "--finetune_ckpt", ckpt,
             "--save_dir", os.path.join(tmp, "eval_kather"), "--eval_batch_size", str(batch),
             "--image_size", str(image)] + common
-    PK.launches = RK.launches = 0
+    reset_launches()
     with plot_recorders(RP, "phase 10: Kather evaluation"), contextlib.redirect_stdout(io.StringIO()):
         report = finetune.main(argv)
-    launches["finetune_evaluation_kather"] = check_no_launch(PK, RK, "Kather evaluation")
+    launches["finetune_evaluation_kather"] = check_launches("Kather evaluation")
     check(list(report) == ["confusion", "per_class", "weighted_f1", "accuracy", "ovr_auc"]
           and int(np.sum(report["confusion"])) == 9 * 64, f"Kather report keys {list(report)}")
     ds = D.load_kather_folder(test_dir, image)
@@ -1548,12 +1669,12 @@ def phase_remaining_modes(torch, dev, tmp: str, slides: str, card: str, profile_
                          rng.random(48).astype(np.float32))
     labels_b = np.clip(bpq.labels + rng.normal(0, 0.1, 48), 0, 1).astype(np.float32)
     state = init_serving_state("resnet18", 1, dev, os.path.join(tmp, "bpq", "final.pth"))
-    PK.launches = RK.launches = 0
+    reset_launches()
     with plot_recorders(RP, "phase 10: BreastPathQ evaluation"), contextlib.redirect_stdout(io.StringIO()):
         out = finetune.predict_all(state, bpq, bpq_cfg, dev, batch_size=16, bf16=True)
         report = finetune.eval_report(bpq_cfg, bpq.labels, out, labels_b)
         path = finetune.write_eval(os.path.join(tmp, "eval_bpq"), bpq_cfg, report, bpq.labels, out, labels_b)
-    launches["finetune_evaluation_breastpathq"] = check_no_launch(PK, RK, "BreastPathQ evaluation")
+    launches["finetune_evaluation_breastpathq"] = check_launches("BreastPathQ evaluation")
     check(list(report) == ["icc_MA", "icc_MB", "icc_AB", "tau_MA", "mse_MA"] and out.shape == (48,)
           and os.path.exists(path) and math.isfinite(report["mse_MA"]), f"BreastPathQ report {list(report)}")
     print(f"phase 10: BreastPathQ evaluation (48 patches of {patch}^2, two raters): ICC2 MA "
@@ -1566,10 +1687,10 @@ def phase_remaining_modes(torch, dev, tmp: str, slides: str, card: str, profile_
     argv = ["--task", "camelyon16", "--mode", "evaluation", "--test_path", test, "--json_path",
             os.path.join(tmp, "json"), "--finetune_ckpt", c16, "--save_dir", os.path.join(tmp, "eval_c16"),
             "--eval_batch_size", str(batch), "--image_size", str(patch)] + common
-    PK.launches = RK.launches = 0
+    reset_launches()
     with plot_recorders(RP, "phase 10: Camelyon16 evaluation"), contextlib.redirect_stdout(io.StringIO()):
         report = finetune.main(argv)
-    launches["finetune_evaluation_camelyon16"] = check_no_launch(PK, RK, "Camelyon16 evaluation")
+    launches["finetune_evaluation_camelyon16"] = check_launches("Camelyon16 evaluation")
     check(list(report) == ["confusion", "per_class", "weighted_f1", "accuracy", "auc"]
           and int(np.sum(report["confusion"])) == 32, f"Camelyon16 report {list(report)}")
     print(f"phase 10: Camelyon16 --mode evaluation from phase 9's best.pth on 32 VALID patches: accuracy "
@@ -1579,10 +1700,10 @@ def phase_remaining_modes(torch, dev, tmp: str, slides: str, card: str, profile_
     cr = os.path.join(tmp, "consistency", "best.pth")
     argv = ["--task", "kather", "--mode", "evaluation", "--test_path", test_dir, "--eval_ckpt", cr, "--save_dir",
             os.path.join(tmp, "eval_cr"), "--eval_batch_size", str(batch), "--image_size", str(image)] + common
-    PK.launches = RK.launches = 0
+    reset_launches()
     with plot_recorders(RP, "phase 10: consistency evaluation"), contextlib.redirect_stdout(io.StringIO()):
         report = consistency.main(argv)
-    launches["consistency_evaluation"] = check_no_launch(PK, RK, "consistency evaluation")
+    launches["consistency_evaluation"] = check_launches("consistency evaluation")
     check(int(np.sum(report["confusion"])) == 9 * 64, "consistency evaluation report")
     run = os.path.join(tmp, "cr_ema")
     argv = ["--task", "kather", "--train_path", os.path.join(tmp, "kather"), "--finetune_ckpt",
@@ -1595,19 +1716,22 @@ def phase_remaining_modes(torch, dev, tmp: str, slides: str, card: str, profile_
         restored.append({k: v.detach().cpu().clone() for k, v in
                          list(teacher.model.state_dict().items()) + list(teacher.head.state_dict().items())})
 
-    walls = {}
+    walls, cr_counts = {}, {}
     consistency.resume_teacher = resume_teacher
-    PK.launches = RK.launches = 0
+    reset_launches()
     try:
         for name, extra in (("first", ["--num_epoch", "1"]), ("resumed", ["--num_epoch", "2", "--resume", "auto"])):
             t0 = time.time()
-            with contextlib.redirect_stdout(io.StringIO()):
+            with recorded_steps(S, "consistency") as cr_steps, contextlib.redirect_stdout(io.StringIO()):
                 consistency.main(argv + extra)
             sync()
             walls[name] = time.time() - t0
+            cr_counts[name] = len(cr_steps)
     finally:
         consistency.resume_teacher = real_resume
-    launches["consistency_ema_first_then_resumed"] = check_no_launch(PK, RK, "consistency --ema and --resume")
+    check(all(cr_counts.values()), f"--resume --ema: consistency steps by run {cr_counts}")
+    launches["consistency_ema_first_then_resumed"] = check_launches("consistency --ema and --resume",
+                                                                    views=sum(cr_counts.values()))
     saved = load(os.path.join(run, "teacher_ckpt_1.pth"))
     want = {**saved["model"], **saved["classifier"]}
     check(len(restored) == 1 and set(restored[0]) == set(want)
@@ -2168,11 +2292,9 @@ def phase_modes_clis(torch, tmp: str, slides: str, card: str) -> dict:
     (4 steps; the fused kernel once a step) and with --reference_exact (2
     steps; no kernel, float32, one backbone pass a view, the x6
     orderings); the consistency CLI at Kather's CR config from phase 6's
-    best.pth under --aug_mode fast, masked and exact (no kernel).  Returns
-    each path's launches."""
+    best.pth under --aug_mode fast and masked (the strong views kernel once
+    a step) and exact (no kernel).  Returns each path's launches."""
     from ssl_cr_histo_tpu_torch.cli import consistency, pretrain
-    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
-    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
     from ssl_cr_histo_tpu_torch.parallel import steps as S
 
     launches = {}
@@ -2183,14 +2305,14 @@ def phase_modes_clis(torch, tmp: str, slides: str, card: str) -> dict:
             "pretrain_fast_cli": ["--aug_mode", "fast", "--tile_stride", "16", "--steps_per_epoch", "4"],
             "pretrain_reference_exact_cli": ["--reference_exact", "--tile_stride", "16", "--steps_per_epoch", "2"]}
     for path, extra in runs.items():
-        PK.launches = RK.launches = 0
+        reset_launches()
         t0 = time.time()
         with recorded(S, "make_pretrain_multi_step") as made, recorded_steps(S, "pretrain") as rows, \
                 contextlib.redirect_stdout(io.StringIO()):
             pretrain.main(base + common + extra + ["--save_dir", os.path.join(tmp, path)])
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches[path] = n = {"photometric_chain": PK.launches, "rsp_augment": RK.launches}
+        launches[path] = n = launch_counts()
         steps = int(extra[-1])
         check(len(made) == 1 and len(rows) == steps, f"{path}: {len(rows)} steps, not {steps}")
         calls = [dict(made[0], labels=row[1] if len(row) > 1 else None) for row in rows]
@@ -2216,14 +2338,14 @@ def phase_modes_clis(torch, tmp: str, slides: str, card: str) -> dict:
         argv = ["--task", "kather", "--train_path", os.path.join(tmp, "kather"), "--finetune_ckpt",
                 os.path.join(tmp, "finetune", "best.pth"), "--save_dir", os.path.join(tmp, path), "--batch_size", "8",
                 "--mu", "7", "--NAug", "7", "--num_epoch", "1", "--save_freq", "0", "--aug_mode", mode] + common
-        PK.launches = RK.launches = 0
+        reset_launches()
         t0 = time.time()
         with recorded(S, "make_consistency_multi_step") as made, recorded_steps(S, "consistency") as calls, \
                 contextlib.redirect_stdout(io.StringIO()):
             consistency.main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches[path] = check_no_launch(PK, RK, path)
+        launches[path] = check_launches(path, views=0 if mode == "exact" else len(calls))
         check(len(calls) >= 3 and len(made) == 1 and made[0]["aug_mode"] == mode, f"{path}: {len(calls)} steps")
         with open(os.path.join(tmp, path, "consistency_results.csv")) as f:
             row = f.read().splitlines()[1]
@@ -2295,8 +2417,6 @@ def cli_worker(out: str, argv: list) -> None:
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     torch.use_deterministic_algorithms(True, warn_only=True)
     from ssl_cr_histo_tpu_torch.cli import pretrain
-    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
-    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
     from ssl_cr_histo_tpu_torch.parallel import distributed as D
     from ssl_cr_histo_tpu_torch.parallel import steps as S
 
@@ -2311,7 +2431,7 @@ def cli_worker(out: str, argv: list) -> None:
 
     for name in COLLECTIVES:
         setattr(dist, name, counted(name))
-    PK.launches = RK.launches = 0
+    reset_launches()
     try:
         with (cuda_timed(torch, S.StepGraph, "step") as pairs, profile(activities=[ProfilerActivity.CUDA]) as prof,
               contextlib.redirect_stdout(io.StringIO())):
@@ -2321,7 +2441,7 @@ def cli_worker(out: str, argv: list) -> None:
         for name, fn in real.items():
             setattr(dist, name, fn)
     record = {"world": D.process_count(), "backend": dist.get_backend() if dist.is_initialized() else None,
-              "launches": {"photometric_chain": PK.launches, "rsp_augment": RK.launches},
+              "launches": launch_counts(),
               "step_ms": [a.elapsed_time(b) for a, b in pairs], "collectives": calls,
               "device": {e.key: [e.count, e.self_device_time_total / 1e3] for e in prof.key_averages()
                          if e.device_type == DeviceType.CUDA}}
@@ -2337,7 +2457,6 @@ def gloo_steps(torch, inp: dict, dev, dtype) -> dict:
     generator: each fused launch's output, the losses, each step's CUDA
     event time, the state, the launches.  In one process, the whole
     batches."""
-    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
     from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
     from ssl_cr_histo_tpu_torch.parallel import distributed as D
     from ssl_cr_histo_tpu_torch.parallel import steps as S
@@ -2352,7 +2471,7 @@ def gloo_steps(torch, inp: dict, dev, dtype) -> dict:
     kernel, augment = RK.rsp_augment_cuda, S.aug_batch.augment_rsp_batch_v1
     RK.rsp_augment_cuda = lambda *a, **k: outs.append(kernel(*a, **k)) or outs[-1]
     S.aug_batch.augment_rsp_batch_v1 = lambda *a, **k: augment(*a, **k).to(dtype)
-    PK.launches = RK.launches = 0
+    reset_launches()
     try:
         for batch in inp["batches"]:
             step = with_events(torch, S.pretrain_step, pairs)
@@ -2364,7 +2483,7 @@ def gloo_steps(torch, inp: dict, dev, dtype) -> dict:
     out = {"outs": [o.cpu() for o in outs], "losses": losses, "step_ms": [a.elapsed_time(b) for a, b in pairs],
            "model": {k: v.cpu() for k, v in state.model.state_dict().items()},
            "classifier": {k: v.cpu() for k, v in state.classifier.state_dict().items()},
-           "launches": {"photometric_chain": PK.launches, "rsp_augment": RK.launches}}
+           "launches": launch_counts()}
     del state
     torch.cuda.empty_cache()
     return out
@@ -2544,7 +2663,7 @@ REHEARSAL_STAGES = ("pretrain", "finetune", "consistency", "evaluation", "heatma
 
 
 @contextlib.contextmanager
-def stage_launches(R, PK, RK, recipe: str, launches: dict):
+def stage_launches(R, recipe: str, launches: dict):
     """The rehearsal's stage drivers (``R.stage_<name>``) with every launch
     counter set to 0 before each stage and read after, into
     ``launches[(recipe, name)]``, for the block."""
@@ -2552,9 +2671,9 @@ def stage_launches(R, PK, RK, recipe: str, launches: dict):
 
     def counted(name, fn):
         def run(*a, **kw):
-            PK.launches = RK.launches = 0
+            reset_launches()
             out = fn(*a, **kw)
-            launches[(recipe, name)] = {"photometric_chain": PK.launches, "rsp_augment": RK.launches}
+            launches[(recipe, name)] = launch_counts()
             return out
         return run
 
@@ -2583,11 +2702,10 @@ def phase_rehearsal(torch, tmp: str, reports: str, card: str) -> dict:
     and Kather take its checkpoint through ``--stage1_ckpt``.  Every launch
     counter is set to 0 before each stage and read after: the fused kernel
     launches once a pretrain step (the steps its checkpoint counts) and
-    never in another stage, the chain kernel never.  Each recipe's report
+    never in another stage, the strong views kernel once a consistency step
+    and never in another stage, the chain kernel never.  Each recipe's report
     goes to ``reports``, its CLIs' prints to ``<recipe>.log`` beside it.
     Returns each stage's launches."""
-    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
-    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
     from ssl_cr_histo_tpu_torch.parallel import steps as S
     from ssl_cr_histo_tpu_torch.tools import rehearsal as R
 
@@ -2599,8 +2717,8 @@ def phase_rehearsal(torch, tmp: str, reports: str, card: str) -> dict:
                  "kather": ["--stage1_ckpt", stage1]}[recipe]
         out, log = os.path.join(reports, f"{recipe}.json"), os.path.join(reports, f"{recipe}.log")
         t0 = time.time()
-        with open(log, "w") as f, contextlib.redirect_stdout(f), stage_launches(R, PK, RK, recipe, launches), \
-                recorded_steps(S, "pretrain") as steps:
+        with open(log, "w") as f, contextlib.redirect_stdout(f), stage_launches(R, recipe, launches), \
+                recorded_steps(S, "pretrain") as steps, recorded_steps(S, "consistency") as cr_steps:
             try:
                 report = R.main(["--recipe", recipe, "--device", "cuda", "--workdir", work, "--out", out, *extra])
             except SystemExit as exc:
@@ -2627,9 +2745,12 @@ def phase_rehearsal(torch, tmp: str, reports: str, card: str) -> dict:
             by_path["rehearsal_pretrain"] = n
         else:
             check(not steps and st["pretrain"] == {"reused": stage1}, f"phase 13: {recipe} pretrained again")
+        check(len(cr_steps) > 0, f"phase 13: {recipe}: the consistency stage took no step")
         for (r, name), n in launches.items():
             if r == recipe and (recipe, name) != ("camelyon16", "pretrain"):
-                check(not any(n.values()), f"phase 13: a kernel launched in the {recipe} {name} stage: {n}")
+                want = {"photometric_chain": 0, "rsp_augment": 0,
+                        "strong_views": len(cr_steps) if name == "consistency" else 0}
+                check(n == want, f"phase 13: the {recipe} {name} stage launched {n}, want {want}")
                 by_path[f"rehearsal_{recipe}_{name}"] = n
         rates = ["stage seconds: " + ", ".join(f"{k} {v['seconds']}" for k, v in st.items() if "seconds" in v)]
         if "aug_patches_per_sec_incl_io" in st["pretrain"]:
@@ -2658,7 +2779,7 @@ PARITY_CUTS = ["--fractions", "0.1,1.0", "--finetune_epochs", "2", "--cr_epochs"
 
 
 @contextlib.contextmanager
-def parity_launches(P, PK, RK, counts: list):
+def parity_launches(P, counts: list):
     """``P._setup_dryrun`` (data and the stage-1 pretraining) and each
     ``P.run_fraction`` (the --reference_exact stages) with every launch
     counter set to 0 before and read after, appended to ``counts`` as
@@ -2667,10 +2788,10 @@ def parity_launches(P, PK, RK, counts: list):
 
     def counted(name, fn):
         def run(*a, **kw):
-            PK.launches = RK.launches = 0
+            reset_launches()
             out = fn(*a, **kw)
             tag = "stage1" if name == "_setup_dryrun" else f"fraction_{a[1]:g}"
-            counts.append((tag, {"photometric_chain": PK.launches, "rsp_augment": RK.launches}))
+            counts.append((tag, launch_counts()))
             return out
         return run
 
@@ -2694,8 +2815,6 @@ def phase_parity_run(torch, tmp: str, reports: str, profile_dir: str, card: str)
     hold the fused kernel 3 times.  The tool's prints go to
     ``reports/parity_<task>.log``, its report beside them.  Returns each
     stage's launches."""
-    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
-    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
     from ssl_cr_histo_tpu_torch.parallel import steps as S
     from ssl_cr_histo_tpu_torch.tools import parity_run as P
     from ssl_cr_histo_tpu_torch.tools import profile_step
@@ -2708,7 +2827,7 @@ def phase_parity_run(torch, tmp: str, reports: str, profile_dir: str, card: str)
         out, log = os.path.join(reports, f"parity_{task}.json"), os.path.join(reports, f"parity_{task}.log")
         counts = []
         t0 = time.time()
-        with open(log, "w") as f, contextlib.redirect_stdout(f), parity_launches(P, PK, RK, counts), \
+        with open(log, "w") as f, contextlib.redirect_stdout(f), parity_launches(P, counts), \
                 recorded_steps(S, "pretrain") as steps:
             try:
                 report = P.main(["--task", task, "--dryrun", "--pretrained", "dryrun", "--train_path", "x",
@@ -2733,7 +2852,7 @@ def phase_parity_run(torch, tmp: str, reports: str, profile_dir: str, card: str)
         check([tag for tag, _ in counts] == ["stage1", "fraction_0.1", "fraction_1"],
               f"phase 14: {task}: stages {[tag for tag, _ in counts]}")
         for tag, n in counts:
-            want = {"photometric_chain": 0, "rsp_augment": len(steps) if tag == "stage1" else 0}
+            want = {"photometric_chain": 0, "rsp_augment": len(steps) if tag == "stage1" else 0, "strong_views": 0}
             check(n == want and (tag != "stage1" or len(steps) > 0),
                   f"phase 14: {task} {tag}: launches {n} against {want} ({len(steps)} pretrain steps)")
             by_path[f"parity_{task}_{tag}"] = n
@@ -2742,13 +2861,13 @@ def phase_parity_run(torch, tmp: str, reports: str, profile_dir: str, card: str)
     argv = ["--stage", "pretrain", "--model", "resnet18", "--batch_size", "64", "--image_size", "256",
             "--aug_mode", "fused", "--multi_step", "1", "--steps", "3", "--device", "cuda", "--logdir", logdir]
     print("phase 14: profile_step " + " ".join(argv), flush=True)
-    PK.launches = RK.launches = 0
+    reset_launches()
     prof = profile_step.main(argv)
     with open(prof["trace"]) as f:
         events = json.load(f)["traceEvents"]
     traced = [e for e in events if e.get("cat") == "kernel" and "rsp_augment_kernel" in e.get("name", "")]
-    n = {"photometric_chain": PK.launches, "rsp_augment": RK.launches}
-    check(len(traced) == 3 and n == {"photometric_chain": 0, "rsp_augment": 4},
+    n = launch_counts()
+    check(len(traced) == 3 and n == {"photometric_chain": 0, "rsp_augment": 4, "strong_views": 0},
           f"phase 14: profile_step's trace holds {len(traced)} fused kernels in 3 steps; launches {n} in 4 steps")
     by_path["profile_step"] = n
     kernel_us = sum(e["dur"] for e in traced) / len(traced)
@@ -2782,25 +2901,27 @@ def phase_quality_gate(torch, tmp: str, reports: str, card: str) -> dict:
     pretext check misses; the pretext check's verdict at seed 42 printed,
     and the check enforced over seed 42 and ``AUG_SWEEP_SEEDS`` as a
     majority: it decides on one draw of a trajectory that swings across
-    0.30 from epoch to epoch (ROADMAP Queue 3 item 4).  No kernel may launch (v2 pretraining and the later stages run
-    PyTorch ops).  The CLIs' prints go to ``reports/quality_gate.log``.
+    0.30 from epoch to epoch (ROADMAP Queue 3 item 4).  Neither pretraining
+    kernel may launch (v2 pretraining and the fine-tune stages run PyTorch
+    ops); the strong views kernel launches once a consistency step.  The
+    CLIs' prints go to ``reports/quality_gate.log``.
     Returns each gate's launches."""
     import shutil
     import warnings
 
     from ssl_cr_histo_tpu_torch.cli import pretrain
-    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
-    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
     from ssl_cr_histo_tpu_torch.tools import quality_gate as Q
 
     os.makedirs(reports, exist_ok=True)
     root = Q.make_gate_data(os.path.join(tmp, "quality_gate"))
     by_path, log = {}, os.path.join(reports, "quality_gate.log")
 
-    def counted(name: str) -> None:
+    def counted(name: str, views: int = 0) -> None:
         torch.cuda.synchronize()
-        by_path[f"quality_gate_{name}"] = n = {"photometric_chain": PK.launches, "rsp_augment": RK.launches}
-        check(not any(n.values()), f"phase 15: a kernel launched in the {name} gate: {n}")
+        by_path[f"quality_gate_{name}"] = n = launch_counts()
+        want = {"photometric_chain": 0, "rsp_augment": 0, "strong_views": views}
+        check(n == want, f"phase 15: the {name} gate launched {n}, want {want}")
 
     cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
@@ -2808,18 +2929,19 @@ def phase_quality_gate(torch, tmp: str, reports: str, card: str) -> dict:
     try:
         with open(log, "w") as f, warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            PK.launches = RK.launches = 0
+            reset_launches()
             t0 = time.time()
             try:
-                with contextlib.redirect_stdout(f):
+                with recorded_steps(S, "consistency") as cr_steps, contextlib.redirect_stdout(f):
                     acc = Q.main_gate(root, "cuda")
             except Q.GateFailed as exc:
                 fail(f"phase 15: the main gate failed: {exc} (the CLIs' prints: {log})")
-            counted("main")
+            check(len(cr_steps) > 0, "phase 15: the main gate's consistency stage took no step")
+            counted("main", len(cr_steps))
             print(f"phase 15: main gate passed in {time.time() - t0:.1f} s: "
                   + ", ".join(f"{k} {v:.6f}" for k, v in acc.items()) + f" [{card}]", flush=True)
 
-            PK.launches = RK.launches = 0
+            reset_launches()
             t0 = time.time()
             try:
                 with contextlib.redirect_stdout(f):
@@ -3006,7 +3128,8 @@ def phase_multi_step(torch, tmp: str, slides: str, nccl_world1_run: str, card: s
     steps a chunk, each step after a run's first a replay of one captured
     CUDA graph.  At the config of record, cuDNN and PyTorch deterministic,
     each path at ``--multi_step 8`` and then ``1``, every launch counter 0
-    before each run: the pretrain CLI for 11 steps (a chunk of 8 and a
+    before each run (the fused kernel once a pretrain step, the strong views
+    kernel once a consistency step, no other launch): the pretrain CLI for 11 steps (a chunk of 8 and a
     partial one of 3; the K = 8 run traced: one ``rsp_augment_kernel`` a
     step, replays included, and one graph launch a step after the first),
     Kather's fine-tune and consistency (``--aug_mode`` fused and masked)
@@ -3023,8 +3146,6 @@ def phase_multi_step(torch, tmp: str, slides: str, nccl_world1_run: str, card: s
     from torch.profiler import ProfilerActivity, profile
 
     from ssl_cr_histo_tpu_torch.cli import consistency, finetune, pretrain
-    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
-    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
     from ssl_cr_histo_tpu_torch.parallel import steps as S
 
     t_phase = time.time()
@@ -3053,7 +3174,7 @@ def phase_multi_step(torch, tmp: str, slides: str, nccl_world1_run: str, card: s
         for path, (cli, stage, argv, steps) in paths.items():
             for k in (MULTI_STEP, 1):
                 run = os.path.join(tmp, f"p16_{path}_{k}")
-                PK.launches = RK.launches = 0
+                reset_launches()
                 t0 = time.time()
                 traced = path == "pretrain" and k > 1
                 acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if traced else []
@@ -3062,10 +3183,10 @@ def phase_multi_step(torch, tmp: str, slides: str, nccl_world1_run: str, card: s
                     cli.main(argv + ["--save_dir", run, "--multi_step", str(k)])
                     torch.cuda.synchronize()
                 wall = time.time() - t0
-                n = launches[f"{path}_multi_step_{k}"] = {"photometric_chain": PK.launches,
-                                                          "rsp_augment": RK.launches}
-                want = steps if path == "pretrain" else 0
-                check(len(rows) == steps and n == {"photometric_chain": 0, "rsp_augment": want},
+                n = launches[f"{path}_multi_step_{k}"] = launch_counts()
+                want = {"photometric_chain": 0, "rsp_augment": steps if stage == "pretrain" else 0,
+                        "strong_views": steps if stage == "consistency" else 0}
+                check(len(rows) == steps and n == want,
                       f"phase 16: {path} at --multi_step {k}: {len(rows)} steps, launches {n}")
                 runs[path, k] = (run, wall)
                 if traced:
@@ -3127,13 +3248,13 @@ def phase_bench(torch, tmp: str, card: str) -> dict:
     in processes of their own.  Every metric finite and positive; the fused
     kernel launched ``BENCH_LAUNCHES`` times by the pretrain measurement,
     ``SCALING_LAUNCHES`` by each scaling config and never by the other
-    measurements, the chain kernel never.  Returns each one's launches."""
-    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
-    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+    measurements, the strong views kernel ``BENCH_LAUNCHES`` times by each
+    consistency measurement and never by another, the chain kernel never.
+    Returns each one's launches."""
     from ssl_cr_histo_tpu_torch.tools import bench, bench_scaling, bench_suite, reference_baseline
 
     t_phase = time.time()
-    fused = lambda n: {"photometric_chain": 0, "rsp_augment": n}  # noqa: E731
+    fused = lambda n, views=0: {"photometric_chain": 0, "rsp_augment": n, "strong_views": views}  # noqa: E731
     positive = lambda v: isinstance(v, (int, float)) and math.isfinite(v) and v > 0  # noqa: E731
     launches = {}
 
@@ -3146,9 +3267,9 @@ def phase_bench(torch, tmp: str, card: str) -> dict:
           f"triplet on one process x {baseline['assumed_workers']} workers) on {baseline['host_cpu']}, "
           f"{baseline['host_cpu_count']} cores [{card}]", flush=True)
 
-    PK.launches = RK.launches = 0
+    reset_launches()
     line = bench.main(["--baseline", baseline_path])
-    n = launches["bench"] = {"photometric_chain": PK.launches, "rsp_augment": RK.launches}
+    n = launches["bench"] = launch_counts()
     check(positive(line["value"]) and positive(line["vs_baseline"]),
           f"phase 17: bench printed {json.dumps({k: v for k, v in line.items() if k != 'measured'})}")
     check(n == fused(BENCH_LAUNCHES) == line["measured"]["launches"],
@@ -3156,18 +3277,19 @@ def phase_bench(torch, tmp: str, card: str) -> dict:
     print(f"phase 17: bench: {line['measured']['ms_per_step']} ms a step, {line['value']} patches/s, vs_baseline "
           f"{line['vs_baseline']}, vs_committed {line.get('vs_committed')}; launches {n} [{card}]", flush=True)
 
-    PK.launches = RK.launches = 0
+    reset_launches()
     report = bench_suite.main(["--out", os.path.join(tmp, "bench_suite.json")])
     check(report["violations"] == [] and len(report["results"]) == 5, f"phase 17: bench_suite reported {report}")
     for r in report["results"]:
-        want = fused(BENCH_LAUNCHES if r["metric"] == "rsp_pretrain_aug_patches_per_sec_per_chip" else 0)
+        want = fused(BENCH_LAUNCHES if r["metric"] == "rsp_pretrain_aug_patches_per_sec_per_chip" else 0,
+                     BENCH_LAUNCHES if r["metric"].startswith("cr_step_") else 0)
         launches[f"bench_suite_{r['metric']}"] = r["launches"]
         check(positive(r["value"]) and positive(r["ms_per_step"]) and r["launches"] == want,
               f"phase 17: bench_suite {r['metric']}: {r['value']}, launches {r['launches']}, want {want}")
         print(f"phase 17: bench_suite {r['metric']}: {r['value']} {r['unit']}, {r['ms_per_step']} ms a step "
               f"({r['config']}); launches {r['launches']} [{card}]", flush=True)
-    check({"photometric_chain": PK.launches, "rsp_augment": RK.launches} == fused(BENCH_LAUNCHES),
-          f"phase 17: the suite launched {PK.launches} chain and {RK.launches} fused kernels")
+    check(launch_counts() == fused(BENCH_LAUNCHES, 2 * BENCH_LAUNCHES),
+          f"phase 17: the suite launched {launch_counts()}")
 
     rows = bench_scaling.main([])
     check(len(rows) == len(bench_scaling.CONFIGS), f"phase 17: bench_scaling gave {len(rows)} rows")
@@ -3332,8 +3454,6 @@ def phase_jax_checkpoint(torch, dev, tmp: str, pretrain_ckpt: str, finetune_ckpt
     from ssl_cr_histo_tpu_torch.cli import finetune
     from ssl_cr_histo_tpu_torch.cli import heatmap as heatmap_cli
     from ssl_cr_histo_tpu_torch.cli.common import make_optimizer
-    from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
-    from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
     from ssl_cr_histo_tpu_torch.train.checkpoint import jax_to_reference, read_jax_checkpoint
     from ssl_cr_histo_tpu_torch.train.init import init_finetune_state
 
@@ -3387,13 +3507,13 @@ def phase_jax_checkpoint(torch, dev, tmp: str, pretrain_ckpt: str, finetune_ckpt
     for route, ckpt in (("jax_dir", jax_finetune), ("pth", finetune_ckpt)):
         argv = ["--test_image_pth", one["wsi"], "--test_mask_pth", one["mask"], "--probs_map_path",
                 os.path.join(tmp, f"p18_maps_{route}"), "--finetune_ckpt", ckpt, "--batch_size", "256"] + common
-        PK.launches = RK.launches = 0
+        reset_launches()
         t0 = time.time()
         with contextlib.redirect_stdout(io.StringIO()):
             maps[route] = heatmap_cli.main(argv)["tumor_001"]
         sync()
         walls[route] = time.time() - t0
-        launches[f"jax_checkpoint_heatmap_{route}"] = check_no_launch(PK, RK, f"heatmap from the {route}")
+        launches[f"jax_checkpoint_heatmap_{route}"] = check_launches(f"heatmap from the {route}")
     diff = float(np.abs(maps["jax_dir"] - maps["pth"]).max())
     why = "" if diff == 0 else (f" (the same weights and patches: cuDNN chose another algorithm in one of the "
                                 f"two runs; cudnn.deterministic {torch.backends.cudnn.deterministic})")
@@ -3408,14 +3528,14 @@ def phase_jax_checkpoint(torch, dev, tmp: str, pretrain_ckpt: str, finetune_ckpt
             "--val_path", f"{d['tumor_valid']},{d['normal_valid']}", "--model_path", jax_pretrain,
             "--save_dir", run, "--num_epoch", "1", "--save_freq", "1"] + common
     print("phase 18: fine-tune CLI " + " ".join(argv), flush=True)
-    PK.launches = RK.launches = 0
+    reset_launches()
     t0 = time.time()
     tee = Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
         finetune.main(argv)
     sync()
     wall = time.time() - t0
-    launches["jax_checkpoint_finetune"] = check_no_launch(PK, RK, "fine-tune from a JAX directory")
+    launches["jax_checkpoint_finetune"] = check_launches("fine-tune from a JAX directory")
     check(f"loaded pretrained backbone from {jax_pretrain}" in tee.buf.getvalue(),
           "phase 18: the fine-tune CLI did not load the JAX directory")
     with open(os.path.join(run, "fine_tuned_results.csv")) as f:
@@ -3471,7 +3591,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # phase 2: build both kernels, one nvcc each, started together
+    # phase 2: build the kernels, one nvcc each, started together
     from ssl_cr_histo_tpu_torch.csrc import build
 
     t0 = time.time()
@@ -3499,6 +3619,8 @@ def main() -> int:
     worst = {"photometric_chain": phase_kernel_vs_plain(PK, torch, dev)}
     print("phase 4: fused augmentation kernel vs plain version", flush=True)
     worst["rsp_augment"] = phase_fused_vs_plain(RK, PK, fused, torch, dev)
+    print("phase 4: strong views kernel vs plain version", flush=True)
+    worst["strong_views"], views_timing = phase_views_vs_plain(torch, dev, card)
 
     # phase 5: the main path through the CLI
     from ssl_cr_histo_tpu_torch.cli import pretrain
@@ -3517,14 +3639,14 @@ def main() -> int:
                 "--save_freq", "1", "--index_cache_dir", ""]
         argv = base + ["--save_dir", run]
         print("phase 5: pretrain CLI " + " ".join(argv), flush=True)
-        PK.launches = RK.launches = 0
+        reset_launches()
         tee = Tee(sys.stdout)
         t0 = time.time()
         with cuda_timed(torch, S.StepGraph, "step") as pairs, contextlib.redirect_stdout(tee):
             pretrain.main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = {"photometric_chain": PK.launches, "rsp_augment": RK.launches}
+        launches = launch_counts()
         epoch = re.search(r"Epoch time: ([0-9.]+) s", tee.buf.getvalue())
         check(epoch is not None and len(pairs) == steps, f"the CLI printed no epoch time or took {len(pairs)} steps")
         print(f"phase 5: CLI wall {wall:.2f} s, launches {launches}; the epoch's wall {float(epoch.group(1)):.2f} s "
@@ -3573,7 +3695,7 @@ def main() -> int:
         # phase 6: fine-tuning from the pretrain CLI's checkpoint (the stage handoff)
         phase_finetune(torch, dev, tmp, os.path.join(run, "ckpt_1.pth"), card, opts.profile)
         # phase 7: consistency training from phase 6's checkpoints (stage 2 -> 3)
-        phase_consistency(torch, dev, tmp, card, opts.profile)
+        cr_launches = phase_consistency(torch, dev, tmp, card, opts.profile)
 
         # phase 8: timing
         tiles = torch.from_numpy(np.ascontiguousarray(tiles_np)).to(dev)
@@ -3587,7 +3709,8 @@ def main() -> int:
 
         # phase 10: the stage CLIs' remaining modes (resume, the pretrain flags, evaluation)
         t0 = time.time()
-        by_path = {"pretrain_cli": launches, **phase_remaining_modes(torch, dev, tmp, slides, card, opts.profile)}
+        by_path = {"pretrain_cli": launches, **cr_launches,
+                   **phase_remaining_modes(torch, dev, tmp, slides, card, opts.profile)}
         print(f"phase 10: {time.time() - t0:.1f} s [{card}]", flush=True)
 
         # phase 11: the augmentation modes and the last stage-CLI flags
@@ -3629,13 +3752,17 @@ def main() -> int:
                                             os.path.join(tmp, "c16_finetune", "best.pth"), camelyon, card))
 
     replaces = {"photometric_chain": "ssl_cr_histo_tpu/ops/pallas_photometric.py:199",
-                "rsp_augment": "ssl_cr_histo_tpu/ops/pallas_photometric.py:199"}
+                "rsp_augment": "ssl_cr_histo_tpu/ops/pallas_photometric.py:199",
+                "strong_views": "none: XLA ops, ssl_cr_histo_tpu/ops/batch.py::transform_fix_batch"}
+    # each kernel's main path: the pretrain CLI (phase 5), the consistency CLI (phase 7)
+    main_path = {"photometric_chain": "pretrain_cli", "rsp_augment": "pretrain_cli", "strong_views": "consistency_cli"}
+    timing["strong_views"] = views_timing
     kernels = [{
         "name": name,
         "route": "cuda",
         "source": f"ssl_cr_histo_tpu_torch/csrc/{name}.cu",
         "replaces": replaces[name],
-        "launches": launches[name],
+        "launches": by_path[main_path[name]][name],
         "launches_by_path": {path: n[name] for path, n in by_path.items()},
         "max_abs_err": worst[name],
         **timing[name],

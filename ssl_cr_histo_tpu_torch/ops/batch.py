@@ -5,8 +5,10 @@ the v1 RSP pretraining pool in fused mode, which on the card is one
 hand-written kernel from the uint8 triplets to the normalized planar batch
 (``ops/rsp_augment_kernel.py``), and in exact mode (op by op); the v2 pool
 (fused, masked, exact); the fine-tune 3-view stack; the weak/strong
-consistency views (fused, fast, masked, exact).  All but the fused v1 pool
-are PyTorch ops, as they are XLA ops in the JAX package.
+consistency views (fused, fast, masked, exact), which on the card are one
+hand-written kernel in their composed modes
+(``ops/strong_views_kernel.py``).  The rest are PyTorch ops, as they are XLA
+ops in the JAX package.
 
 Data parallelism: every entry point takes ``shard`` = (offset, total), which
 says that its images are rows [offset, offset + b) of a global batch of
@@ -31,6 +33,7 @@ from ssl_cr_histo_tpu_torch.ops import fused, geometry
 from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
 from ssl_cr_histo_tpu_torch.ops import randaugment as RA
 from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+from ssl_cr_histo_tpu_torch.ops import strong_views_kernel as SV
 
 # ``--aug_mode``'s values (``cli/common.py``)
 AUG_MODES = ("fused", "fast", "masked", "exact")
@@ -285,10 +288,12 @@ def transform_fix_batch(gen: torch.Generator, imgs_u8: torch.Tensor, n: int = 7,
     ``imgs_u8``.  ``draws`` (see ``draw_transform_fix``) injects the draws;
     they are drawn from ``gen`` and ``host_gen`` for ``mode`` when None;
     ``shard``: see the module docstring (the noise fields kept are those of
-    the rows' noise stages).  The strong pool by mode: 'fused', 'fast' and 'masked' composed
-    (``fused.randaugment_v1_fused``, their laws differ in the draws),
-    'exact' op by op (``RA.randaugment_v1``).  PyTorch ops on any device,
-    as the JAX package uses XLA ops: no Pallas kernel."""
+    the rows' noise stages).  The strong pool by mode: 'fused', 'fast' and
+    'masked' composed (their laws differ in the draws): on CUDA images one
+    kernel for both views (``ops/strong_views_kernel.py``), on CPU images its
+    plain version (``fused.randaugment_v1_fused``); 'exact' op by op
+    (``RA.randaugment_v1``), PyTorch ops on any device.  The JAX package
+    uses XLA ops here, no Pallas kernel."""
     if mode not in AUG_MODES:
         raise ValueError(f"unknown aug mode {mode!r}")
     b, s = imgs_u8.shape[0], imgs_u8.shape[1]
@@ -302,6 +307,11 @@ def transform_fix_batch(gen: torch.Generator, imgs_u8: torch.Tensor, n: int = 7,
         draws = take_rows(draws, k0, k0 + int(owners[offset:offset + b].sum()), ("noise",))
         draws = take_rows(draws, offset, offset + b,
                           ("weak_flip", "strong_flip", "ops", "present", "mags", "params"))
+    if mode != "exact":
+        if imgs_u8.is_cuda:
+            return SV.strong_views_cuda(imgs_u8.contiguous(), SV.pack_table(draws, s), draws["noise"])
+        if imgs_u8.device.type != "cpu":
+            raise ValueError(f"no composed consistency views for device {imgs_u8.device}")
     imgs = to_float(imgs_u8.permute(0, 3, 1, 2).contiguous())
     pool = RA.randaugment_v1 if mode == "exact" else fused.randaugment_v1_fused
     weak, strong = fused.transform_fix_fused(imgs, draws, pool)

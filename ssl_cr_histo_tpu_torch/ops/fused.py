@@ -179,16 +179,14 @@ def randaugment_v1_fused(imgs: torch.Tensor, draws: dict) -> torch.Tensor:
     the work), the images of each stage are grouped on the host by their
     photometric op with its gate on (``RA.stage_groups``) and each op runs
     on its group; the geometric stages compose each image's matrix on the
-    host (``strong_pool_matrix``)."""
+    host (``strong_pool_matrix``).  This is the plain version of the
+    strong views kernel (``ops/strong_views_kernel.py``), which
+    ``ops.batch.transform_fix_batch`` launches on CUDA images."""
     dev = imgs.device
     ops, params = draws["ops"].cpu(), draws["params"].cpu()
-    present = RA.present_stages(draws, ops)
-    photometric = torch.zeros(len(RA.V1_POOL), dtype=torch.bool)
-    photometric[list(RA.PHOTOMETRIC)] = True
-    active = photometric[ops] & (params[..., RA.GATE] > 0.5) & present
+    present, active, owner = RA.v1_active_stages(draws, ops, params)
     x = imgs.clone()
-    for _, op, rows, p, slots in RA.stage_groups(ops, active, params, len(RA.V1_POOL), dev,
-                                                 noise=(ops == RA.NOISE) & present):
+    for _, op, rows, p, slots in RA.stage_groups(ops, active, params, len(RA.V1_POOL), dev, noise=owner):
         nz = draws["noise"].index_select(0, slots) if op == RA.NOISE else None
         x.index_copy_(0, rows, RA.apply_photometric(op, x.index_select(0, rows), p, nz))
     g = RA.to_device(strong_pool_matrix(ops, params, imgs.shape[-1], present), dev)

@@ -158,7 +158,7 @@ def stage_groups(ops: torch.Tensor, active: torch.Tensor, params: torch.Tensor, 
     pairs = pairs[:k]
     rows_d = to_device(pairs // n, device)
     table_d = to_device(params.reshape(b * n, -1)[pairs], device)
-    slots_d = None if noise is None else to_device((torch.cumsum(noise.flatten(), 0) - 1)[pairs], device)
+    slots_d = None if noise is None else to_device(noise_slots(noise).flatten()[pairs], device)
     start = 0
     for group, count in enumerate(counts):
         if count:
@@ -173,6 +173,27 @@ def present_stages(draws: dict, ops: torch.Tensor) -> torch.Tensor:
     policies), else every stage."""
     present = draws.get("present")
     return torch.ones(ops.shape, dtype=torch.bool) if present is None else present.cpu().bool()
+
+
+def noise_slots(owner: torch.Tensor) -> torch.Tensor:
+    """(b, n) int64: each (image, stage) pair's noise field where the bool
+    ``owner`` marks it, numbered in row-major (image, stage) order as
+    ``draws['noise']`` holds them, else -1."""
+    return torch.where(owner, torch.cumsum(owner.flatten(), 0).view(owner.shape) - 1, -1)
+
+
+def v1_active_stages(draws: dict, ops: torch.Tensor, params: torch.Tensor) -> tuple:
+    """The composed v1 strong pool's stages, on the host, for (b, n) op
+    indices and their (b, n, N_PARAMS) params: (present, active, owner),
+    each (b, n) bool.  ``present``: ``present_stages``; ``active``: the
+    stages that run a photometric op, a photometric op with its gate on
+    that is present; ``owner``: the present noise stages, each of which owns
+    a field of ``draws['noise']`` (``noise_slots``)."""
+    present = present_stages(draws, ops)
+    photometric = torch.zeros(len(V1_POOL), dtype=torch.bool)
+    photometric[list(PHOTOMETRIC)] = True
+    active = photometric[ops] & (params[..., GATE] > 0.5) & present
+    return present, active, (ops == NOISE) & present
 
 
 def _random_flip(imgs: torch.Tensor, kind: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:

@@ -649,10 +649,11 @@ def make_consistency_multi_step(state: FinetuneState, teacher: Teacher, gen: tor
     EMA teacher's update (``ema_update``, the JAX scan carry's;
     ``make_consistency_step(multi=True)``, ``steps.py:480-624``): a
     ``StepGraph`` over chunks (x_l_u8 (K, B, H, W, 3), y_l (K, B), x_u_u8
-    (K, mu B, H, W, 3)).  The strong views group their ops on the host
-    (``ops.randaugment.stage_groups``), so the graph's prologue makes the
-    weak and strong views; the labeled 3-view stack, both passes, the
-    update and the EMA update are the graph.  The per-epoch
+    (K, mu B, H, W, 3)).  The strong views' tables and composed maps are
+    drawn on the host (``ops.batch.draw_transform_fix``), so the graph's
+    prologue makes the weak and strong views (on the card one kernel,
+    ``ops/strong_views_kernel.py``); the labeled 3-view stack, both passes,
+    the update and the EMA update are the graph.  The per-epoch
     ``refresh_teacher`` stays with the caller."""
     def eager(x_l_u8, y_l, x_u_u8):
         out = consistency_step(state, teacher, x_l_u8, y_l, x_u_u8, gen, task, lambda_u, n_aug,

@@ -70,8 +70,9 @@ def launch_counts() -> dict:
     """The kernel wrappers' launch counters, by kernel."""
     from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
     from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+    from ssl_cr_histo_tpu_torch.ops import strong_views_kernel as SV
 
-    return {"rsp_augment": RK.launches, "photometric_chain": PK.launches}
+    return {"rsp_augment": RK.launches, "photometric_chain": PK.launches, "strong_views": SV.launches}
 
 
 def launches_since(before: dict) -> dict:

@@ -19,11 +19,11 @@ the card, with the JAX suite's metric names and configurations of record:
 The training steps run K = 8 steps a chunk, the port CLIs' default
 (``parallel.steps.StepGraph``: the first step eager, then replays of one
 captured CUDA graph; the consistency step's weak and strong views stay
-eager each step).  The JAX suite times its consistency step one jitted step
-a dispatch, which on the TPU is one launch either way; in the port a single
-consistency step is about 2000 eager launches, which no CLI of the port
-runs by default.  Each timing chains its work with no host sync and ends
-with one scalar fetch of the last output.
+eager each step, as one launch of the strong views kernel,
+``ops/strong_views_kernel.py``).  The JAX suite times its consistency step
+one jitted step a dispatch, which on the TPU is one launch either way.
+Each timing chains its work with no host sync and ends with one scalar
+fetch of the last output.
 
 Regression guard: each run loads the committed artifact at ``--out`` first
 and fails (exit 1) if any metric dropped more than ``--tolerance`` (default

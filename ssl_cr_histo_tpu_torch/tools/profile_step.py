@@ -11,7 +11,8 @@ TensorBoard or chrome://tracing) and prints ms/step, timed inside the trace
 window up to a synchronize, the ten operations that took the most device
 time (on the CPU: self CPU time), the port's spans a step (``span_times``:
 each ``port.`` span's host time and the card's idle time inside it) and
-the feed's and the step's counters over the traced steps.
+the feed's and the step's counters and the consistency views kernel's
+launches (``ops/strong_views_kernel.py``) over the traced steps.
 
     python3 -m ssl_cr_histo_tpu_torch.tools.profile_step --stage consistency --batch_size 16 \\
         --logdir TRACE_DIR [--multi_step 8] [--steps 16] [--device cpu]
@@ -158,6 +159,7 @@ def main(argv=None) -> dict:
     import torch
 
     from ssl_cr_histo_tpu_torch.cli.common import chunked_feed, counters_line
+    from ssl_cr_histo_tpu_torch.ops import strong_views_kernel as SV
     from ssl_cr_histo_tpu_torch.utils.profiling import trace
 
     device = torch.device(args.device)
@@ -174,7 +176,7 @@ def main(argv=None) -> dict:
         float(m["loss"][0])
         sync()
         before = set(glob.glob(os.path.join(args.logdir, "*.pt.trace.json")))
-        counts, fed = step.counts(), feed.counters.snapshot()
+        counts, fed, views = step.counts(), feed.counters.snapshot(), SV.launches
         with trace(args.logdir) as prof:
             t0 = time.perf_counter()
             left = args.steps
@@ -187,6 +189,7 @@ def main(argv=None) -> dict:
             sync()  # the optimizer's update runs after the loss: wait for all of it
             dt = (time.perf_counter() - t0) / args.steps
         counters = counters_line(feed, step, counts, fed)
+        views = SV.launches - views
     finally:
         feed.close()
     (path,) = set(glob.glob(os.path.join(args.logdir, "*.pt.trace.json"))) - before
@@ -205,10 +208,11 @@ def main(argv=None) -> dict:
     for name, t in spans["spans"].items():
         inside = "n/a" if t["idle_ms"] is None else f"{t['idle_ms']:10.3f} ms {t['idle_share']:7.1%}"
         print(f"  {name:24s} x{t['calls']:<5d} {t['host_ms']:10.3f} ms  idle {inside}")
-    print(f"traced steps: {counters}")
+    print(f"traced steps: {counters}; strong_views kernel {views} launches")
     return {"stage": args.stage, "multi_step": k, "ms_per_step": dt * 1000, "trace": path, "top": top,
             "spans": spans, "counts": {key: v - counts[key] for key, v in step.counts().items()},
-            "feed": {key: v - fed[key] for key, v in feed.counters.snapshot().items()}}
+            "feed": {key: v - fed[key] for key, v in feed.counters.snapshot().items()},
+            "strong_views_launches": views}
 
 
 if __name__ == "__main__":

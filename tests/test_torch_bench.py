@@ -138,7 +138,7 @@ def test_each_measurement_returns_the_jax_keys(name):
     assert (r["metric"], r["unit"]) == METRIC_OF_RECORD[name]
     assert math.isfinite(r["value"]) and r["value"] > 0 and r["ms_per_step"] > 0
     assert r["platform"] == "cpu"
-    assert r["launches"] == {"rsp_augment": 0, "photometric_chain": 0}  # the CPU runs the plain versions
+    assert r["launches"] == {"rsp_augment": 0, "photometric_chain": 0, "strong_views": 0}  # the CPU runs the plain versions
 
 
 def test_scaling_measure_returns_the_jax_keys():

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the GPU:
-the photometric chain (``csrc/photometric_chain.cu``) and the fused v1
-augmentation (``csrc/rsp_augment.cu``); and the consistency views and step
-and the serving map, which launch no kernel, on the card against the CPU.
+the photometric chain (``csrc/photometric_chain.cu``), the fused v1
+augmentation (``csrc/rsp_augment.cu``) and the consistency views
+(``csrc/strong_views.cu``); and the consistency step and the serving map,
+which launch no kernel, on the card against the CPU.
 
 Every test here needs a card (marker ``cuda``) and skips where
 ``torch.cuda.is_available()`` is False.  The file imports nothing of JAX, so
@@ -29,6 +30,7 @@ from ssl_cr_histo_tpu_torch.ops import fused as TF
 from ssl_cr_histo_tpu_torch.ops import geometry as TG
 from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
 from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+from ssl_cr_histo_tpu_torch.ops import strong_views_kernel as SV
 from torch_tmp import tmp_path  # noqa: F401  (a fixture)
 
 GATES = (3, 5, 10, 13)  # hsv, noise, blur, brightness/contrast
@@ -364,12 +366,113 @@ def test_fused_wrapper_rejects_bad_inputs(cuda):
         call(noise=d["noise"][:, :, :16])
 
 
+def _fix_draws(mode, b, s, seed):
+    """``draw_transform_fix``'s draws for ``mode`` with every gate on:
+    under fused each of the nine ops at image i < 9's first stage, and
+    images 9-11 (under fast the whole batch) two blurs in a row, then three
+    noise stages."""
+    from ssl_cr_histo_tpu_torch.ops import randaugment as RA
+
+    g = torch.Generator().manual_seed(seed)
+    d = TB.draw_transform_fix(g, b, s, mode=mode)
+    ops = d["ops"]
+    if mode != "masked":
+        rows = slice(0, b) if mode == "fast" else slice(9, 12)
+        ops[rows, :2] = RA.V1_POOL.index("blur")
+        ops[rows, 2:5] = RA.NOISE
+        if mode == "fused":
+            ops[:9, 0] = torch.arange(9)[:b]
+        d["params"] = RA.draw_v1_params(g, ops, d["mags"])
+    d["params"][..., RA.GATE] = 1.0
+    d["noise"] = torch.randn(int(((ops == RA.NOISE) & d.get("present", True)).sum()), 3, s, s, generator=g)
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [37, 224, 256])
+@pytest.mark.parametrize("mode", ["fused", "fast", "masked"])
+def test_strong_views_kernel_matches_plain(cuda, s, mode):
+    """transform_fix_batch on the card (the strong views kernel, one launch,
+    no other kernel) against its plain version on the CPU, on the same
+    draws with every op on, two blurs in a row and several noise stages:
+    within 1e-5."""
+    b = 18
+    d = _fix_draws(mode, b, s, s)
+    imgs = torch.randint(0, 256, (b, s, s, 3), dtype=torch.uint8, generator=torch.Generator().manual_seed(s))
+    n = d["ops"].shape[1]
+    want = TB.transform_fix_batch(None, imgs, n, mode=mode, draws=d)
+    launched = (SV.launches, RK.launches, PK.launches)
+    got = TB.transform_fix_batch(None, imgs.to(cuda), n, mode=mode, draws=dict(d, noise=d["noise"].to(cuda)))
+    assert (SV.launches, RK.launches, PK.launches) == (launched[0] + 1, *launched[1:])
+    for a, w in zip(got, want):
+        assert a.is_cuda and a.shape == (b, 3, s, s) and a.dtype == torch.float32
+        np.testing.assert_allclose(a.cpu().numpy(), w.numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [37, 256])
+def test_strong_views_plan_equals_warp_pass_coefficients(cuda, s):
+    """The warp plan the kernel makes for each image, read through
+    plan_out, equals warp_pass_coefficients on the image's composed map, bit
+    for bit, with both fix-ups taken and not."""
+    d = _fix_draws("fused", 18, s, 7)
+    table = SV.pack_table(d, s)
+    table[-1, 2:SV.TABLE_HEAD] = torch.tensor([0.1, 0.6, 2.0, 1.4, 0.2, -1.0, 0.0, 0.0, 1.0])
+    table[-2, 2:SV.TABLE_HEAD] = torch.tensor([1.4, 0.2, -3.0, 0.1, 0.7, 2.0, 0.0, 0.0, 1.0])
+    imgs = torch.randint(0, 256, (18, s, s, 3), dtype=torch.uint8, device=cuda)
+    plan = torch.full((18, SV.PLAN_WIDTH), float("nan"), device=cuda)
+    SV.strong_views_cuda(imgs, table, d["noise"].to(cuda), plan_out=plan)
+    want = TG.warp_pass_coefficients(table[:, 2:SV.TABLE_HEAD].reshape(18, 3, 3), s)
+    assert torch.equal(plan.cpu(), want)
+    assert plan[:, 6].any() and plan[:, 7].any() and not plan[:, 7].all()
+
+
+@pytest.mark.cuda
+def test_strong_views_wrapper_rejects_bad_inputs(cuda):
+    s, b = 32, 4
+    d = _fix_draws("fused", b, s, 1)
+    table = SV.pack_table(d, s)
+    imgs = torch.randint(0, 256, (b, s, s, 3), dtype=torch.uint8, device=cuda)
+    noise = d["noise"].to(cuda)
+    call = lambda **kw: SV.strong_views_cuda(kw.get("imgs", imgs), kw.get("table", table), kw.get("noise", noise),
+                                             plan_out=kw.get("plan_out"))
+    before = SV.launches
+    with pytest.raises(ValueError):
+        call(imgs=imgs.cpu())  # device
+    with pytest.raises(ValueError):
+        call(table=table.to(cuda))  # the table is copied from the host
+    with pytest.raises(ValueError):
+        call(noise=d["noise"])  # device
+    with pytest.raises(TypeError):
+        call(imgs=imgs.float())  # dtype
+    with pytest.raises(TypeError):
+        call(table=table.double())
+    with pytest.raises(TypeError):
+        call(noise=noise.half())
+    with pytest.raises(ValueError):
+        call(imgs=imgs[:, :, :31].contiguous())  # not square
+    with pytest.raises(ValueError):
+        call(imgs=imgs.transpose(1, 2))  # not contiguous
+    with pytest.raises(ValueError):
+        call(table=table[:, :-1].contiguous())  # not a whole stage
+    with pytest.raises(ValueError):
+        call(table=table[:2].contiguous())  # a row per image
+    with pytest.raises(ValueError):
+        call(noise=noise[:, :, :16])
+    with pytest.raises(ValueError):
+        call(noise=noise[:0])  # fewer fields than the table's slots
+    with pytest.raises(ValueError):
+        call(plan_out=torch.zeros(b, 6, device=cuda))
+    assert SV.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s", [37, 224])
 def test_consistency_views_card_match_cpu(cuda, s):
-    """The weak/strong consistency views (PyTorch ops, no kernel) on the card
-    against the CPU on the same draws, every op of the strong pool on, within
-    1e-5; both kernels stay unlaunched."""
+    """The weak/strong consistency views on the card (the strong views
+    kernel, launched once) against the CPU's PyTorch ops on the same draws,
+    every op of the strong pool on, within 1e-5; the other two kernels stay
+    unlaunched."""
     from ssl_cr_histo_tpu_torch.ops import randaugment as RA
 
     g = torch.Generator().manual_seed(s)
@@ -380,10 +483,10 @@ def test_consistency_views_card_match_cpu(cuda, s):
     d["params"][..., RA.GATE] = 1.0
     d["noise"] = torch.randn(int((d["ops"] == RA.NOISE).sum()), 3, s, s, generator=g)
     imgs = torch.randint(0, 256, (b, s, s, 3), dtype=torch.uint8, generator=g)
-    launched = (RK.launches, PK.launches)
+    launched = (SV.launches, RK.launches, PK.launches)
     want = TB.transform_fix_batch(None, imgs, draws=d)
     got = TB.transform_fix_batch(None, imgs.to(cuda), draws=dict(d, noise=d["noise"].to(cuda)))
-    assert (RK.launches, PK.launches) == launched
+    assert (SV.launches, RK.launches, PK.launches) == (launched[0] + 1, *launched[1:])
     for a, w in zip(got, want):
         assert a.is_cuda and a.shape == (b, 3, s, s)
         np.testing.assert_allclose(a.cpu().numpy(), w.numpy(), rtol=0, atol=1e-5)

@@ -75,6 +75,8 @@ def test_each_stage_writes_a_trace(tmp_path, capsys, stage):
     assert wait["calls"] == 1 and wait["host_ms"] >= 0 and wait["idle_ms"] is None
     assert out["spans"]["device_idle_share"] is None
     assert "port spans a step" in printed and "port.feed.wait" in printed and "traced steps: feed starved" in printed
+    # the CPU's views are the kernel's plain version
+    assert out["strong_views_launches"] == 0 and "; strong_views kernel 0 launches" in printed
 
 
 def test_pretrain_trace_holds_the_plain_augmentation(tmp_path, monkeypatch):

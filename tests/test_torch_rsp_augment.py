@@ -372,22 +372,30 @@ def test_kernel_wrapper_rejects_cpu_tensors():
 
 def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     """The build key covers the .cu file and the headers of csrc/ it
-    includes: editing photometric_common.cuh changes both kernels' library
-    paths, editing one .cu only its own."""
+    includes: editing photometric_common.cuh changes every kernel's library
+    path, editing warp_plan.cuh those of the two kernels that warp, editing
+    one .cu only its own."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc, ignore=shutil.ignore_patterns("*.py", "__pycache__"))
     monkeypatch.setattr(build, "CSRC", str(csrc))
-    assert build.sources("rsp_augment") == ["rsp_augment.cu", "photometric_common.cuh"]
+    names = ("rsp_augment", "photometric_chain", "strong_views")
+    assert build.sources("rsp_augment") == ["rsp_augment.cu", "photometric_common.cuh", "warp_plan.cuh"]
     assert build.sources("photometric_chain") == ["photometric_chain.cu", "photometric_common.cuh"]
-    before = {k: build.library_path(k) for k in ("rsp_augment", "photometric_chain")}
+    assert build.sources("strong_views") == ["strong_views.cu", "photometric_common.cuh", "warp_plan.cuh"]
+    before = {k: build.library_path(k) for k in names}
     with open(os.path.join(csrc, "photometric_common.cuh"), "a") as f:
         f.write("\n// edited\n")
-    mid = {k: build.library_path(k) for k in before}
-    assert all(mid[k] != before[k] for k in before)
+    mid = {k: build.library_path(k) for k in names}
+    assert all(mid[k] != before[k] for k in names)
+    with open(os.path.join(csrc, "warp_plan.cuh"), "a") as f:
+        f.write("\n// edited\n")
+    warped = {k: build.library_path(k) for k in names}
+    assert [warped[k] != mid[k] for k in names] == [True, False, True]
     with open(os.path.join(csrc, "rsp_augment.cu"), "a") as f:
         f.write("\n// edited\n")
-    assert build.library_path("rsp_augment") != mid["rsp_augment"]
-    assert build.library_path("photometric_chain") == mid["photometric_chain"]
+    assert build.library_path("rsp_augment") != warped["rsp_augment"]
+    assert build.library_path("photometric_chain") == warped["photometric_chain"]
+    assert build.library_path("strong_views") == warped["strong_views"]
 
 
 def test_port_import_sets_up_mkl_before_a_parallel_log():
