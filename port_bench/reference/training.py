@@ -22,7 +22,8 @@ import torch.nn.functional as F
 from port_bench.reference import augment, augment_fix
 from port_bench.reference.nets import Net
 
-TRAINED = ("conv", "linear", "bias", "bn_w", "bn_b")
+# every other kind of tensor is trained
+UNTRAINED = ("bn_mean", "bn_var", "bn_count")
 
 
 def _setup_precision():
@@ -79,7 +80,7 @@ class AdamL2:
 def _run(cfg, spec, weights, optimizer, loss_of, steps: int) -> dict:
     """Shared loop: ``loss_of(net, step)`` gives a step's loss."""
     _setup_precision()
-    trained = [name for name, _, kind in spec if kind in TRAINED]
+    trained = [e[0] for e in spec if e[2] not in UNTRAINED]
     p = {k: v.detach().clone() for k, v in weights.items()}
     start = {k: p[k].clone() for k in trained}
     losses, first = [], None

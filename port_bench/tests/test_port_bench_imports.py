@@ -41,7 +41,7 @@ def test_no_jax(path):
 def test_reference_imports_nothing_of_the_program(path):
     names = set(imported(path))
     assert "ssl_cr_histo_tpu_torch" not in names and not names & JAX
-    assert names <= {"__future__", "glob", "math", "os", "numpy", "torch", "port_bench"}, names
+    assert names <= {"__future__", "glob", "importlib", "math", "os", "numpy", "torch", "port_bench"}, names
 
 
 def test_names_compared_whole():

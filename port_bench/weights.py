@@ -3,9 +3,12 @@
 flax's initialisation, as the port's ``train/init.py`` gives it: every
 convolution and linear weight from a normal truncated at two standard
 deviations with variance 1 / fan_in (``reference.nets.lecun_std``), every
-bias 0, BatchNorm scale 1 and shift 0, running mean 0 and variance 1.  All
-weights come from one draw of a ``torch.Generator`` on the card, cut into
-leaves, so a seed gives the same weights whatever reads them.
+bias 0, BatchNorm scale 1 and shift 0, running mean 0 and variance 1.  A
+family's own tensors take the kinds ``normal`` (the entry's fourth item
+times a unit normal truncated to [-2, 2]) and ``fill`` (the entry's fourth
+item everywhere).  Every drawn weight comes, in the spec's order, from one
+draw of a ``torch.Generator`` on the card, cut into leaves, so a seed gives
+the same weights whatever reads them.
 """
 
 from __future__ import annotations
@@ -30,19 +33,21 @@ def make_weights(spec: list, seed: int, device) -> dict:
     """{name: tensor} for ``reference.nets.param_spec``'s entries, float32
     (the BatchNorm counts int64), on ``device``."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    drawn = [(name, shape) for name, shape, kind in spec if kind in ("conv", "linear")]
-    flat = truncated_normal(gen, sum(math.prod(s) for _, s in drawn), device)
+    drawn = [(e[0], e[1], e[3] if e[2] == "normal" else lecun_std(e[1])) for e in spec
+             if e[2] in ("conv", "linear", "normal")]
+    flat = truncated_normal(gen, sum(math.prod(s) for _, s, _ in drawn), device)
     out, at = {}, 0
-    for name, shape in drawn:
+    for name, shape, std in drawn:
         n = math.prod(shape)
-        out[name] = (flat[at:at + n] * lecun_std(shape)).view(shape)
+        out[name] = (flat[at:at + n] * std).view(shape)
         at += n
-    for name, shape, kind in spec:
+    for name, shape, kind, *value in spec:
         if kind == "bn_count":
             out[name] = torch.zeros((), dtype=torch.int64, device=device)
-        elif kind in _FILL:
-            out[name] = torch.full(shape, _FILL[kind], dtype=torch.float32, device=device)
-    return {name: out[name] for name, _, _ in spec}
+        elif kind in _FILL or kind == "fill":
+            out[name] = torch.full(shape, value[0] if kind == "fill" else _FILL[kind], dtype=torch.float32,
+                                   device=device)
+    return {e[0]: out[e[0]] for e in spec}
 
 
 def prefixed(weights: dict, prefix: str) -> dict:

@@ -6,13 +6,16 @@ Peaks: one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet, dense):
 989 TFLOP/s in bf16, 67 TFLOP/s in float32 outside the tensor cores,
 3.35 TB/s of HBM.
 
-Model work counts the multiply-adds of every convolution and linear layer
-from the shapes alone, two operations each.  A trained pass counts its
-forward, its gradient with respect to the weights and its gradient with
-respect to the input (three times the forward), except the input gradient
-of the first convolution, which no step computes; a forward without
-gradient (the consistency teacher) counts once.  BatchNorm, pooling,
-element-wise work, augmentation and recomputation are not counted.
+Model work counts the multiply-adds of every matrix product from the
+shapes alone, two operations each: the backbone family's own count
+(``backbone_macs`` of ``port_bench.reference.<family>``: convolutions and
+linears, and an attention family's QK^T and PV), and the heads' linears.
+A trained pass counts its forward, its gradient with respect to the
+weights and its gradient with respect to the input (three times the
+forward), except the input gradient of the first layer on the image, which
+no step computes; a forward without gradient (the consistency teacher)
+counts once.  Norms, pooling, softmax, element-wise work, augmentation and
+recomputation are not counted.
 
 The fused kernel's operations per pixel are the count ``chip_smoke.py``
 makes of ``csrc/rsp_augment.cu`` (its ``PIXEL_OPS``), frozen here: a later
@@ -23,7 +26,7 @@ since the draws of a timed step are made inside it.
 
 from __future__ import annotations
 
-from port_bench.reference.nets import _conv_out, blocks
+from port_bench.reference.nets import family
 
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
@@ -45,23 +48,8 @@ N_PARAMS = 16
 
 def backbone_macs(cfg: dict, size: int) -> tuple:
     """(multiply-adds of one image's backbone forward at ``size``^2, those
-    of its first convolution)."""
-    stem = cfg["stem_width"]
-    s = _conv_out(size, 7, 2)
-    first = s * s * stem * 3 * 49
-    macs = first
-    s = (s + 2 - 3) // 2 + 1  # max pool 3, stride 2, pad 1
-    exp = cfg["expansion"]
-    for _, cin, f, stride in blocks(cfg):
-        out = _conv_out(s, 3, stride)
-        if cfg["block"] == "basic":
-            macs += out * out * f * cin * 9 + out * out * f * f * 9
-        else:
-            macs += s * s * f * cin + out * out * f * f * 9 + out * out * f * exp * f
-        if stride != 1 or cin != f * exp:
-            macs += out * out * f * exp * cin
-        s = out
-    return macs, first
+    of its first layer on the image): the family's count."""
+    return family(cfg).backbone_macs(cfg, size)
 
 
 def pair_macs(cfg: dict) -> int:
@@ -85,7 +73,7 @@ def pretrain_step_flops(cfg: dict, batch: int, size: int, classes: int = 6) -> f
 
 def single_flops(cfg: dict, size: int, classes: int) -> tuple:
     """(backbone, head) forward multiply-adds of one image's
-    ``encode_single`` pass and the fine-tune head, with the first conv's."""
+    ``encode_single`` pass and the fine-tune head, with the first layer's."""
     macs, first = backbone_macs(cfg, size)
     return macs, first, pair_macs(cfg) + 3 * cfg["pair_fc"][2] * classes
 
