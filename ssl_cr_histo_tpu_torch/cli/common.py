@@ -36,6 +36,7 @@ import torch
 
 from ssl_cr_histo_tpu_torch.data.pipeline import (FeedCounters, batch_groups, prefetch_iter, prefetch_to_device,
                                                   stack_chunk, timed)
+from ssl_cr_histo_tpu_torch.models import MODEL_NAMES
 from ssl_cr_histo_tpu_torch.ops.batch import AUG_MODES
 from ssl_cr_histo_tpu_torch.parallel import distributed
 from ssl_cr_histo_tpu_torch.train import optim
@@ -138,7 +139,7 @@ def add_multi_step_arg(parser: argparse.ArgumentParser) -> None:
 
 
 def add_common_args(parser: argparse.ArgumentParser) -> None:
-    parser.add_argument("--model", default="resnet18", choices=["resnet18", "resnet50"])
+    parser.add_argument("--model", default="resnet18", choices=MODEL_NAMES)
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--save_dir", default="./runs")
     parser.add_argument("--print_freq", type=int, default=100)

@@ -4,8 +4,16 @@ Counterpart of ``ssl_cr_histo_tpu/models/nets.py:27-124``, with the
 reference's module names so that state_dicts carry its keys: the backbone
 under ``model.*``, the pairwise MLP under ``fc.0`` / ``fc.2``, the classifier
 under ``classifier.0`` / ``classifier.2``, the fine-tune head under
-``classifier.0``.  Every Linear starts as flax's Dense does
+``classifier.0``.  Every head Linear starts as flax's Dense does
 (``resnet.lecun_normal_``).
+
+The backbone is picked by name, once, when the modules are built
+(``make_backbone``): a ResNet (``models/resnet.py``: BatchNorm, whose batch
+statistics a joint pass pools over every view in it) or UNI2-h's ViT
+(``models/vit.py``: no BatchNorm, so each view's features depend on that
+view alone, in train mode as in eval mode).  The pair head's widths are
+the reference's for resnet18 (2D -> D -> D/2 of a D-wide embedding);
+resnet50's and uni2h's are 2D -> D/2 -> D/4.
 """
 
 from __future__ import annotations
@@ -13,13 +21,24 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ssl_cr_histo_tpu_torch.models.resnet import lecun_normal_, make_backbone
+from ssl_cr_histo_tpu_torch.models import resnet, vit
+from ssl_cr_histo_tpu_torch.models.resnet import lecun_normal_
 
-_FC_DIMS = {"resnet18": (1024, 512, 256), "resnet50": (4096, 1024, 512)}
+_FC_DIMS = {"resnet18": (1024, 512, 256), "resnet50": (4096, 1024, 512), "uni2h": (3072, 768, 384)}
+MODEL_NAMES = tuple(_FC_DIMS)
+
+
+def make_backbone(name: str, remat: bool = False) -> nn.Module:
+    """The backbone ``name`` (``remat``: each block recomputed in the
+    backward pass): a ViT of ``vit.CONFIGS`` or a ResNet."""
+    if name in vit.CONFIGS:
+        return vit.ViT(**vit.CONFIGS[name], remat=remat)
+    return resnet.make_backbone(name, remat)
 
 
 def feature_dim(model_name: str) -> int:
-    """Final triplet feature dimension (3 * fc_out): 768 for resnet18."""
+    """Final triplet feature dimension (3 * fc_out): 768 for resnet18, 1152
+    for uni2h."""
     return 3 * _FC_DIMS[model_name][2]
 
 
@@ -36,8 +55,9 @@ class TripletNet(nn.Module):
     ``encode_single(i)``       -> the same layout from one image
     ``forward_joint(tiles)``   -> the same, one backbone pass over B*3 views
 
-    ``remat``: the backbone recomputes each residual block in the backward
-    pass (``--remat``); the state_dict is the same.
+    ``remat``: the backbone recomputes each block (residual or
+    transformer) in the backward pass (``--remat``); the state_dict is the
+    same.
     """
 
     def __init__(self, model_name: str = "resnet18", remat: bool = False):
@@ -63,9 +83,10 @@ class TripletNet(nn.Module):
 
     def forward_joint(self, tiles):
         """tiles: (B, 3, C, H, W).  One batched backbone pass over the three
-        views, so BatchNorm's batch statistics are pooled across them (the
-        reference takes them per view; eval mode is identical)
-        (``nets.py:80-95``)."""
+        views, so a ResNet's BatchNorm pools its batch statistics across
+        them (the reference takes them per view; eval mode is identical)
+        (``nets.py:80-95``); a backbone without BatchNorm gives what three
+        passes give."""
         b = tiles.shape[0]
         e = self.model(tiles.reshape(b * 3, *tiles.shape[2:])).reshape(b, 3, -1)
         return self.pair_features(e[:, 0], e[:, 1], e[:, 2])

@@ -1,4 +1,7 @@
-"""torchvision-shaped ResNet-18/50 trunks (final fc stripped), NCHW.
+"""torchvision-shaped ResNet-18/50 trunks (final fc stripped), NCHW: the
+ResNet family of backbones.  What this docstring says of BatchNorm, its
+global statistics and its recomputation holds for this family alone;
+UNI2-h's ViT (``models/vit.py``) has no BatchNorm.
 
 Counterpart of ``ssl_cr_histo_tpu/models/resnet.py:50-171``; written out
 here because the GPU machine has no torchvision.  Module names follow
@@ -263,6 +266,7 @@ def ResNet50(remat: bool = False) -> ResNet:
 
 
 def make_backbone(name: str, remat: bool = False) -> ResNet:
+    """The ResNet ``name``; ``models.nets.make_backbone`` picks the family."""
     if name == "resnet18":
         return ResNet18(remat)
     if name == "resnet50":

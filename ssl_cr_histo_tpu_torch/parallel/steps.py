@@ -355,7 +355,8 @@ def consistency_step(
     batch's global size is always its rows times the process count; see
     the module docstring).  Each process's student pass over cat(its
     labeled views, its strong views) is the JAX step's shard-local
-    ``grouped_concat`` (``steps.py:429-458``); BatchNorm pools the union.
+    ``grouped_concat`` (``steps.py:429-458``); a ResNet's BatchNorm pools
+    the union.
 
     (B, H, W, 3) uint8 labeled images ``x_l_u8`` with their (B,) labels, and
     (mu*B, H, W, 3) uint8 unlabeled images ``x_u_u8``.  The unlabeled images
@@ -366,7 +367,7 @@ def consistency_step(
     views, weak, strong), float32 planar in [0, 1], replaces both, for tests.
     The teacher runs on the weak views in eval mode, without gradient; the
     student on cat(labeled views, strong views) in one train-mode pass, so
-    its BN statistics pool both.  Classification: cross-entropy on the
+    a ResNet's BN statistics pool both.  Classification: cross-entropy on the
     labels plus ``lambda_u`` times cross-entropy of the strong views against
     the teacher's hard pseudo-labels (argmax of its softmax; ties to the
     first class); metric the labeled accuracy.  Regression: MSE on the
@@ -482,7 +483,8 @@ class StepGraph:
     itself), then ``body(*inputs)``, that device work, whose metrics it
     returns, then ``epilogue()``, its host bookkeeping (the step count, the
     LR schedule): together the same step.  ``body`` is captured once as a
-    ``torch.cuda.CUDAGraph`` over static copies of its inputs; each step
+    ``torch.cuda.CUDAGraph`` over static copies of its inputs, after the
+    allocator's cached blocks are released; each step
     copies its inputs into them and replays the graph, and ``run`` copies
     the outputs into the chunk's rows before the next replay.  The graph
     registers ``generators`` (the step's CUDA generators), so replay i
@@ -563,8 +565,12 @@ class StepGraph:
         return self.static_out
 
     def _capture(self, inputs) -> None:
-        # the previous graph, and the memory it holds, goes first
+        # the previous graph, and the memory it holds, goes first; then the
+        # allocator's cached blocks (the eager step's freed activations): a
+        # capture allocates from a pool of its own, which cannot take them
+        # over, and a large model's step has room for one set of activations
         self.graph = self.static_in = self.static_out = None
+        torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         for g in self.generators:
             graph.register_generator_state(g)

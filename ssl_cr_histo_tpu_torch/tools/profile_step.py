@@ -11,8 +11,9 @@ TensorBoard or chrome://tracing) and prints ms/step, timed inside the trace
 window up to a synchronize, the ten operations that took the most device
 time (on the CPU: self CPU time), the port's spans a step (``span_times``:
 each ``port.`` span's host time and the card's idle time inside it) and
-the feed's and the step's counters and the consistency views kernel's
-launches (``ops/strong_views_kernel.py``) over the traced steps.
+the feed's and the step's counters, the consistency views kernel's
+launches (``ops/strong_views_kernel.py``) and, for a ViT, its attention
+calls by SDPA backend (``models/vit.py``) over the traced steps.
 
     python3 -m ssl_cr_histo_tpu_torch.tools.profile_step --stage consistency --batch_size 16 \\
         --logdir TRACE_DIR [--multi_step 8] [--steps 16] [--device cpu]
@@ -37,7 +38,8 @@ SPAN_PREFIX = "port."
 
 def build_step(args, device) -> tuple:
     """(the stage's ``StepGraph`` at ``args.multi_step``, one host batch:
-    the tuple of arrays the stage's feed yields a step), on seeded random
+    the tuple of arrays the stage's feed yields a step, the trained
+    TripletNet), on seeded random
     uint8 inputs (the JAX tool's ``default_rng(0)`` data, torch seed 0
     weights, augmentation draws from generators seeded 1).  pretrain:
     TripletNet + 6-way classifier, SGD-Nesterov 0.01, v1 augmentation in
@@ -59,17 +61,17 @@ def build_step(args, device) -> tuple:
     if args.stage == "pretrain":
         state = init_triplet_state(args.model, device, lr=0.01)
         return (S.make_pretrain_multi_step(state, gen, k, aug_mode=args.aug_mode, bf16=True),
-                (u8(b, 3, size, size, 3),))
+                (u8(b, 3, size, size, 3),), state.model)
     if args.stage == "finetune":
         state = init_finetune_state(args.model, 9, device, lambda p: optim.adam(p, 1e-4))
         return (S.make_finetune_multi_step(state, gen, k, "classification", bf16=True),
-                (u8(b, size, size, 3), np.arange(b) % 9))
+                (u8(b, size, size, 3), np.arange(b) % 9), state.model)
     state = init_finetune_state(args.model, 2, device, lambda p: optim.sgd_nesterov(p, 5e-4))
     teacher = init_teacher(state)
     host_gen = torch.Generator().manual_seed(1)
     step = S.make_consistency_multi_step(state, teacher, gen, k, "classification", n_aug=7, host_gen=host_gen,
                                          aug_mode=args.aug_mode, bf16=True)
-    return step, (u8(b, size, size, 3), np.arange(b) % 2, u8(b * args.mu, size, size, 3))
+    return step, (u8(b, size, size, 3), np.arange(b) % 2, u8(b * args.mu, size, size, 3)), state.model
 
 
 def _union(intervals) -> list:
@@ -140,13 +142,14 @@ def top_ops(prof, device, n: int = 10) -> list:
     return sorted(rows, key=lambda r: -r[2])[:n]
 
 
-def main(argv=None) -> dict:
+def parse_args(argv=None) -> argparse.Namespace:
     from ssl_cr_histo_tpu_torch.cli.common import add_multi_step_arg
+    from ssl_cr_histo_tpu_torch.models import MODEL_NAMES
 
     p = argparse.ArgumentParser("train-step trace capture (PyTorch / CUDA)")
     p.add_argument("--stage", default="pretrain", choices=["pretrain", "finetune", "consistency"])
     p.add_argument("--logdir", required=True)
-    p.add_argument("--model", default="resnet18", choices=["resnet18", "resnet50"])
+    p.add_argument("--model", default="resnet18", choices=MODEL_NAMES)
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--image_size", type=int, default=256)
     p.add_argument("--mu", type=int, default=7, help="consistency unlabeled multiplier")
@@ -154,11 +157,16 @@ def main(argv=None) -> dict:
     p.add_argument("--aug_mode", default="fused")
     add_multi_step_arg(p)
     p.add_argument("--device", default="cuda", help="torch device; 'cuda' fails when no GPU is present")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
 
     import torch
 
     from ssl_cr_histo_tpu_torch.cli.common import chunked_feed, counters_line
+    from ssl_cr_histo_tpu_torch.models.vit import attention_calls, attention_line
     from ssl_cr_histo_tpu_torch.ops import strong_views_kernel as SV
     from ssl_cr_histo_tpu_torch.utils.profiling import trace
 
@@ -166,7 +174,7 @@ def main(argv=None) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: CUDA is not available on this machine")
     sync = torch.cuda.synchronize if device.type == "cuda" else lambda: None
-    step, batch = build_step(args, device)
+    step, batch, model = build_step(args, device)
     k = args.multi_step
     feed = chunked_feed(device, k, itertools.repeat(batch))
     try:
@@ -176,7 +184,7 @@ def main(argv=None) -> dict:
         float(m["loss"][0])
         sync()
         before = set(glob.glob(os.path.join(args.logdir, "*.pt.trace.json")))
-        counts, fed, views = step.counts(), feed.counters.snapshot(), SV.launches
+        counts, fed, views, attn = step.counts(), feed.counters.snapshot(), SV.launches, attention_calls(model)
         with trace(args.logdir) as prof:
             t0 = time.perf_counter()
             left = args.steps
@@ -188,7 +196,7 @@ def main(argv=None) -> dict:
             float(m["loss"][n - 1])
             sync()  # the optimizer's update runs after the loss: wait for all of it
             dt = (time.perf_counter() - t0) / args.steps
-        counters = counters_line(feed, step, counts, fed)
+        counters = counters_line(feed, step, counts, fed) + attention_line(model, attn)
         views = SV.launches - views
     finally:
         feed.close()

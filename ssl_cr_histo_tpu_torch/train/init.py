@@ -3,7 +3,12 @@
 seeds alike, and the initial parameters and buffers are broadcast from the
 primary besides, so that all processes start from one state whatever their
 devices' initialisers do; the modules are not wrapped (no ``module.`` keys,
-and no ``DistributedDataParallel``: see ``parallel.distributed``)."""
+and no ``DistributedDataParallel``: see ``parallel.distributed``).
+
+A run from no checkpoint starts from each backbone's own initialisation,
+made when the modules are built: a ResNet's flax one (``models/resnet.py``,
+as the JAX package's), the ViT's timm one (``models/vit.py``); the heads
+start as flax's Dense (``resnet.lecun_normal_``)."""
 
 from __future__ import annotations
 
