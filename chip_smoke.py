@@ -51,7 +51,9 @@ Phases (any failure exits non-zero and prints no result line):
      first step eager, then a captured CUDA graph replayed a step), with
      every launch counter set to 0 just before and read just after: the
      fused kernel must launch once per train step, replays included, and
-     the chain kernel never; the epoch's wall time (the CLI's print;
+     the chain kernel never; the epoch line's trunk forwards all
+     channels-last (the ResNet trunk's layout on the card); the epoch's
+     wall time (the CLI's print;
      batches come through its prefetch threads) beside the stream time
      between the CUDA events around each step; the checkpoint's float32
      forward on the card must agree with the CPU's; then the same CLI run
@@ -142,8 +144,12 @@ Phases (any failure exits non-zero and prints no result line):
      Kather's CR config under ``--aug_mode fast``, ``masked`` (the strong
      views kernel once a step) and ``exact`` (no kernel), each with every
      launch counter set to 0 just
-     before and read just after; a float32 ``--remat`` step card vs CPU and
-     against the step without it; resnet50 at 64 triplets of 256^2, bf16,
+     before and read just after; a ``--remat`` step held against the CPU's
+     float64 step: the card's float64 step within 1e-5, the card's float32
+     step at most 3 times as far from it as the CPU's float32 step (largest
+     entry; float32 rounding in another reduction order, amplified by the
+     step, reads up to 1.4e-4 against the CPU's float32 step), and the
+     card's float32 step against the step without it; resnet50 at 64 triplets of 256^2, bf16,
      with and without ``--remat`` in turns: peak memory and step time; the
      v2 (fused, masked) and v1 exact pretrain steps and the Kather CR
      consistency step under each mode timed, with the views' share and the
@@ -168,8 +174,12 @@ Phases (any failure exits non-zero and prints no result line):
      in this process on the whole batch, the model in float32 and then in
      float64 (on the kernel's float32 views): each rank's fused-kernel
      outputs bit-equal to its rows of this process's, one fused launch a
-     step on each rank, the losses within rtol 1e-5; in float64 every
-     parameter within 1e-5 of its tensor's largest entry; in float32 the
+     step on each rank; in float64 the losses within rtol 1e-5 and every
+     parameter within 1e-5 of its tensor's largest entry; in float32 each
+     run's losses within rtol 1e-4 of the float64 losses (their float32
+     rounding reads up to 4.9e-5 at the second step, in a world of one or
+     two and in either layout, so the two float32 runs are not held to
+     each other), the
      parameters' distance from the float64 step (L2 over all of them) at
      most twice the one-process float32 step's, and each tensor's gap
      printed: float32 parts two reduction orders by more than 1e-5 of some
@@ -186,7 +196,8 @@ Phases (any failure exits non-zero and prints no result line):
      evaluation, heatmap over two 8192^2 slides, FROC), then BreastPathQ
      (``--bpq_data arrays``; 5 + 3 epochs, two-rater evaluation) and Kather
      (224^2; 60 + 10 epochs, evaluation) from the Camelyon16 recipe's
-     pretraining (``--stage1_ckpt``); every launch counter set to 0 before
+     pretraining (``--stage1_ckpt``); every stage CLI's epoch line counting
+     channels-last trunk forwards alone; every launch counter set to 0 before
      each stage and read after: the fused kernel once a pretrain step (as
      many steps as the checkpoint counts) and never in another stage, the
      chain kernel never; each stage's seconds, each banded metric beside
@@ -1134,6 +1145,17 @@ def cuda_timed(torch, module, name: str):
         yield pairs
     finally:
         setattr(module, name, real)
+
+
+def trunk_layouts(text: str, where: str) -> list:
+    """The ``trunk forwards`` readings of the stage CLIs' epoch lines in
+    ``text``: there must be some, and each must count channels-last
+    forwards alone (the ResNet trunk's layout on the card,
+    ``models/resnet.py``)."""
+    found = re.findall(r"; trunk forwards ([^;\n]*)", text)
+    check(bool(found) and all(re.fullmatch(r"channels_last \d+", f) for f in found),
+          f"{where}: the trunk's forwards on the card by layout: {found}")
+    return found
 
 
 class Tee:
@@ -2131,13 +2153,15 @@ def recorded(module, name: str):
 
 
 def phase_modes_remat(torch, dev, card: str) -> None:
-    """Phase 11: ``--remat``.  One float32 pretrain step with the blocks
-    recomputed (batch 4 at 64^2, injected draws) on the card against the
-    CPU, held as phase 5 holds its step (1e-4), and against the card's step
-    without it (weights and BN statistics within 2e-5, the batch counts
-    equal); then resnet50 at batch 64 triplets of 256^2, bf16, with and
-    without it in turns (plain, remat, remat, plain): the peak memory
-    (``max_memory_allocated``) and the step time."""
+    """Phase 11: ``--remat``.  One pretrain step with the blocks recomputed
+    (batch 4 at 64^2, injected draws), held against the CPU's float64 step
+    (the model in float64 on the augmentation's float32 views): the card's
+    float64 step within 1e-5, the card's float32 step at most 3 times as far
+    from it as the CPU's float32 step (largest entry), and against the
+    card's float32 step without it (weights and BN statistics within 2e-5,
+    the batch counts equal); then resnet50 at batch 64 triplets of 256^2,
+    bf16, with and without it in turns (plain, remat, remat, plain): the
+    peak memory (``max_memory_allocated``) and the step time."""
     from ssl_cr_histo_tpu_torch.ops import batch as TB
     from ssl_cr_histo_tpu_torch.parallel import steps as S
     from ssl_cr_histo_tpu_torch.train.init import init_triplet_state
@@ -2149,20 +2173,37 @@ def phase_modes_remat(torch, dev, card: str) -> None:
     draws = TB.draw_rsp_v1(g, b * 3, s)
     draws["noise"] = torch.randn(b * 3, 3, s, s, generator=g)
     out = {}
-    for d, remat in (("cpu", True), ("cuda", True), ("cuda", False)):
+    augment = S.aug_batch.augment_rsp_batch_v1
+    f32, f64 = torch.float32, torch.float64
+    for d, remat, dtype in (("cpu", True, f64), ("cpu", True, f32), ("cuda", True, f64), ("cuda", True, f32),
+                            ("cuda", False, f32)):
         torch.manual_seed(0)
         state = init_triplet_state("resnet18", torch.device(d), remat=remat)
-        S.pretrain_step(state, tiles.to(d), torch.Generator(device=d).manual_seed(0), labels.to(d),
-                        {k: v.to(d) for k, v in draws.items()})
-        out[(d, remat)] = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+        state.model.to(dtype)
+        state.classifier.to(dtype)
+        S.aug_batch.augment_rsp_batch_v1 = lambda *a, **k: augment(*a, **k).to(dtype)
+        try:
+            S.pretrain_step(state, tiles.to(d), torch.Generator(device=d).manual_seed(0), labels.to(d),
+                            {k: v.to(d) for k, v in draws.items()})
+        finally:
+            S.aug_batch.augment_rsp_batch_v1 = augment
+        out[(d, remat, dtype)] = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
     diff = lambda a, c: max((a[k].double() - c[k].double()).abs().max().item() for k in a)
-    vs_cpu, vs_plain = diff(out[("cuda", True)], out[("cpu", True)]), diff(out[("cuda", True)], out[("cuda", False)])
-    check(vs_cpu <= 1e-4, f"remat step card vs CPU differs by {vs_cpu}")
+    truth = out[("cpu", True, f64)]
+    card64 = diff(out[("cuda", True, f64)], truth)
+    card32, cpu32 = diff(out[("cuda", True, f32)], truth), diff(out[("cpu", True, f32)], truth)
+    vs_cpu, vs_plain = diff(out[("cuda", True, f32)], out[("cpu", True, f32)]), diff(out[("cuda", True, f32)],
+                                                                                      out[("cuda", False, f32)])
+    check(card64 <= 1e-5, f"float64 remat step card vs CPU differs by {card64}")
+    check(card32 <= 3 * cpu32, f"float32 remat step on the card is {card32} from the CPU's float64 step, the CPU's "
+                               f"float32 step {cpu32}")
     check(vs_plain <= 2e-5, f"remat step vs the plain step on the card differs by {vs_plain}")
-    tracked = [k for k in out[("cpu", True)] if k.endswith("num_batches_tracked")]
+    tracked = [k for k in truth if k.endswith("num_batches_tracked")]
     check(all(int(out[key][k]) == 1 for key in out for k in tracked), "a BatchNorm counted other than one batch")
-    print(f"phase 11: float32 pretrain step with --remat (batch 4 at 64^2): card vs CPU max abs err {vs_cpu:.2e}; "
-          f"against the card's step without it {vs_plain:.2e}; every num_batches_tracked 1", flush=True)
+    print(f"phase 11: pretrain step with --remat (batch 4 at 64^2) against the CPU's float64 step, max abs err: "
+          f"float64 card {card64:.2e} (bound 1e-5); float32 card {card32:.2e}, CPU {cpu32:.2e}, card over CPU "
+          f"{card32 / cpu32:.2f} (bound 3); float32 card vs CPU {vs_cpu:.2e}; the card's float32 step against its "
+          f"step without --remat {vs_plain:.2e}; every num_batches_tracked 1", flush=True)
 
     big = torch.randint(0, 256, (64, 3, 256, 256, 3), dtype=torch.uint8, generator=g).to(dev)
     states, peaks = {}, {}
@@ -2617,8 +2658,13 @@ def phase_distributed(torch, tmp: str, slides: str, card: str) -> dict:
             for i, (o, w) in enumerate(zip(got["outs"], ref["outs"], strict=True)):
                 check(torch.equal(o, w[r * half:(r + 1) * half]),
                       f"gloo rank {r} {name} step {i}: fused-kernel output differs from its rows of one process's")
-            for i, (x, y) in enumerate(zip(got["losses"], ref["losses"], strict=True)):
-                check(abs(x - y) <= 1e-5 * abs(y), f"gloo rank {r} {name} step {i}: loss {x!r} against {y!r}")
+            for i, (x, y, z) in enumerate(zip(got["losses"], ref["losses"], ref64["losses"], strict=True)):
+                if dt == torch.float64:
+                    check(abs(x - y) <= 1e-5 * abs(y), f"gloo rank {r} {name} step {i}: loss {x!r} against {y!r}")
+                else:
+                    check(abs(x - z) <= 1e-4 * abs(z), f"gloo rank {r} {name} step {i}: loss {x!r} against the "
+                                                       f"float64 step's {z!r}")
+                    gaps.setdefault((name, "loss64"), []).append(abs(x - z) / abs(z))
                 gaps.setdefault((name, "loss"), []).append(abs(x - y) / abs(y))
             for part in ("model", "classifier"):
                 for k, w in ref[part].items():
@@ -2637,6 +2683,9 @@ def phase_distributed(torch, tmp: str, slides: str, card: str) -> dict:
                   f"(correctness only: gloo stages every collective through the host) [{card}]", flush=True)
     sq["one"] = 2 * sum((w.double() - ref64[part][k]).square().sum().item() for part in ("model", "classifier")
                         for k, w in ref32[part].items() if w.is_floating_point())
+    one64 = [abs(x - z) / abs(z) for x, z in zip(ref32["losses"], ref64["losses"], strict=True)]
+    check(max(one64) <= 1e-4, f"gloo: one process's float32 losses {ref32['losses']} against the float64 step's "
+                              f"{ref64['losses']}")
     worst = {name: max(gaps[name, "params"]) for name in ("float32", "float64")}
     above = sorted({k for g, k in gaps["float32", "params"] if g > 1e-5})
     ratio = math.sqrt(sq["two"] / sq["one"])
@@ -2644,8 +2693,9 @@ def phase_distributed(torch, tmp: str, slides: str, card: str) -> dict:
           f"one process: every fused-kernel output bit-equal to its rows of one process's, one fused launch a step on "
           f"each rank; float64 model: losses' largest relative gap {max(gaps['float64', 'loss']):.2e}, parameters' "
           f"largest {worst['float64'][0]:.2e} of their tensor's largest entry ({worst['float64'][1]}; bound 1e-5); "
-          f"float32 model: losses {ref32['losses']}, largest relative gap {max(gaps['float32', 'loss']):.2e} (bound "
-          f"1e-5), parameters' largest gap {worst['float32'][0]:.2e} ({worst['float32'][1]}), {len(above)} of "
+          f"float32 model: losses {ref32['losses']}, largest relative gap {max(gaps['float32', 'loss']):.2e} (not "
+          f"bounded), against the float64 step's losses two processes {max(gaps['float32', 'loss64']):.2e}, one "
+          f"{max(one64):.2e} (bound 1e-4), parameters' largest gap {worst['float32'][0]:.2e} ({worst['float32'][1]}), {len(above)} of "
           f"{len(ref32['model']) + len(ref32['classifier'])} tensors above 1e-5; float32's distance from the float64 "
           f"step over all parameters (L2), two processes over one: {ratio:.3f}; one process's float32 step times "
           f"{', '.join(f'{t:.3f}' for t in ref32['step_ms'])} ms; {time.time() - t0:.1f} s [{card}]", flush=True)
@@ -2735,6 +2785,8 @@ def phase_rehearsal(torch, tmp: str, reports: str, card: str) -> dict:
             fail(f"phase 13: the {recipe} rehearsal failed: {failure}")
         st = report["stages"]
         check(report["band_violations"] == [], f"phase 13: {recipe}: {report['band_violations']}")
+        with open(log) as f:
+            layouts = trunk_layouts(f.read(), f"phase 13: {recipe}")
         if recipe == "camelyon16":
             stage1 = st["pretrain"]["checkpoint"]
             n = launches[(recipe, "pretrain")]
@@ -2759,7 +2811,8 @@ def phase_rehearsal(torch, tmp: str, reports: str, card: str) -> dict:
         if "heatmap" in st:
             rates.append(f"heatmap {st['heatmap']['patches_per_sec_incl_io']} patches/s incl. I/O "
                          f"({st['heatmap']['patches']} patches)")
-        print(f"phase 13: {recipe} rehearsal in {wall:.1f} s; {'; '.join(rates)} [{card}]", flush=True)
+        print(f"phase 13: {recipe} rehearsal in {wall:.1f} s; {'; '.join(rates)}; the epoch lines' trunk "
+              f"forwards: {len(layouts)} all channels-last [{card}]", flush=True)
         print(f"phase 13: {recipe} bands: {banded(R, recipe, report)}", flush=True)
     return by_path
 
@@ -3649,9 +3702,10 @@ def main() -> int:
         launches = launch_counts()
         epoch = re.search(r"Epoch time: ([0-9.]+) s", tee.buf.getvalue())
         check(epoch is not None and len(pairs) == steps, f"the CLI printed no epoch time or took {len(pairs)} steps")
+        layouts = trunk_layouts(tee.buf.getvalue(), "phase 5")
         print(f"phase 5: CLI wall {wall:.2f} s, launches {launches}; the epoch's wall {float(epoch.group(1)):.2f} s "
               f"(the CLI's own print) against {events_s(pairs):.3f} s of stream time between the CUDA events "
-              f"around each of its {steps} steps [{card}]", flush=True)
+              f"around each of its {steps} steps; trunk forwards {layouts} [{card}]", flush=True)
         check(launches["rsp_augment"] >= steps,
               f"fused kernel launched {launches['rsp_augment']} times in {steps} train steps")
         check(launches["photometric_chain"] == 0,

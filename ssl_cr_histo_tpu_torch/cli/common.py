@@ -282,7 +282,7 @@ def chunked_feed(device: torch.device, k: int, *its) -> Feed:
     global batch; their tuples are zipped into one, and each iterator runs
     on its own thread.  With ``k`` > 1 this process's rows of K consecutive
     batches are grouped and stacked (``data.pipeline.batch_groups``,
-    ``stack_chunk``), pinned on a thread, and copied to
+    ``stack_chunk``) into pinned buffers on a thread, and copied to
     ``device`` once a chunk.  Yields (tuple of (K, rows, ...) tensors, the
     chunk's valid steps); the rows of a partial last chunk past its valid
     steps are zeros.  ``k`` = 1 is the per-batch feed of
@@ -312,9 +312,11 @@ def _stacked_chunks(device, k, sources, counters):
 
     def host(batches):
         t0 = time.perf_counter()
-        chunk, valid = stack_chunk(batches, k)
-        ts = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (chunk if isinstance(chunk, tuple) else (chunk,)))
-        ts = tuple(t.pin_memory() for t in ts) if pinned else ts
+        # the batches stacked straight into the (pinned) buffers the copy to
+        # the card reads: one pass over the chunk's bytes
+        ts = tuple(torch.empty((k, *a.shape), dtype=torch.from_numpy(a).dtype, pin_memory=pinned)
+                   for a in batches[0])
+        _, valid = stack_chunk(batches, k, out=[t.numpy() for t in ts])
         counters.pins[0] += time.perf_counter() - t0
         return ts, int(valid.sum())
 

@@ -76,6 +76,7 @@ from ssl_cr_histo_tpu_torch.cli.finetune import (
     train_batches,
     validate,
 )
+from ssl_cr_histo_tpu_torch.models.resnet import layout_calls, layout_line
 from ssl_cr_histo_tpu_torch.parallel import steps as S
 from ssl_cr_histo_tpu_torch.parallel.mesh import rows_for_batch
 from ssl_cr_histo_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
@@ -221,6 +222,7 @@ def run(args, cfg, labeled, train, val) -> FinetuneState:
                                                          1000 + args.seed + epoch))
         bi = 0
         feed, before = chunked_feed(device, args.multi_step, lab_it, unlab_it), step.counts()
+        layouts = layout_calls((state.model, teacher.model))
         for chunk, n_valid in feed:
             ms = step.run(chunk, n_valid)
             for i in range(n_valid):
@@ -232,7 +234,7 @@ def run(args, cfg, labeled, train, val) -> FinetuneState:
         if args.ema == 0:
             S.refresh_teacher(teacher, state)
         train_loss, sup_loss, cons_loss = (sums / max(seen, 1)).tolist()
-        counters = counters_line(feed, step, before)
+        counters = counters_line(feed, step, before) + layout_line((state.model, teacher.model), layouts)
 
         val_metric = validate(cfg, state, val, args.eval_batch_size, device, bf16=args.bf16)
         log.append(epoch, train_loss, sup_loss, cons_loss, val_metric)

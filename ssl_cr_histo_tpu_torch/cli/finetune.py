@@ -75,6 +75,7 @@ from ssl_cr_histo_tpu_torch.data import datasets as D
 from ssl_cr_histo_tpu_torch.data.pipeline import balanced_batch_iterator, pad_batches, prefetch_to_device
 from ssl_cr_histo_tpu_torch.eval import metrics as M
 from ssl_cr_histo_tpu_torch.eval import reporting as RP
+from ssl_cr_histo_tpu_torch.models.resnet import layout_calls, layout_line
 from ssl_cr_histo_tpu_torch.models.vit import attention_calls, attention_line
 from ssl_cr_histo_tpu_torch.parallel.distributed import fetch_global, is_primary, process_count
 from ssl_cr_histo_tpu_torch.parallel import steps as S
@@ -369,7 +370,8 @@ def run(args, cfg, train, val) -> FinetuneState:
         loss_sum = torch.zeros((), device=device)
         seen = bi = 0
         batches = train_batches(cfg, train, batch_size, args.seed + epoch)
-        feed, before, attn = chunked_feed(device, args.multi_step, batches), step.counts(), attention_calls(state.model)
+        feed, before = chunked_feed(device, args.multi_step, batches), step.counts()
+        attn, layouts = attention_calls(state.model), layout_calls(state.model)
         for chunk, n_valid in feed:
             ms = step.run(chunk, n_valid)
             for i in range(n_valid):
@@ -379,7 +381,8 @@ def run(args, cfg, train, val) -> FinetuneState:
                 if bi % args.print_freq == 0:
                     print(f"Train: [{epoch}][{bi}] loss {float(ms['loss'][i]):.4f} ({float(loss_sum) / seen:.4f})")
         train_loss = float(loss_sum) / max(seen, 1)
-        counters = counters_line(feed, step, before) + attention_line(state.model, attn)
+        counters = (counters_line(feed, step, before) + attention_line(state.model, attn)
+                    + layout_line(state.model, layouts))
 
         val_metric = validate(cfg, state, val, args.eval_batch_size, device, bf16=args.bf16)
         log.append(epoch, train_loss, val_metric)

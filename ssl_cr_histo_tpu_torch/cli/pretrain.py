@@ -56,6 +56,7 @@ from ssl_cr_histo_tpu_torch.cli.common import (
 )
 from ssl_cr_histo_tpu_torch.data import ReaderCache, RSPTripletSampler, TripletIndex
 from ssl_cr_histo_tpu_torch.data.pipeline import pad_batches, prefetch_to_device
+from ssl_cr_histo_tpu_torch.models.resnet import layout_calls, layout_line
 from ssl_cr_histo_tpu_torch.parallel import distributed as D
 from ssl_cr_histo_tpu_torch.parallel import steps as S
 from ssl_cr_histo_tpu_torch.parallel.mesh import rows_for_batch
@@ -242,7 +243,7 @@ def main(argv=None):
         # are the sampler's, and under --expand_orderings its labels ride
         # along
         bi = 0
-        feed, before = chunked_feed(device, args.multi_step, batches), step.counts()
+        feed, before, layouts = chunked_feed(device, args.multi_step, batches), step.counts(), layout_calls(state.model)
         for chunk, n_valid in feed:
             ms = step.run(chunk, n_valid)
             for i in range(n_valid):
@@ -261,7 +262,8 @@ def main(argv=None):
                 epoch_targets.extend(ms["labels"][:n_valid].cpu().numpy().astype(np.int32))
         train_loss = float(loss_sum) / max(seen, 1)
         train_acc = float(acc_sum) / max(seen, 1)
-        print(f"Epoch time: {time.time() - t0:.2f} s; {counters_line(feed, step, before)}")
+        print(f"Epoch time: {time.time() - t0:.2f} s; {counters_line(feed, step, before)}"
+              f"{layout_line(state.model, layouts)}")
 
         # validation: every held-out triplet under all 6 orderings; the last
         # partial batch is zero-padded with a validity mask; both come through

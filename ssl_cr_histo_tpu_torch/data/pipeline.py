@@ -129,25 +129,22 @@ def batch_groups(it: Iterable, k: int) -> Iterator[list]:
         yield buf
 
 
-def stack_chunk(buf: list, k: int) -> tuple:
+def stack_chunk(buf: list, k: int, out: list) -> tuple:
     """(stacked, valid) of a list of at most k batch tuples
-    (``pipeline.py:97-105``): stacked arrays of shape (k, B, ...) (a tuple
-    when the batches hold more than one array) and a float32 (k,) mask.  A
-    partial chunk is zero-padded with its padded steps marked invalid; the
-    port runs only the valid steps, which gives the JAX scan's result
-    (padded steps leave its state unchanged), so no batch is dropped."""
+    (``pipeline.py:97-105``), stacked into ``out``: one (k, B, ...) array
+    for each array of a batch (the feed's pinned buffers), whatever they
+    held.  Gives them back (a tuple when the batches hold more than one
+    array) with a float32 (k,) mask.  A partial chunk is zero-padded with
+    its padded steps marked invalid; the port runs only the valid steps,
+    which gives the JAX scan's result (padded steps leave its state
+    unchanged), so no batch is dropped."""
     n = len(buf)
     valid = np.zeros(k, np.float32)
     valid[:n] = 1.0
-    parts = []
-    for arrays in zip(*buf):
-        stacked = np.stack(arrays)
-        if n < k:
-            pad = np.zeros((k - n, *stacked.shape[1:]), stacked.dtype)
-            stacked = np.concatenate([stacked, pad])
-        parts.append(stacked)
-    out = parts[0] if len(parts) == 1 else tuple(parts)
-    return out, valid
+    for arrays, stacked in zip(zip(*buf), out, strict=True):
+        np.stack(arrays, out=stacked[:n])
+        stacked[n:] = 0
+    return (out[0] if len(out) == 1 else tuple(out)), valid
 
 
 def balanced_batch_iterator(ds, batch_size: int, seed: int = 0) -> Iterator:

@@ -1,5 +1,5 @@
-"""torchvision-shaped ResNet-18/50 trunks (final fc stripped), NCHW: the
-ResNet family of backbones.  What this docstring says of BatchNorm, its
+"""torchvision-shaped ResNet-18/50 trunks (final fc stripped): the ResNet
+family of backbones.  What this docstring says of BatchNorm, its
 global statistics and its recomputation holds for this family alone;
 UNI2-h's ViT (``models/vit.py``) has no BatchNorm.
 
@@ -33,12 +33,27 @@ BatchNorms in train mode a second time; their running statistics and
 ``num_batches_tracked`` are put back as the first pass left them, so a step
 with ``remat`` leaves the state a step without it leaves (flax's batch stats
 are outputs of the forward pass, and ``nn.remat`` has no such effect).
+
+Memory layout: a trunk placed on a CUDA device holds its convolutions'
+weights in ``torch.channels_last`` (``apply_device_layout``, called where
+the training and serving states are made), and its forward then makes its
+input channels-last once, so that every activation stays NHWC: cuDNN runs
+its bf16 convolutions in NHWC without transposing around each one, and
+ATen's BatchNorm and max-pool take their channels-last kernels.  Elsewhere
+(the CPU, the float64 parity tests) the trunk is NCHW.  Only the layout
+differs: the same operations in the same dtypes, so the state_dict and the
+numbers up to rounding.  ``layouts``, a ``collections.Counter`` on the
+trunk, counts its forward calls by the layout of the activation entering
+``layer1`` (``channels_last`` / ``contiguous``); it counts in Python, so
+eager steps and a CUDA graph's capture, not its replays (``layout_line``).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import math
+from typing import Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -239,10 +254,14 @@ class ResNet(nn.Module):
                 cin = filters * block_cls.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
         self.n_stages = len(stage_sizes)
+        self.layouts = collections.Counter()
         lecun_normal_(self)
 
     def forward(self, x):
+        if self.conv1.weight.is_contiguous(memory_format=torch.channels_last):
+            x = x.contiguous(memory_format=torch.channels_last)
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        self.layouts[layout_name(x)] += 1
         remat = self.remat and self.training and torch.is_grad_enabled()
         for i in range(self.n_stages):
             for block in getattr(self, f"layer{i + 1}"):
@@ -273,3 +292,46 @@ def make_backbone(name: str, remat: bool = False) -> ResNet:
         return ResNet50(remat)
     raise NotImplementedError(f"not supported model type: {name}")
 
+
+def apply_device_layout(module: nn.Module) -> nn.Module:
+    """The layout rule, in place: every ResNet trunk inside ``module``
+    whose weights are on a CUDA device gets its 4-D parameters (the
+    convolutions' weights) in ``torch.channels_last``; a trunk elsewhere,
+    and every other module (the heads, a ViT), is left as it is.  Call it
+    before an optimizer or copies of the parameters are made, so that they
+    take the parameters' layout.  Returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, ResNet) and m.conv1.weight.is_cuda:
+            m.to(memory_format=torch.channels_last)
+    return module
+
+
+def layout_name(x: torch.Tensor) -> str:
+    """``'channels_last'`` or ``'contiguous'`` (NCHW): the layout of a
+    dense 4-D tensor."""
+    return "channels_last" if x.is_contiguous(memory_format=torch.channels_last) else "contiguous"
+
+
+Models = Union[nn.Module, Sequence[nn.Module]]
+
+
+def _trunks(models: Models) -> list:
+    models = (models,) if isinstance(models, nn.Module) else models
+    return [m for model in models for m in model.modules() if isinstance(m, ResNet)]
+
+
+def layout_calls(models: Models) -> collections.Counter:
+    """The forward calls of every ResNet trunk inside ``models`` (a module
+    or a sequence of them: a student and its teacher), by the layout
+    entering ``layer1`` (empty for models without one)."""
+    return sum((m.layouts for m in _trunks(models)), collections.Counter())
+
+
+def layout_line(models: Models, before: collections.Counter) -> str:
+    """The epoch line's trunk forwards by layout since ``before`` (a
+    ``layout_calls`` reading); empty for models without a ResNet."""
+    if not _trunks(models):
+        return ""
+    calls = layout_calls(models)
+    calls.subtract(before)
+    return "; trunk forwards " + (", ".join(f"{k} {v}" for k, v in sorted(calls.items())) or "none")

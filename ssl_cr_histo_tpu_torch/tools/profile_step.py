@@ -13,7 +13,8 @@ time (on the CPU: self CPU time), the port's spans a step (``span_times``:
 each ``port.`` span's host time and the card's idle time inside it) and
 the feed's and the step's counters, the consistency views kernel's
 launches (``ops/strong_views_kernel.py``) and, for a ViT, its attention
-calls by SDPA backend (``models/vit.py``) over the traced steps.
+calls by SDPA backend (``models/vit.py``), for a ResNet its forwards by the
+trunk's layout (``models/resnet.py``) over the traced steps.
 
     python3 -m ssl_cr_histo_tpu_torch.tools.profile_step --stage consistency --batch_size 16 \\
         --logdir TRACE_DIR [--multi_step 8] [--steps 16] [--device cpu]
@@ -166,6 +167,7 @@ def main(argv=None) -> dict:
     import torch
 
     from ssl_cr_histo_tpu_torch.cli.common import chunked_feed, counters_line
+    from ssl_cr_histo_tpu_torch.models.resnet import layout_calls, layout_line
     from ssl_cr_histo_tpu_torch.models.vit import attention_calls, attention_line
     from ssl_cr_histo_tpu_torch.ops import strong_views_kernel as SV
     from ssl_cr_histo_tpu_torch.utils.profiling import trace
@@ -185,6 +187,7 @@ def main(argv=None) -> dict:
         sync()
         before = set(glob.glob(os.path.join(args.logdir, "*.pt.trace.json")))
         counts, fed, views, attn = step.counts(), feed.counters.snapshot(), SV.launches, attention_calls(model)
+        layouts = layout_calls(model)
         with trace(args.logdir) as prof:
             t0 = time.perf_counter()
             left = args.steps
@@ -196,7 +199,7 @@ def main(argv=None) -> dict:
             float(m["loss"][n - 1])
             sync()  # the optimizer's update runs after the loss: wait for all of it
             dt = (time.perf_counter() - t0) / args.steps
-        counters = counters_line(feed, step, counts, fed) + attention_line(model, attn)
+        counters = counters_line(feed, step, counts, fed) + attention_line(model, attn) + layout_line(model, layouts)
         views = SV.launches - views
     finally:
         feed.close()

@@ -8,7 +8,11 @@ and no ``DistributedDataParallel``: see ``parallel.distributed``).
 A run from no checkpoint starts from each backbone's own initialisation,
 made when the modules are built: a ResNet's flax one (``models/resnet.py``,
 as the JAX package's), the ViT's timm one (``models/vit.py``); the heads
-start as flax's Dense (``resnet.lecun_normal_``)."""
+start as flax's Dense (``resnet.lecun_normal_``).
+
+A ResNet trunk put on a CUDA device takes the channels-last layout
+(``resnet.apply_device_layout``) before its optimizer, Lookahead's slow
+weights or a teacher copy it, so those take that layout too."""
 
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import Callable, Iterable, List
 import torch
 
 from ssl_cr_histo_tpu_torch.models import Classifier, FinetuneHead, TripletNet, feature_dim
+from ssl_cr_histo_tpu_torch.models.resnet import apply_device_layout
 from ssl_cr_histo_tpu_torch.parallel.distributed import broadcast_
 from ssl_cr_histo_tpu_torch.train import optim
 from ssl_cr_histo_tpu_torch.train.checkpoint import load_checkpoint
@@ -39,6 +44,7 @@ def init_triplet_state(model_name: str, device: torch.device, lr: float = 0.01,
     model = TripletNet(model_name, remat=remat).to(device)
     clf = Classifier(feature_dim(model_name), 6).to(device)
     _broadcast_modules(model, clf)
+    apply_device_layout(model)
     params = list(model.parameters()) + list(clf.parameters())
     opt = optim.sgd_nesterov(params, lr, momentum=0.9, weight_decay=weight_decay)
     return TrainState(model, clf, opt, slow=[p.detach().clone() for p in params])
@@ -63,6 +69,7 @@ def init_finetune_state(
     model = TripletNet(model_name, remat=remat).to(device)
     head = FinetuneHead(feature_dim(model_name), num_classes).to(device)
     _broadcast_modules(model, head)
+    apply_device_layout(model)
     freeze(model, modules)
     params = [p for p in model.parameters() if p.requires_grad] + list(head.parameters())
     opt = make_optimizer(params)
@@ -109,7 +116,7 @@ def init_serving_state(model_name: str, num_classes: int, device: torch.device, 
     restored state, ``cli/heatmap.py:57-66``)."""
     state = FinetuneState(TripletNet(model_name), FinetuneHead(feature_dim(model_name), num_classes), None, None)
     load_finetuned(state, path)
-    state.model.to(device).eval()
+    apply_device_layout(state.model.to(device)).eval()
     state.head.to(device).eval()
     return state
 

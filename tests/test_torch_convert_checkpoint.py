@@ -15,7 +15,10 @@ bit for bit, the converted weights' eval logits to the JAX model's within
 CLI from a directory to the same CLI from the directory's converted .pth
 bit for bit.  chip_smoke.py's writer of JAX checkpoints (phase 18, where
 the card's machine has no flax) is held to flax's own bytes and the JAX
-package's restore.
+package's restore.  A trunk in the card's channels-last layout
+(``models/resnet.py``) takes and gives the same values: the port's
+checkpoints round trip between the layouts, and a JAX checkpoint loads into
+either alike.
 """
 
 import contextlib
@@ -46,7 +49,14 @@ from ssl_cr_histo_tpu_torch.cli import convert_checkpoint as PC
 from ssl_cr_histo_tpu_torch.cli import heatmap as heatmap_cli
 from ssl_cr_histo_tpu_torch.models import Classifier, FinetuneHead, TripletNet, feature_dim
 from ssl_cr_histo_tpu_torch.tools import parity_run
-from ssl_cr_histo_tpu_torch.train.checkpoint import jax_to_reference, read_jax_checkpoint
+from ssl_cr_histo_tpu_torch.train.checkpoint import (
+    from_jax_params,
+    jax_to_reference,
+    read_jax_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from ssl_cr_histo_tpu_torch.train.init import init_triplet_state
 from ssl_cr_histo_tpu_torch.utils import flax_msgpack as F
 from torch_tmp import release, tmp_path  # noqa: F401  (a fixture)
 
@@ -441,6 +451,78 @@ def test_parity_run_takes_a_jax_directory(jax_dirs, tmp_path, monkeypatch):
         parity_run.main(["--task", "kather", "--pretrained", dirs["pretrain"], "--train_path", "t", "--test_path",
                          "t", "--out", str(tmp_path / "out.json"), "--workdir", str(tmp_path / "w")])
     assert seen == [dirs["pretrain"]]
+
+
+# --- the channels-last layout ---------------------------------------------------------
+
+
+def _stepped_state(seed: int, layout: torch.memory_format):
+    """A pretrain TrainState at 32^2 whose trunk weights and Lookahead slow
+    weights are laid out in ``layout`` (by hand, as the card's rule lays
+    them out), after one SGD step from seeded tiles, so that its momentum
+    buffers exist and take the parameters' layout."""
+    torch.manual_seed(seed)
+    state = init_triplet_state("resnet18", torch.device("cpu"))
+    state.model.to(memory_format=layout)
+    state.slow = [s.contiguous(memory_format=layout) if s.dim() == 4 else s for s in state.slow]
+    tiles = torch.rand(2, 3, 3, IMG, IMG, generator=torch.Generator().manual_seed(seed))
+    state.classifier(state.model.forward_joint(tiles)).logsumexp(1).mean().backward()
+    state.optimizer.step()
+    state.optimizer.zero_grad()
+    return state
+
+
+def _state_leaves(state) -> dict:
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    return {**{f"model.{k}": v for k, v in state.model.state_dict().items()},
+            **{f"classifier.{k}": v for k, v in state.classifier.state_dict().items()},
+            **{f"momentum.{i}": state.optimizer.state[p]["momentum_buffer"] for i, p in enumerate(params)},
+            **{f"slow.{i}": s for i, s in enumerate(state.slow)}}
+
+
+def test_checkpoint_round_trips_between_layouts(tmp_path):
+    """``save_checkpoint`` of a channels-last state restored into a fresh
+    NCHW state, and that state's checkpoint into a fresh channels-last one:
+    the parameters, BatchNorm buffers, momentum buffers and slow weights
+    equal bit for bit each way; the parameters and slow weights in the
+    layout of the state they were restored into (a momentum buffer keeps
+    the layout it was saved in)."""
+    cl = _stepped_state(0, torch.channels_last)
+    want = _state_leaves(cl)
+    save_checkpoint(str(tmp_path / "cl.pth"), cl, {"epoch": 1})
+    for i, layout in enumerate((torch.contiguous_format, torch.channels_last)):
+        state = _stepped_state(i + 1, layout)
+        restore_checkpoint(str(tmp_path / ("cl.pth" if i == 0 else "nchw.pth")), state)
+        got = _state_leaves(state)
+        assert set(got) == set(want) and sum(v.dim() == 4 for v in got.values()) == 3 * 20
+        for k, v in got.items():
+            assert torch.equal(v, want[k]), (layout, k)
+            assert v.dim() != 4 or k.startswith("momentum.") or v.is_contiguous(memory_format=layout), (layout, k)
+        save_checkpoint(str(tmp_path / "nchw.pth"), state, {"epoch": 1})
+
+
+def test_jax_params_load_alike_into_either_layout(jax_dirs):
+    """``from_jax_params`` of a JAX fine-tune directory loaded into an NCHW
+    and a channels-last TripletNet: the same state_dict bit for bit, the
+    channels-last trunk's weights staying channels-last, and eval features
+    within 1e-5 of the largest."""
+    dirs, _ = jax_dirs
+    tree, _ = read_jax_checkpoint(dirs["finetune"])
+    sd, _ = from_jax_params(tree["params"]["model"], tree["batch_stats"])
+    nets = [TripletNet("resnet18"), TripletNet("resnet18")]
+    nets[1].model.to(memory_format=torch.channels_last)
+    for net in nets:
+        net.load_state_dict(sd)
+        net.eval()
+    got = nets[1].state_dict()
+    for k, v in nets[0].state_dict().items():
+        assert torch.equal(got[k], v), k
+        assert got[k].dim() != 4 or got[k].is_contiguous(memory_format=torch.channels_last), k
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal((2, 3, IMG, IMG)).astype(np.float32))
+    with torch.no_grad():
+        want, feats = nets[0].encode_single(x), nets[1].encode_single(x)
+    np.testing.assert_allclose(feats.numpy(), want.numpy(), rtol=0, atol=1e-5 * want.abs().max().item())
+    assert nets[1].model.layouts == {"channels_last": 1}
 
 
 # --- chip_smoke.py's writer (phase 18) ----------------------------------------------

@@ -735,6 +735,107 @@ def test_profile_step_reads_the_prologue_span(cuda, tmp_path):
     assert spans["spans"]["port.feed.wait"]["calls"] == 2
 
 
+def _is_cl(t: torch.Tensor) -> bool:
+    """A 4-D tensor dense in channels-last (a 1x1 convolution's weight is
+    dense in both layouts)."""
+    return t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.cuda
+def test_states_on_the_card_hold_the_trunk_channels_last(cuda, tmp_path):
+    """The states ``train.init`` makes on the card: every 4-D parameter of
+    a ResNet trunk, its momentum (SGD) or moments (Adam) after a step,
+    Lookahead's slow weights, a teacher's and a serving state's weights
+    channels-last; UNI2-h's patch embedding NCHW."""
+    from ssl_cr_histo_tpu_torch.train import optim
+    from ssl_cr_histo_tpu_torch.train.checkpoint import save_checkpoint
+    from ssl_cr_histo_tpu_torch.train.init import (init_finetune_state, init_serving_state, init_teacher,
+                                                   init_triplet_state)
+
+    torch.manual_seed(0)
+    pre = init_triplet_state("resnet18", cuda)
+    fine = init_finetune_state("resnet50", 9, cuda, lambda ps: optim.adam(ps, 1e-4))
+    x = torch.rand(2, 3, 3, 64, 64, device=cuda, generator=torch.Generator(device=cuda).manual_seed(3))
+    pre.classifier(pre.model.forward_joint(x)).sum().backward()
+    fine.head(fine.model.encode_single(x[:, 0])).sum().backward()
+    pre.optimizer.step()
+    fine.optimizer.step()
+    convs = lambda net: [p for p in net.model.parameters() if p.dim() == 4]  # noqa: E731
+    for state, buffers in ((pre, ("momentum_buffer",)), (fine, ("exp_avg", "exp_avg_sq"))):
+        assert len(convs(state.model)) in (20, 53)
+        for p in convs(state.model):
+            assert _is_cl(p) and all(_is_cl(state.optimizer.state[p][b]) for b in buffers)
+    assert sum(_is_cl(s) for s in pre.slow) == 20 and all(s.dim() != 4 or _is_cl(s) for s in pre.slow)
+    assert all(_is_cl(p) for p in convs(init_teacher(fine).model))
+    save_checkpoint(str(tmp_path / "fine.pth"), fine, {"epoch": 1})
+    assert all(_is_cl(p) for p in convs(init_serving_state("resnet50", 9, cuda, str(tmp_path / "fine.pth")).model))
+    with torch.device(cuda):
+        uni = init_finetune_state("uni2h", 9, cuda, lambda ps: optim.adam(ps, 1e-5))
+    (w,) = [p for p in uni.model.parameters() if p.dim() == 4]
+    assert w.is_contiguous() and not w.is_contiguous(memory_format=torch.channels_last)
+
+
+def _pretrain_followed(cuda, monkeypatch, channels_last: bool) -> tuple:
+    """resnet18's pretrain step at the benchmark's 64 triplets of 256^2,
+    bf16, as the window runs it (a StepGraph at K = 3: the first step
+    eager, then two graph replays) on seeded uint8 tiles, the trunk in the
+    card's channels-last layout or forced to NCHW: ({'loss': the three
+    losses, 'grad': each leaf's first gradient norm, read from SGD's
+    momentum, 'update': each leaf's change over the three steps}, the
+    trunk)."""
+    from ssl_cr_histo_tpu_torch.parallel import steps as S
+    from ssl_cr_histo_tpu_torch.train import init as I
+
+    if not channels_last:
+        monkeypatch.setattr(I, "apply_device_layout", lambda m: m)
+    torch.manual_seed(0)
+    state = I.init_triplet_state("resnet18", cuda, lr=0.01, weight_decay=1e-4)
+    monkeypatch.undo()
+    params = {**{f"net.{k}": p for k, p in state.model.named_parameters()},
+              **{f"clf.{k}": p for k, p in state.classifier.named_parameters()}}
+    start = {k: p.detach().clone() for k, p in params.items()}
+    runner = S.make_pretrain_multi_step(state, torch.Generator(device=cuda).manual_seed(1), 3,
+                                        host_gen=torch.Generator().manual_seed(2), joint_encode=True, bf16=True,
+                                        global_batch=64)
+    tiles = torch.randint(0, 256, (3, 64, 3, 256, 256, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(5)).to(cuda)
+    first = runner.run((tiles,), 1)
+    grad = {k: state.optimizer.state[p]["momentum_buffer"].norm().item() for k, p in params.items()}
+    rest = runner.run((tiles.roll(-1, 0),), 2)
+    torch.cuda.synchronize()
+    counts = runner.counts()
+    assert (counts["eager_steps"], counts["replays"]) == (1, 2)
+    out = {"loss": [float(first["loss"][0]), float(rest["loss"][0]), float(rest["loss"][1])], "grad": grad,
+           "update": {k: (p.detach() - start[k]).norm().item() for k, p in params.items()}}
+    return out, state.model.model
+
+
+@pytest.mark.cuda
+def test_channels_last_pretrain_step_matches_nchw(cuda, monkeypatch):
+    """The bf16 pretrain step with the trunk channels-last (the card's
+    layout) against the same step with the trunk forced to NCHW, read as
+    the benchmark reads ``pretrain.resnet18``'s program against its
+    reference (``port_bench/compare.py``): within that cell's compared
+    limits (``port_bench/limits/pretrain.resnet18.json``; its
+    ``feed_mismatch`` is the benchmark's own reading of the slides); the
+    losses within 1%; each trunk counted in its layout (the eager step and
+    the capture)."""
+    import json
+    import os
+
+    from port_bench.compare import training_gaps, verdict
+
+    cl, cl_trunk = _pretrain_followed(cuda, monkeypatch, True)
+    nchw, nchw_trunk = _pretrain_followed(cuda, monkeypatch, False)
+    assert cl_trunk.layouts == {"channels_last": 2} and nchw_trunk.layouts == {"contiguous": 2}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "port_bench", "limits", "pretrain.resnet18.json")) as f:
+        limits = {k: v for k, v in json.load(f).items() if k != "feed_mismatch"}
+    ok, rows = verdict(training_gaps(cl, nchw), limits)
+    assert ok, rows
+    np.testing.assert_allclose(cl["loss"], nchw["loss"], rtol=1e-2)
+
+
 @pytest.mark.cuda
 def test_step_graph_capture_failure_raises(cuda):
     """A step whose device work reads the card from the host cannot be
@@ -768,3 +869,4 @@ def test_gloo_world_on_cuda_refuses_multi_step(cuda, monkeypatch):
     assert not S.StepGraph("pretrain", noop, None, noop, noop, 1, cuda).graphed
     backend["name"] = "nccl"
     assert S.StepGraph("pretrain", noop, None, noop, noop, 8, cuda).graphed
+

@@ -93,6 +93,8 @@ def _bundle_inputs(out_dir: str) -> dict:
         "consistency": {"seed": 5, "host_seed": 0, "x_l": u8(2, 2, IMG, IMG, 3), "y_l": rng.integers(0, 9, (2, 2)),
                         "x_u": u8(2, 4, IMG, IMG, 3)},
         "pretrain": {"seed": 7, "tiles": u8(4, 3, IMG, IMG, 3)},
+        "global_bn": {"x": torch.from_numpy(rng.normal(1.0, 2.0, (8, 16, 6, 5))),
+                      "dy": torch.from_numpy(rng.normal(size=(8, 16, 6, 5)))},
     }
 
 
@@ -254,6 +256,37 @@ def test_pretrain_step_matches_one_process(bundle):
     for k in ("loss", "acc"):
         np.testing.assert_allclose(got["metrics"][k], want["metrics"][k], rtol=1e-5, err_msg=k)
     _assert_state_close(got, want, "pretrain")
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last"])
+def test_global_batchnorm_on_two_processes(bundle, layout):
+    """``GlobalBatchNorm2d`` on two processes of four rows each, float64,
+    in NCHW and in channels-last: the output and the input gradient,
+    gathered in rank order, and the running statistics against
+    ``nn.BatchNorm2d`` on the global batch in one process (within 1e-12 of
+    the largest entry; the batch count equal), the output and gradient
+    in the input's layout, and the channels-last case equal to the NCHW
+    one within the same bound."""
+    results, inp = bundle
+    case = inp["global_bn"]
+    bn = torch.nn.BatchNorm2d(16).double()
+    x = case["x"].clone().requires_grad_()
+    y = bn(x)
+    y.backward(case["dy"])
+    got = [r["global_bn"][layout] for r in results]
+    close = lambda a, b, what: np.testing.assert_allclose(  # noqa: E731
+        a.numpy(), b.numpy(), rtol=0, atol=1e-12 * b.abs().max().item(), err_msg=f"{layout} {what}")
+    close(torch.cat([g["y"] for g in got]), y.detach(), "output")
+    close(torch.cat([g["dx"] for g in got]), x.grad, "input gradient")
+    for g in got:
+        for k in ("running_mean", "running_var"):
+            close(g[k], getattr(bn, k), k)
+        assert torch.equal(g["num_batches_tracked"], bn.num_batches_tracked)
+        assert g["y_layout"] == g["dx_layout"] == layout
+    for r in results:
+        want, cl = r["global_bn"]["contiguous"], r["global_bn"]["channels_last"]
+        for k in ("y", "dx", "running_mean", "running_var"):
+            close(cl[k], want[k], f"{k} against NCHW")
 
 
 def test_remat_under_two_processes_leaves_the_state_of_the_plain_step(bundle):

@@ -97,7 +97,7 @@ def test_chunk_batches_matches_jax(n, tupled):
     batches = [rng.integers(0, 256, (4, 5, 5, 3), dtype=np.uint8) for _ in range(n)]
     if tupled:
         batches = [(b, rng.integers(0, 9, 4)) for b in batches]
-    got = [TP.stack_chunk(group, K) for group in TP.batch_groups(iter(batches), K)]
+    got = [TP.stack_chunk(group, K, _buffers(group, 0)) for group in TP.batch_groups(iter(batches), K)]
     want = list(JP.chunk_batches(iter(batches), K))
     assert len(got) == len(want) == -(-n // K)
     for (g, gv), (w, wv) in zip(got, want, strict=True):
@@ -107,6 +107,30 @@ def test_chunk_batches_matches_jax(n, tupled):
             assert ga.dtype == wa.dtype and ga.shape == wa.shape
             np.testing.assert_array_equal(ga, wa)
     assert got[-1][1].sum() == n - K * (len(got) - 1)
+
+
+def _buffers(group, fill):
+    """(K, ...) arrays for each array of ``group``'s batches, filled with
+    ``fill``: the feed's buffers, as a previous chunk may have left them."""
+    return [np.full((K, *a.shape), fill, a.dtype) for a in group[0]]
+
+
+@pytest.mark.parametrize("n", [K, K - 1], ids=["full", "partial"])
+def test_stack_chunk_into_given_buffers(n):
+    """``stack_chunk`` stacks into the given arrays (the feed's pinned
+    buffers), whatever they held, and returns them: buffers a previous
+    chunk filled give what zeroed ones give, a partial chunk's rows
+    zeroed."""
+    rng = np.random.default_rng(n)
+    group = [(rng.integers(0, 256, (4, 5, 5, 3), dtype=np.uint8), rng.integers(0, 9, 4)) for _ in range(n)]
+    out = _buffers(group, 255)
+    (x, y), valid = TP.stack_chunk(group, K, out)
+    (wx, wy), wvalid = TP.stack_chunk(group, K, _buffers(group, 0))
+    assert x is out[0] and y is out[1]
+    np.testing.assert_array_equal(valid, wvalid)
+    np.testing.assert_array_equal(x, wx)
+    np.testing.assert_array_equal(y, wy)
+    assert not x[n:].any() and not y[n:].any()
 
 
 def test_chunked_feed_yields_each_batch_once_in_order():

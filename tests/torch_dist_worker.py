@@ -169,10 +169,30 @@ def _primitives(inp: dict, out_dir: str) -> dict:
     return res
 
 
+def global_bn(inp: dict) -> dict:
+    """``GlobalBatchNorm2d`` in train mode on this process's rows of the
+    global batch ``inp['x']``, in each layout (``contiguous``: NCHW,
+    ``channels_last``), the backward fed this process's rows of
+    ``inp['dy']``: {layout: its output, running statistics and batch
+    count, input gradient, and the layouts of the output and the
+    gradient}."""
+    out = {}
+    for layout, fmt in (("contiguous", torch.contiguous_format), ("channels_last", torch.channels_last)):
+        bn = resnet.GlobalBatchNorm2d(inp["x"].shape[1]).double()
+        x = D.local_rows(inp["x"]).contiguous(memory_format=fmt).requires_grad_()
+        y = bn(x)
+        y.backward(D.local_rows(inp["dy"]).contiguous(memory_format=fmt))
+        out[layout] = {"y": y.detach(), "running_mean": bn.running_mean, "running_var": bn.running_var,
+                       "num_batches_tracked": bn.num_batches_tracked, "dx": x.grad,
+                       "y_layout": resnet.layout_name(y), "dx_layout": resnet.layout_name(x.grad)}
+    return out
+
+
 def bundle2(inp: dict) -> dict:
     """Everything test_torch_distributed.py runs on two processes."""
     return {
         "primitives": _primitives(inp, inp["out_dir"]),
+        "global_bn": global_bn(inp["global_bn"]),
         "finetune": finetune_steps(inp["finetune"]),
         "consistency": consistency_steps(inp["consistency"]),
         "pretrain": pretrain_steps(inp["pretrain"]),
