@@ -9,9 +9,9 @@ mode, v2 pretraining, --reference_exact and --remat, the pretrain CLI and
 step across processes (a world of one over NCCL, of two over gloo on the
 one card), the three tasks' full recipes at the config of record held to
 their quality bands, the label-efficiency protocol's dryrun, the step
-profiler and the label-efficiency gate, runs the bench tools, carries
-checkpoints of the JAX package's format to the port's CLIs, and times the
-steps, the serving forward, evaluation and the kernels.
+profiler and the label-efficiency gate, carries checkpoints of the JAX
+package's format to the port's CLIs, and times the steps, the serving
+forward, evaluation and the kernels.
 
     python3 chip_smoke.py                    # from the root of a checkout, on a GPU machine
     python3 chip_smoke.py --profile DIR      # also write torch.profiler tables of the steps, phase 14's trace
@@ -233,21 +233,8 @@ Phases (any failure exits non-zero and prints no result line):
      Lookahead, step, generators, meta), and phase 12's NCCL world-1 run at
      8 bit-equal to the plain run at 1; the K = 8 pretrain run traced:
      ``rsp_augment_kernel`` once a step inside the graph, one graph launch
-     a step after the first; then each path's step at K = 8 against K = 1
-     in turns: CUDA-event ms a step, the host's wall, the card's busy share
-     and the host's launch calls a step
- 17. the bench tools (``phase_bench``, ``ssl_cr_histo_tpu_torch.tools``):
-     ``reference_baseline`` (the reference's CPU augmentation pool on this
-     host, into a temporary file), ``bench.main`` (``measure_pretrain`` at
-     the config of record, K = 8, 1 + 3 chunks; its JSON line with
-     ``vs_baseline`` against that file), ``bench_suite.main`` into a
-     temporary file (a first run, no bands: pretrain, Camelyon16 CR fused
-     and fast, Kather fine-tune, the serving forward) and
-     ``bench_scaling.main`` (resnet18 at 64, 128, 256 and resnet50 at 64,
-     128 triplets, K = 4, each config a process of its own); every metric
-     finite and positive, no FAILED row; the fused kernel launched 32 times
-     by each pretrain measurement, 16 by each scaling config and never by
-     the other measurements, the chain kernel never
+     a step after the first
+ 17. (no phase: the port's throughput is measured by ``port_bench``)
  18. checkpoints the JAX package trained (``phase_jax_checkpoint``): phase
      5's pretrain ``ckpt_1.pth`` (SGD-Nesterov, Lookahead, a Classifier)
      and phase 9's Camelyon16 fine-tune ``best.pth`` (Adam, a 2-way head)
@@ -272,8 +259,8 @@ Phases (any failure exits non-zero and prints no result line):
      ``launches_by_path`` adds phase 7's two consistency paths, each CLI
      path of phases 10 and 11, each process of phase 12's paths, each stage of
      phase 13's recipes and phase 14's dryruns, ``profile_step`` and each
-     gate of phase 15, each run of phase 16, each measurement of phase 17
-     and each CLI run of phase 18, each counted from 0
+     gate of phase 15, each run of phase 16 and each CLI run of phase 18,
+     each counted from 0
 
 Imports nothing of JAX and nothing of the JAX package.  Tolerance 1e-4
 (phases 3-4) on outputs in [0, 1]: the kernels and PyTorch's CUDA ops
@@ -3041,9 +3028,6 @@ def phase_quality_gate(torch, tmp: str, reports: str, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 MULTI_STEP = 8
-# The host's calls that put work on the card's queue (a graph launch is one)
-LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
-                "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
 def tree_leaves(tree, path: str = ""):
@@ -3081,101 +3065,6 @@ def checkpoint_diff(torch, path_a: str, path_b: str) -> tuple:
     return diff, gap, len(a)
 
 
-def chunk_figures(torch, run, profiled: bool) -> dict:
-    """``run(n)`` runs n train steps.  One chunk of ``MULTI_STEP`` steps:
-    its CUDA-event ms a step and the host's wall ms a step (to a
-    synchronize); with ``profiled``, then 2 steps traced: the card's busy
-    share (its kernel and copy time a step over the unprofiled wall a step)
-    and the host's calls that put work on the card, a step."""
-    from torch.profiler import ProfilerActivity, profile
-
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    run(MULTI_STEP)
-    end.record()
-    torch.cuda.synchronize()
-    out = {"event_ms": start.elapsed_time(end) / MULTI_STEP, "wall_ms": (time.perf_counter() - t0) * 1e3 / MULTI_STEP}
-    if profiled:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run(2)
-            torch.cuda.synchronize()
-        device = sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / 2
-        out.update(busy=device / out["wall_ms"],
-                   launches=sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS) / 2)
-    return out
-
-
-def multi_step_runners(torch, dev, path: str, k: int):
-    """A fresh state's StepGraph of ``path`` at the config of record, K
-    steps a chunk, and one chunk of K seeded batches on the card."""
-    from ssl_cr_histo_tpu_torch.cli.common import TASKS, make_optimizer
-    from ssl_cr_histo_tpu_torch.parallel import steps as S
-    from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_teacher, init_triplet_state
-
-    torch.manual_seed(0)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    u8 = lambda *shape: torch.randint(0, 256, shape, dtype=torch.uint8, generator=gen, device=dev)  # noqa: E731
-    n = MULTI_STEP
-    if path == "pretrain":
-        state = init_triplet_state("resnet18", dev)
-        return S.make_pretrain_multi_step(state, gen, k, bf16=True, global_batch=64), (u8(n, 64, 3, 256, 256, 3),)
-    cfg = TASKS["camelyon16" if path.startswith("camelyon16") else "kather"]
-    size, classes = cfg.image_size, cfg.num_classes
-    labels = lambda b: torch.randint(0, classes, (n, b), generator=gen, device=dev)  # noqa: E731
-    state = init_finetune_state("resnet18", classes, dev, lambda ps: make_optimizer(cfg.optimizer, ps, cfg.lr),
-                                modules=60 if "consistency" in path else 0, milestones_steps=[30 * 4, 60 * 4])
-    if path.endswith("finetune"):
-        b = cfg.rows_per_step(cfg.batch_size)
-        return S.make_finetune_multi_step(state, gen, k, cfg.task, bf16=True), (u8(n, b, size, size, 3), labels(b))
-    b = cfg.cr_batch
-    runner = S.make_consistency_multi_step(state, init_teacher(state), gen, k, cfg.task, n_aug=7,
-                                           host_gen=torch.Generator().manual_seed(1),
-                                           aug_mode=path.rsplit("_", 1)[1], bf16=True)
-    return runner, (u8(n, b, size, size, 3), labels(b), u8(n, 7 * b, size, size, 3))
-
-
-def phase_multi_step_timing(torch, dev, card: str) -> dict:
-    """Phase 16's timings: each path's StepGraph at K = 8 against K = 1
-    (eager steps, one a chunk of one) on chunks of 8 seeded batches on the
-    card, each runner warmed by one chunk (its eager first step and, at K =
-    8, the capture), then one chunk each in turns K = 1, 8, 8, 1
-    (``chunk_figures``, traced in each K's first turn)."""
-    import numpy as np
-
-    out = {}
-    for path in ("pretrain", "kather_finetune", "kather_consistency_fused", "kather_consistency_masked",
-                 "camelyon16_finetune"):
-        runs = {}
-        for k in (1, MULTI_STEP):
-            runner, chunk = multi_step_runners(torch, dev, path, k)
-            if k == 1:
-                run = lambda n, r=runner, c=chunk: [r.run(tuple(x[i:i + 1] for x in c), 1) for i in range(n)]
-            else:
-                run = lambda n, r=runner, c=chunk: r.run(c, n)
-            run(MULTI_STEP)
-            torch.cuda.synchronize()
-            check(runner.graphed == (k > 1) and (k == 1 or runner.graph is not None),
-                  f"phase 16: {path} K={k}: graphed {runner.graphed}")
-            runs[k] = run
-        figs = {1: [], MULTI_STEP: []}
-        for k in (1, MULTI_STEP, MULTI_STEP, 1):
-            figs[k].append(chunk_figures(torch, runs[k], profiled=not figs[k]))
-        del runs, runner, chunk
-        torch.cuda.empty_cache()
-        out[path] = figs
-        a, b = figs[1], figs[MULTI_STEP]
-        ms = lambda fs, key: ", ".join(f"{f[key]:.3f}" for f in fs)  # noqa: E731
-        med = lambda fs: float(np.median([f["event_ms"] for f in fs]))  # noqa: E731
-        print(f"phase 16: {path} step, K = 1 against K = {MULTI_STEP} (chunks in turns 1, 8, 8, 1): CUDA-event time "
-              f"{ms(a, 'event_ms')} against {ms(b, 'event_ms')} ms a step (median over the chunks {med(a):.3f} "
-              f"against {med(b):.3f}); host wall "
-              f"{ms(a, 'wall_ms')} against {ms(b, 'wall_ms')} ms a step; busy {a[0]['busy'] * 100:.1f}% against "
-              f"{b[0]['busy'] * 100:.1f}%; the host's launch calls a step {a[0]['launches']:.1f} against "
-              f"{b[0]['launches']:.1f} [{card}]", flush=True)
-    return out
-
-
 def phase_multi_step(torch, tmp: str, slides: str, nccl_world1_run: str, card: str, profile_dir: str) -> dict:
     """Phase 16: ``--multi_step``, the stage CLIs' default of K = 8 train
     steps a chunk, each step after a run's first a replay of one captured
@@ -3194,8 +3083,7 @@ def phase_multi_step(torch, tmp: str, slides: str, nccl_world1_run: str, card: s
     step's kernels on the same tensors.  Then phase 12's NCCL world-1
     pretrain CLI run (``torch.distributed.run --nproc_per_node 1``, the
     same argv at the default of 8) ``nccl_world1_run``, bit-equal to the
-    plain run at 1.  Then ``phase_multi_step_timing``.  Returns each run's
-    launches."""
+    plain run at 1.  Returns each run's launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from ssl_cr_histo_tpu_torch.cli import consistency, finetune, pretrain
@@ -3278,82 +3166,7 @@ def phase_multi_step(torch, tmp: str, slides: str, nccl_world1_run: str, card: s
                     f"the plain run's at 1 in {diff[:6]}, largest gap {gap:.3e}")
     print(f"phase 16: phase 12's NCCL world-1 pretrain CLI run at --multi_step {MULTI_STEP}: ckpt_1.pth bit-equal to "
           f"the plain run's at 1 in all {count} leaves [{card}]", flush=True)
-    phase_multi_step_timing(torch, torch.device("cuda"), card)
     print(f"phase 16: {time.time() - t_phase:.1f} s [{card}]", flush=True)
-    return launches
-
-
-# fused-kernel launches of one call of ``tools.bench.measure_pretrain`` at K =
-# 8 (a warm-up chunk and 3 timed ones) and of one scaling config at K = 4 (a
-# warm-up chunk and 3 timed ones): one a step, eager or replayed
-BENCH_LAUNCHES = (1 + 3) * 8
-SCALING_LAUNCHES = (1 + 3) * 4
-
-
-def phase_bench(torch, tmp: str, card: str) -> dict:
-    """Phase 17: the port's bench tools (``ssl_cr_histo_tpu_torch.tools``),
-    each counted from 0: ``reference_baseline`` into a temporary ``--out``
-    (the reference's CPU augmentation on this host); ``bench.main``
-    (``measure_pretrain`` at the config of record, its JSON line with
-    ``vs_baseline`` against that file and ``vs_committed`` against the
-    committed suite artifact); ``bench_suite.main`` into a temporary
-    ``--out`` (a first run: no bands); ``bench_scaling.main``, five configs
-    in processes of their own.  Every metric finite and positive; the fused
-    kernel launched ``BENCH_LAUNCHES`` times by the pretrain measurement,
-    ``SCALING_LAUNCHES`` by each scaling config and never by the other
-    measurements, the strong views kernel ``BENCH_LAUNCHES`` times by each
-    consistency measurement and never by another, the chain kernel never.
-    Returns each one's launches."""
-    from ssl_cr_histo_tpu_torch.tools import bench, bench_scaling, bench_suite, reference_baseline
-
-    t_phase = time.time()
-    fused = lambda n, views=0: {"photometric_chain": 0, "rsp_augment": n, "strong_views": views}  # noqa: E731
-    positive = lambda v: isinstance(v, (int, float)) and math.isfinite(v) and v > 0  # noqa: E731
-    launches = {}
-
-    baseline_path = os.path.join(tmp, "baseline_local.json")
-    with contextlib.redirect_stdout(io.StringIO()):
-        baseline = reference_baseline.main(["--out", baseline_path])
-    rate = baseline["reference_aug_patches_per_sec"]
-    check(positive(rate), f"phase 17: the reference augmentation's rate is {rate}")
-    print(f"phase 17: reference_baseline: {rate} patches/s ({baseline['per_triplet_seconds_single_worker']} s a "
-          f"triplet on one process x {baseline['assumed_workers']} workers) on {baseline['host_cpu']}, "
-          f"{baseline['host_cpu_count']} cores [{card}]", flush=True)
-
-    reset_launches()
-    line = bench.main(["--baseline", baseline_path])
-    n = launches["bench"] = launch_counts()
-    check(positive(line["value"]) and positive(line["vs_baseline"]),
-          f"phase 17: bench printed {json.dumps({k: v for k, v in line.items() if k != 'measured'})}")
-    check(n == fused(BENCH_LAUNCHES) == line["measured"]["launches"],
-          f"phase 17: bench.measure_pretrain launched {n}, want {fused(BENCH_LAUNCHES)}")
-    print(f"phase 17: bench: {line['measured']['ms_per_step']} ms a step, {line['value']} patches/s, vs_baseline "
-          f"{line['vs_baseline']}, vs_committed {line.get('vs_committed')}; launches {n} [{card}]", flush=True)
-
-    reset_launches()
-    report = bench_suite.main(["--out", os.path.join(tmp, "bench_suite.json")])
-    check(report["violations"] == [] and len(report["results"]) == 5, f"phase 17: bench_suite reported {report}")
-    for r in report["results"]:
-        want = fused(BENCH_LAUNCHES if r["metric"] == "rsp_pretrain_aug_patches_per_sec_per_chip" else 0,
-                     BENCH_LAUNCHES if r["metric"].startswith("cr_step_") else 0)
-        launches[f"bench_suite_{r['metric']}"] = r["launches"]
-        check(positive(r["value"]) and positive(r["ms_per_step"]) and r["launches"] == want,
-              f"phase 17: bench_suite {r['metric']}: {r['value']}, launches {r['launches']}, want {want}")
-        print(f"phase 17: bench_suite {r['metric']}: {r['value']} {r['unit']}, {r['ms_per_step']} ms a step "
-              f"({r['config']}); launches {r['launches']} [{card}]", flush=True)
-    check(launch_counts() == fused(BENCH_LAUNCHES, 2 * BENCH_LAUNCHES),
-          f"phase 17: the suite launched {launch_counts()}")
-
-    rows = bench_scaling.main([])
-    check(len(rows) == len(bench_scaling.CONFIGS), f"phase 17: bench_scaling gave {len(rows)} rows")
-    for r in rows:
-        launches[f"bench_scaling_{r['model']}_b{r['batch']}"] = r["launches"]
-        ok = positive(r["ms_per_step"]) and positive(r["patches_per_sec"])
-        check(ok and r["launches"] == fused(SCALING_LAUNCHES),
-              f"phase 17: bench_scaling {r}: want launches {fused(SCALING_LAUNCHES)}")
-        print(f"phase 17: bench_scaling {bench_scaling.row(r)}; launches {r['launches']} [{r['platform']}]",
-              flush=True)
-    print(f"phase 17: {time.time() - t_phase:.1f} s [{card}]", flush=True)
     return launches
 
 
@@ -3797,9 +3610,6 @@ def main() -> int:
 
         # phase 16: --multi_step, K train steps a chunk as CUDA-graph replays
         by_path.update(phase_multi_step(torch, tmp, slides, by_path.pop("_nccl_world1_run"), card, opts.profile))
-
-        # phase 17: the bench tools
-        by_path.update(phase_bench(torch, tmp, card))
 
         # phase 18: checkpoints the JAX package trained, carried to the port
         by_path.update(phase_jax_checkpoint(torch, dev, tmp, os.path.join(run, "ckpt_1.pth"),

@@ -37,6 +37,7 @@ import torch
 from ssl_cr_histo_tpu_torch.data.pipeline import (FeedCounters, batch_groups, prefetch_iter, prefetch_to_device,
                                                   stack_chunk, timed)
 from ssl_cr_histo_tpu_torch.models import MODEL_NAMES
+from ssl_cr_histo_tpu_torch.models.nets import counters_since, read_counters
 from ssl_cr_histo_tpu_torch.ops.batch import AUG_MODES
 from ssl_cr_histo_tpu_torch.parallel import distributed
 from ssl_cr_histo_tpu_torch.train import optim
@@ -258,8 +259,8 @@ def resume_training(args, state, best, generators: Generators) -> tuple:
 
 class Feed:
     """``chunked_feed``'s iterator of (chunk, valid steps), with the feed's
-    ``counters`` (``data.pipeline.FeedCounters``): a caller reads
-    ``counters.snapshot()`` before and after a stretch of steps."""
+    ``counters`` (``data.pipeline.FeedCounters``), which ``StretchCounters``
+    reads before and after a stretch of steps."""
 
     def __init__(self, chunks, counters: FeedCounters):
         self.chunks, self.counters = chunks, counters
@@ -326,14 +327,27 @@ def _stacked_chunks(device, k, sources, counters):
         yield tuple(t.to(device, non_blocking=pinned) for t in ts), n
 
 
-def counters_line(feed: Feed, step, before: dict, feed_before: dict | None = None) -> str:
-    """The epoch line's read of the feed's counters and of the step's
-    (``parallel.steps.StepGraph.counts()``), less ``before`` and
-    ``feed_before``, their values at the stretch's start (a feed made for
-    the stretch counts from zero)."""
-    f = feed.counters.snapshot()
-    f = {key: v - (feed_before or {}).get(key, 0) for key, v in f.items()}
-    s = {key: v - before[key] for key, v in step.counts().items()}
-    return (f"feed starved {f['starved_s']:.3f} s in {f['starved']} waits, read {f['read_s']:.3f} s, "
-            f"pin {f['pin_s']:.3f} s; step {s['eager_steps']} eager, {s['replays']} replays, "
-            f"{s['captures']} captures ({s['capture_s']:.3f} s)")
+class StretchCounters:
+    """The one reader of the epoch line's counters over a stretch of steps.
+    Made at the stretch's start, it reads then the feed's counters
+    (``Feed.counters``), the step's (``parallel.steps.StepGraph.counts()``)
+    and those the ``models`` keep (``models.nets.read_counters``: a student
+    and its teacher summed); ``line()`` gives what each has counted since."""
+
+    def __init__(self, feed: Feed, step, *models):
+        self.feed, self.step, self.models = feed, step, models
+        self.feed_before, self.step_before = feed.counters.snapshot(), step.counts()
+        self.models_before = read_counters(models)
+
+    def feed_moved(self) -> dict:
+        return {key: v - self.feed_before[key] for key, v in self.feed.counters.snapshot().items()}
+
+    def step_moved(self) -> dict:
+        return {key: v - self.step_before[key] for key, v in self.step.counts().items()}
+
+    def line(self) -> str:
+        f, s = self.feed_moved(), self.step_moved()
+        return (f"feed starved {f['starved_s']:.3f} s in {f['starved']} waits, read {f['read_s']:.3f} s, "
+                f"pin {f['pin_s']:.3f} s; step {s['eager_steps']} eager, {s['replays']} replays, "
+                f"{s['captures']} captures ({s['capture_s']:.3f} s)"
+                + counters_since(self.models, self.models_before))

@@ -57,12 +57,12 @@ import torch
 from ssl_cr_histo_tpu_torch.cli.common import (
     CHECKPOINT_HELP,
     TASKS,
+    StretchCounters,
     add_common_args,
     add_multi_step_arg,
     apply_reference_exact,
     apply_task_overrides,
     chunked_feed,
-    counters_line,
     make_optimizer,
     resolve_device,
     resume_training,
@@ -76,7 +76,6 @@ from ssl_cr_histo_tpu_torch.cli.finetune import (
     train_batches,
     validate,
 )
-from ssl_cr_histo_tpu_torch.models.resnet import layout_calls, layout_line
 from ssl_cr_histo_tpu_torch.parallel import steps as S
 from ssl_cr_histo_tpu_torch.parallel.mesh import rows_for_batch
 from ssl_cr_histo_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
@@ -221,8 +220,8 @@ def run(args, cfg, labeled, train, val) -> FinetuneState:
         unlab_it = ((imgs,) for imgs, _ in train_batches(cfg, train, batch_size * args.mu,
                                                          1000 + args.seed + epoch))
         bi = 0
-        feed, before = chunked_feed(device, args.multi_step, lab_it, unlab_it), step.counts()
-        layouts = layout_calls((state.model, teacher.model))
+        feed = chunked_feed(device, args.multi_step, lab_it, unlab_it)
+        stretch = StretchCounters(feed, step, state.model, teacher.model)
         for chunk, n_valid in feed:
             ms = step.run(chunk, n_valid)
             for i in range(n_valid):
@@ -234,7 +233,7 @@ def run(args, cfg, labeled, train, val) -> FinetuneState:
         if args.ema == 0:
             S.refresh_teacher(teacher, state)
         train_loss, sup_loss, cons_loss = (sums / max(seen, 1)).tolist()
-        counters = counters_line(feed, step, before) + layout_line((state.model, teacher.model), layouts)
+        counters = stretch.line()
 
         val_metric = validate(cfg, state, val, args.eval_batch_size, device, bf16=args.bf16)
         log.append(epoch, train_loss, sup_loss, cons_loss, val_metric)

@@ -59,13 +59,13 @@ import torch
 from ssl_cr_histo_tpu_torch.cli.common import (
     CHECKPOINT_HELP,
     TASKS,
+    StretchCounters,
     add_common_args,
     add_multi_step_arg,
     apply_reference_exact,
     apply_task_overrides,
     balanced_epoch_len,
     chunked_feed,
-    counters_line,
     make_optimizer,
     resolve_device,
     resume_training,
@@ -75,8 +75,6 @@ from ssl_cr_histo_tpu_torch.data import datasets as D
 from ssl_cr_histo_tpu_torch.data.pipeline import balanced_batch_iterator, pad_batches, prefetch_to_device
 from ssl_cr_histo_tpu_torch.eval import metrics as M
 from ssl_cr_histo_tpu_torch.eval import reporting as RP
-from ssl_cr_histo_tpu_torch.models.resnet import layout_calls, layout_line
-from ssl_cr_histo_tpu_torch.models.vit import attention_calls, attention_line
 from ssl_cr_histo_tpu_torch.parallel.distributed import fetch_global, is_primary, process_count
 from ssl_cr_histo_tpu_torch.parallel import steps as S
 from ssl_cr_histo_tpu_torch.parallel.mesh import rows_for_batch
@@ -370,8 +368,8 @@ def run(args, cfg, train, val) -> FinetuneState:
         loss_sum = torch.zeros((), device=device)
         seen = bi = 0
         batches = train_batches(cfg, train, batch_size, args.seed + epoch)
-        feed, before = chunked_feed(device, args.multi_step, batches), step.counts()
-        attn, layouts = attention_calls(state.model), layout_calls(state.model)
+        feed = chunked_feed(device, args.multi_step, batches)
+        stretch = StretchCounters(feed, step, state.model)
         for chunk, n_valid in feed:
             ms = step.run(chunk, n_valid)
             for i in range(n_valid):
@@ -381,8 +379,7 @@ def run(args, cfg, train, val) -> FinetuneState:
                 if bi % args.print_freq == 0:
                     print(f"Train: [{epoch}][{bi}] loss {float(ms['loss'][i]):.4f} ({float(loss_sum) / seen:.4f})")
         train_loss = float(loss_sum) / max(seen, 1)
-        counters = (counters_line(feed, step, before) + attention_line(state.model, attn)
-                    + layout_line(state.model, layouts))
+        counters = stretch.line()
 
         val_metric = validate(cfg, state, val, args.eval_batch_size, device, bf16=args.bf16)
         log.append(epoch, train_loss, val_metric)

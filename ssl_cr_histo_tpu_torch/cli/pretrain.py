@@ -45,18 +45,17 @@ import numpy as np
 import torch
 
 from ssl_cr_histo_tpu_torch.cli.common import (
+    StretchCounters,
     add_common_args,
     add_multi_step_arg,
     apply_reference_exact,
     chunked_feed,
-    counters_line,
     resolve_device,
     resume_training,
     seed_everything,
 )
 from ssl_cr_histo_tpu_torch.data import ReaderCache, RSPTripletSampler, TripletIndex
 from ssl_cr_histo_tpu_torch.data.pipeline import pad_batches, prefetch_to_device
-from ssl_cr_histo_tpu_torch.models.resnet import layout_calls, layout_line
 from ssl_cr_histo_tpu_torch.parallel import distributed as D
 from ssl_cr_histo_tpu_torch.parallel import steps as S
 from ssl_cr_histo_tpu_torch.parallel.mesh import rows_for_batch
@@ -243,7 +242,8 @@ def main(argv=None):
         # are the sampler's, and under --expand_orderings its labels ride
         # along
         bi = 0
-        feed, before, layouts = chunked_feed(device, args.multi_step, batches), step.counts(), layout_calls(state.model)
+        feed = chunked_feed(device, args.multi_step, batches)
+        stretch = StretchCounters(feed, step, state.model)
         for chunk, n_valid in feed:
             ms = step.run(chunk, n_valid)
             for i in range(n_valid):
@@ -262,8 +262,7 @@ def main(argv=None):
                 epoch_targets.extend(ms["labels"][:n_valid].cpu().numpy().astype(np.int32))
         train_loss = float(loss_sum) / max(seen, 1)
         train_acc = float(acc_sum) / max(seen, 1)
-        print(f"Epoch time: {time.time() - t0:.2f} s; {counters_line(feed, step, before)}"
-              f"{layout_line(state.model, layouts)}")
+        print(f"Epoch time: {time.time() - t0:.2f} s; {stretch.line()}")
 
         # validation: every held-out triplet under all 6 orderings; the last
         # partial batch is zero-padded with a validity mask; both come through

@@ -14,9 +14,16 @@ statistics a joint pass pools over every view in it) or UNI2-h's ViT
 view alone, in train mode as in eval mode).  The pair head's widths are
 the reference's for resnet18 (2D -> D -> D/2 of a D-wide embedding);
 resnet50's and uni2h's are 2D -> D/2 -> D/4.
+
+A family whose modules count something in Python keeps its counter and
+one reading of it (``read_counters``: ``{label: collections.Counter}``);
+``read_counters`` here sums every family's over the models it is given,
+and ``counters_since`` is their part of the stage CLIs' epoch line.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 from torch import nn
@@ -34,6 +41,34 @@ def make_backbone(name: str, remat: bool = False) -> nn.Module:
     if name in vit.CONFIGS:
         return vit.ViT(**vit.CONFIGS[name], remat=remat)
     return resnet.make_backbone(name, remat)
+
+
+# the families that keep counters, in the epoch line's order
+_COUNTED = (vit, resnet)
+
+
+def read_counters(models) -> dict:
+    """Each family's counters (``read_counters`` of its module) over
+    ``models`` (a student and its teacher: summed), by label; a family
+    that none of them holds has no entry."""
+    out = {}
+    for family in _COUNTED:
+        for model in models:
+            for label, counts in family.read_counters(model).items():
+                out.setdefault(label, collections.Counter()).update(counts)
+    return out
+
+
+def counters_since(models, before: dict) -> str:
+    """The epoch line's ``; <label> <name> <n>, ...`` for each counter of
+    ``models`` less ``before`` (a ``read_counters`` reading), its names in
+    order; ``none`` for a counter that has counted nothing; empty for
+    models that keep no counter."""
+    parts = []
+    for label, calls in read_counters(models).items():
+        calls.subtract(before.get(label, {}))
+        parts.append(f"; {label} " + (", ".join(f"{k} {v}" for k, v in sorted(calls.items())) or "none"))
+    return "".join(parts)
 
 
 def feature_dim(model_name: str) -> int:

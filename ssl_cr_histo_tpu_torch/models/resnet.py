@@ -45,7 +45,7 @@ differs: the same operations in the same dtypes, so the state_dict and the
 numbers up to rounding.  ``layouts``, a ``collections.Counter`` on the
 trunk, counts its forward calls by the layout of the activation entering
 ``layer1`` (``channels_last`` / ``contiguous``); it counts in Python, so
-eager steps and a CUDA graph's capture, not its replays (``layout_line``).
+eager steps and a CUDA graph's capture, not its replays (``read_counters``).
 """
 
 from __future__ import annotations
@@ -53,7 +53,6 @@ from __future__ import annotations
 import collections
 import contextlib
 import math
-from typing import Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -312,26 +311,12 @@ def layout_name(x: torch.Tensor) -> str:
     return "channels_last" if x.is_contiguous(memory_format=torch.channels_last) else "contiguous"
 
 
-Models = Union[nn.Module, Sequence[nn.Module]]
-
-
-def _trunks(models: Models) -> list:
-    models = (models,) if isinstance(models, nn.Module) else models
-    return [m for model in models for m in model.modules() if isinstance(m, ResNet)]
-
-
-def layout_calls(models: Models) -> collections.Counter:
-    """The forward calls of every ResNet trunk inside ``models`` (a module
-    or a sequence of them: a student and its teacher), by the layout
-    entering ``layer1`` (empty for models without one)."""
-    return sum((m.layouts for m in _trunks(models)), collections.Counter())
-
-
-def layout_line(models: Models, before: collections.Counter) -> str:
-    """The epoch line's trunk forwards by layout since ``before`` (a
-    ``layout_calls`` reading); empty for models without a ResNet."""
-    if not _trunks(models):
-        return ""
-    calls = layout_calls(models)
-    calls.subtract(before)
-    return "; trunk forwards " + (", ".join(f"{k} {v}" for k, v in sorted(calls.items())) or "none")
+def read_counters(model: nn.Module) -> dict:
+    """The family's counters in ``model``, for the epoch line
+    (``models.nets.read_counters``): ``{"trunk forwards": ...}``, the forward
+    calls of every ResNet trunk inside it by the layout entering
+    ``layer1``; empty for a model without one."""
+    trunks = [m for m in model.modules() if isinstance(m, ResNet)]
+    if not trunks:
+        return {}
+    return {"trunk forwards": sum((m.layouts for m in trunks), collections.Counter())}

@@ -32,7 +32,8 @@ inputs the call raises, instead of falling back to a backend that keeps the
 (B, 24, 265, 265) scores.  Elsewhere (the CPU, float32, float64) the math
 backend runs.  ``attention_calls``, a ``collections.Counter`` on the
 model, counts attention calls by the backend that served them; it counts
-in Python, so eager steps and a CUDA graph's capture, not its replays.
+in Python, so eager steps and a CUDA graph's capture, not its replays
+(``read_counters``).
 Each attention and MLP branch is the span ``port.vit.attention`` /
 ``port.vit.mlp`` (``utils.profiling.span``).
 
@@ -188,17 +189,13 @@ class ViT(nn.Module):
         return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
-def attention_calls(model: nn.Module) -> collections.Counter:
-    """The attention calls of every ViT inside ``model``, by SDPA backend
-    (empty for a model without one)."""
-    return sum((m.attention_calls for m in model.modules() if isinstance(m, ViT)), collections.Counter())
-
-
-def attention_line(model: nn.Module, before: collections.Counter) -> str:
-    """The epoch line's attention calls by backend since ``before`` (an
-    ``attention_calls`` reading); empty for a model without a ViT."""
-    if not any(isinstance(m, ViT) for m in model.modules()):
-        return ""
-    calls = attention_calls(model)
-    calls.subtract(before)
-    return "; attention calls " + (", ".join(f"{k.lower()} {v}" for k, v in sorted(calls.items())) or "none")
+def read_counters(model: nn.Module) -> dict:
+    """The family's counters in ``model``, for the epoch line
+    (``models.nets.read_counters``): ``{"attention calls": ...}``, the
+    attention calls of every ViT inside it by SDPA backend, named in lower
+    case; empty for a model without one."""
+    vits = [m for m in model.modules() if isinstance(m, ViT)]
+    if not vits:
+        return {}
+    calls = sum((m.attention_calls for m in vits), collections.Counter())
+    return {"attention calls": collections.Counter({k.lower(): v for k, v in calls.items()})}

@@ -166,9 +166,7 @@ def main(argv=None) -> dict:
 
     import torch
 
-    from ssl_cr_histo_tpu_torch.cli.common import chunked_feed, counters_line
-    from ssl_cr_histo_tpu_torch.models.resnet import layout_calls, layout_line
-    from ssl_cr_histo_tpu_torch.models.vit import attention_calls, attention_line
+    from ssl_cr_histo_tpu_torch.cli.common import StretchCounters, chunked_feed
     from ssl_cr_histo_tpu_torch.ops import strong_views_kernel as SV
     from ssl_cr_histo_tpu_torch.utils.profiling import trace
 
@@ -186,8 +184,7 @@ def main(argv=None) -> dict:
         float(m["loss"][0])
         sync()
         before = set(glob.glob(os.path.join(args.logdir, "*.pt.trace.json")))
-        counts, fed, views, attn = step.counts(), feed.counters.snapshot(), SV.launches, attention_calls(model)
-        layouts = layout_calls(model)
+        stretch, views = StretchCounters(feed, step, model), SV.launches
         with trace(args.logdir) as prof:
             t0 = time.perf_counter()
             left = args.steps
@@ -199,7 +196,7 @@ def main(argv=None) -> dict:
             float(m["loss"][n - 1])
             sync()  # the optimizer's update runs after the loss: wait for all of it
             dt = (time.perf_counter() - t0) / args.steps
-        counters = counters_line(feed, step, counts, fed) + attention_line(model, attn) + layout_line(model, layouts)
+        counters = stretch.line()
         views = SV.launches - views
     finally:
         feed.close()
@@ -221,8 +218,7 @@ def main(argv=None) -> dict:
         print(f"  {name:24s} x{t['calls']:<5d} {t['host_ms']:10.3f} ms  idle {inside}")
     print(f"traced steps: {counters}; strong_views kernel {views} launches")
     return {"stage": args.stage, "multi_step": k, "ms_per_step": dt * 1000, "trace": path, "top": top,
-            "spans": spans, "counts": {key: v - counts[key] for key, v in step.counts().items()},
-            "feed": {key: v - fed[key] for key, v in feed.counters.snapshot().items()},
+            "spans": spans, "counts": stretch.step_moved(), "feed": stretch.feed_moved(),
             "strong_views_launches": views}
 
 

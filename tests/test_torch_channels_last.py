@@ -7,13 +7,15 @@ hand, which takes the same path through the forward.  The card's own
 cases (the states ``train.init`` makes, a bf16 step against the NCHW one)
 are in tests/test_torch_cuda_kernels.py."""
 
-import collections
 import copy
 
 import pytest
 import torch
 
+from ssl_cr_histo_tpu_torch.cli import common as C
+from ssl_cr_histo_tpu_torch.data.pipeline import FeedCounters
 from ssl_cr_histo_tpu_torch.models import TripletNet, resnet, vit
+from ssl_cr_histo_tpu_torch.parallel.steps import StepGraph
 
 IMG = 64
 RTOL = 1e-10
@@ -89,19 +91,29 @@ def test_device_layout_leaves_the_cpu_and_the_vit_as_they_are():
                    init_values=0.1)
     resnet.apply_device_layout(tiny)
     assert tiny.patch_embed.proj.weight.is_contiguous()
-    assert resnet.layout_line(tiny, collections.Counter()) == ""
+    assert "trunk forwards" not in _stretch(tiny).line()
+
+
+# the epoch line of a feed and a step that have counted nothing
+IDLE = "feed starved 0.000 s in 0 waits, read 0.000 s, pin 0.000 s; step 0 eager, 0 replays, 0 captures (0.000 s)"
+
+
+def _stretch(*models) -> C.StretchCounters:
+    """The epoch line's reader over ``models``, with an idle feed and step."""
+    step = StepGraph("t", dict, None, dict, lambda: None, 1, torch.device("cpu"))
+    return C.StretchCounters(C.Feed(iter(()), FeedCounters(1, 1)), step, *models)
 
 
 def test_layout_line_counts_forwards_since_a_reading():
-    """The epoch line's trunk forwards by layout since a reading, over a
-    student and its teacher together; empty without a ResNet."""
+    """The epoch line's trunk forwards by layout since the reader was made,
+    over a student and its teacher together; none counted as 0."""
     student = TripletNet("resnet18").eval()
     teacher = copy.deepcopy(student).to(memory_format=torch.channels_last)
-    before = resnet.layout_calls((student, teacher))
+    stretch = _stretch(student, teacher)
     x = torch.rand(2, 3, 32, 32)
     with torch.no_grad():
         student.encode_single(x)
         student.forward_joint(torch.rand(1, 3, 3, 32, 32))
         teacher.encode_single(x)
-    assert resnet.layout_line((student, teacher), before) == "; trunk forwards channels_last 1, contiguous 2"
-    assert resnet.layout_line(student, resnet.layout_calls(student)) == "; trunk forwards contiguous 0"
+    assert stretch.line() == IDLE + "; trunk forwards channels_last 1, contiguous 2"
+    assert _stretch(student).line() == IDLE + "; trunk forwards contiguous 0"

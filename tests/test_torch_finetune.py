@@ -442,6 +442,27 @@ def test_forward_matches_make_forward_fn(weights, num_classes):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=2e-4)
 
 
+@pytest.mark.parametrize("task", ["camelyon16", "kather", "breastpathq"])
+def test_forward_under_bf16(task):
+    """The serving forward under bf16 autocast (``--bf16``, the heatmap
+    CLI's and evaluation's default) for each task's head: finite float32
+    outputs of the head's shape, each within one bf16 unit roundoff (2^-8)
+    of the sum of its head's absolute terms of the float32 forward's."""
+    cfg = TASKS[task]
+    torch.manual_seed(0)
+    state = init_finetune_state("resnet18", cfg.num_classes, torch.device("cpu"),
+                                lambda ps: make_optimizer(cfg.optimizer, ps, cfg.lr))
+    imgs = torch.from_numpy(np.random.default_rng(31).integers(0, 256, (3, IMG, IMG, 3), dtype=np.uint8))
+    got = TS.forward(state, imgs, bf16=True)
+    want = TS.forward(state, imgs)
+    assert got.shape == (3, cfg.num_classes) and got.dtype == torch.float32 and torch.isfinite(got).all()
+    x = TB.normalize_batch(TB.to_float(imgs).permute(0, 3, 1, 2), channel_axis=1)
+    linear = state.head.classifier[0]
+    with torch.no_grad():
+        terms = state.model.encode_single(x).abs() @ linear.weight.abs().T + linear.bias.abs()
+    assert ((got - want).abs() <= 2.0**-8 * terms).all()
+
+
 def test_from_jax_params_carries_the_finetune_head(weights):
     """A FinetuneHead's ``fc`` lands under ``classifier.0.*``, transposed."""
     _, _, heads = weights

@@ -38,6 +38,9 @@ from ssl_cr_histo_tpu_torch.cli import common as TC
 from ssl_cr_histo_tpu_torch.cli import consistency, finetune, pretrain
 from ssl_cr_histo_tpu_torch.cli.common import TASKS, make_optimizer
 from ssl_cr_histo_tpu_torch.data import pipeline as TP
+from ssl_cr_histo_tpu_torch.ops import photometric_kernel as PK
+from ssl_cr_histo_tpu_torch.ops import rsp_augment_kernel as RK
+from ssl_cr_histo_tpu_torch.ops import strong_views_kernel as SV
 from ssl_cr_histo_tpu_torch.parallel import steps as TS
 from ssl_cr_histo_tpu_torch.train.checkpoint import from_jax_params, save_checkpoint
 from ssl_cr_histo_tpu_torch.train.init import init_finetune_state, init_teacher, init_triplet_state
@@ -186,14 +189,25 @@ def _pretrain_setup(seed=0):
     return state, rows
 
 
-def _finetune_setup(opt="adam", seed=0):
+def _finetune_setup(opt="adam", seed=0, task="classification"):
+    """A 3-way head on class labels, or under ``task`` regression one
+    output on float targets in [0, 1]."""
     torch.manual_seed(seed)
-    state = init_finetune_state("resnet18", 3, CPU, lambda ps: make_optimizer(opt, ps, 1e-3),
+    outputs = 1 if task == "regression" else 3
+    state = init_finetune_state("resnet18", outputs, CPU, lambda ps: make_optimizer(opt, ps, 1e-3),
                                 milestones_steps=[2, 5])
     rng = np.random.default_rng(seed)
-    rows = [(torch.from_numpy(rng.integers(0, 256, (2, SIZE, SIZE, 3), dtype=np.uint8)),
-             torch.from_numpy(rng.integers(0, 3, 2))) for _ in range(STEPS)]
+    target = (lambda: torch.from_numpy(rng.random(2, dtype=np.float32))) if task == "regression" else \
+        (lambda: torch.from_numpy(rng.integers(0, 3, 2)))
+    rows = [(torch.from_numpy(rng.integers(0, 256, (2, SIZE, SIZE, 3), dtype=np.uint8)), target())
+            for _ in range(STEPS)]
     return state, rows
+
+
+def _launches() -> tuple:
+    """The kernels' launch counters: the CPU runs their plain versions, so
+    a run on it must leave them as they were."""
+    return RK.launches, PK.launches, SV.launches
 
 
 def _state_tree(state, teacher=None):
@@ -213,15 +227,18 @@ def _run_chunks(runner, rows):
 
 
 @pytest.mark.parametrize("split", [False, True], ids=["eager", "split"])
-@pytest.mark.parametrize("aug", [("v1", "fused"), ("v2", "masked"), (None, "fused")], ids=["v1", "v2", "none"])
+@pytest.mark.parametrize("aug", [("v1", "fused"), ("v1", "fast"), ("v1", "masked"), ("v1", "exact"),
+                                 ("v2", "masked"), (None, "fused")],
+                         ids=["v1", "v1-fast", "v1-masked", "v1-exact", "v2", "none"])
 def test_pretrain_runner_equals_single_steps(aug, split):
     """make_pretrain_multi_step at K = 3 over 7 steps against 7
     pretrain_step calls on the same tiles and generators: the metrics, the
     state (weights, BN statistics, momentum, step) and both generators'
-    states bit for bit; v1's kernel path and no augmentation as
-    whole-step graphs, v2 with its views in the prologue."""
+    states bit for bit; v1's kernel path (fused, and fast and masked, which
+    v1 maps to it) and no augmentation as whole-step graphs, v1 exact and v2
+    with their views in the prologue; no kernel launch counted."""
     kw = dict(augment=aug[0], aug_mode=aug[1], return_feats=True, bf16=False)
-    runs = []
+    runs, launches = [], _launches()
     for multi in (False, True):
         state, rows = _pretrain_setup()
         gen, host_gen = torch.Generator().manual_seed(1), torch.Generator().manual_seed(2)
@@ -233,6 +250,7 @@ def test_pretrain_runner_equals_single_steps(aug, split):
         runs.append((metrics, _state_tree(state), gen.get_state(), host_gen.get_state()))
     _same(runs[0], runs[1])
     assert runs[1][1]["state"]["step"] == STEPS
+    assert _launches() == launches
 
 
 def test_pretrain_runner_takes_the_chunks_labels():
@@ -249,21 +267,23 @@ def test_pretrain_runner_takes_the_chunks_labels():
 
 
 @pytest.mark.parametrize("split", [False, True], ids=["eager", "split"])
-@pytest.mark.parametrize("opt", ["adam", "sgd"])
-def test_finetune_runner_equals_single_steps(opt, split):
+@pytest.mark.parametrize("opt,task", [("adam", "classification"), ("sgd", "classification"), ("adam", "regression")],
+                         ids=["adam", "sgd", "adam-regression"])
+def test_finetune_runner_equals_single_steps(opt, task, split):
     """make_finetune_multi_step at K = 3 over 7 steps against 7
-    finetune_step calls: metrics, weights, the optimizer (Adam's moments and
-    step counts, or SGD's momentum), the MultiStep schedule past both of
-    its milestones (steps 2 and 5) and the generator, bit for bit."""
+    finetune_step calls, on class labels or regression targets: metrics,
+    weights, the optimizer (Adam's moments and step counts, or SGD's
+    momentum), the MultiStep schedule past both of its milestones (steps 2
+    and 5) and the generator, bit for bit."""
     runs = []
     for multi in (False, True):
-        state, rows = _finetune_setup(opt)
+        state, rows = _finetune_setup(opt, task=task)
         gen = torch.Generator().manual_seed(1)
         if multi:
-            runner = TS.make_finetune_multi_step(state, gen, K)
+            runner = TS.make_finetune_multi_step(state, gen, K, task)
             metrics = _run_chunks(_split(runner) if split else runner, rows)
         else:
-            metrics = [TS.finetune_step(state, x, y, gen) for x, y in rows]
+            metrics = [TS.finetune_step(state, x, y, gen, task) for x, y in rows]
         runs.append((metrics, _state_tree(state), gen.get_state()))
     _same(runs[0], runs[1])
     assert runs[1][1]["state"]["scheduler"]["last_epoch"] == STEPS
@@ -271,13 +291,15 @@ def test_finetune_runner_equals_single_steps(opt, split):
 
 @pytest.mark.parametrize("split", [False, True], ids=["eager", "split"])
 @pytest.mark.parametrize("ema", [0.0, 0.9], ids=["refresh", "ema"])
-def test_consistency_runner_equals_single_steps(ema, split):
+@pytest.mark.parametrize("aug_mode", ["fused", "fast", "masked"])
+def test_consistency_runner_equals_single_steps(aug_mode, ema, split):
     """make_consistency_multi_step at K = 3 over 7 steps against 7
-    consistency_step calls, each followed by ema_update under --ema:
-    metrics, the student, the optimizer, the schedule, the teacher (moved
-    by the EMA, or untouched between refreshes) and both generators, bit
-    for bit; the strong views in the prologue, the rest the body."""
-    runs = []
+    consistency_step calls, each followed by ema_update under --ema, in
+    each ``--aug_mode`` the strong views take: metrics, the student, the
+    optimizer, the schedule, the teacher (moved by the EMA, or untouched
+    between refreshes) and both generators, bit for bit; the strong views
+    in the prologue, the rest the body; no kernel launch counted."""
+    runs, launches = [], _launches()
     for multi in (False, True):
         state, rows = _finetune_setup("adam", seed=1)
         teacher = init_teacher(state)
@@ -285,7 +307,7 @@ def test_consistency_runner_equals_single_steps(ema, split):
         rows = [(x, y, torch.from_numpy(rng.integers(0, 256, (4, SIZE, SIZE, 3), dtype=np.uint8)))
                 for x, y in rows]
         gen, host_gen = torch.Generator().manual_seed(1), torch.Generator().manual_seed(2)
-        kw = dict(n_aug=2, host_gen=host_gen, aug_mode="masked")
+        kw = dict(n_aug=2, host_gen=host_gen, aug_mode=aug_mode)
         if multi:
             runner = TS.make_consistency_multi_step(state, teacher, gen, K, ema=ema, **kw)
             metrics = _run_chunks(_split(runner) if split else runner, rows)
@@ -297,6 +319,7 @@ def test_consistency_runner_equals_single_steps(ema, split):
                     TS.ema_update(teacher, state, ema)
         runs.append((metrics, _state_tree(state, teacher), gen.get_state(), host_gen.get_state()))
     _same(runs[0], runs[1])
+    assert _launches() == launches
     moved = not torch.equal(runs[1][1]["teacher"]["classifier"]["classifier.0.weight"],
                             init_teacher(_finetune_setup("adam", seed=1)[0]).head.state_dict()["classifier.0.weight"])
     assert moved == (ema > 0)

@@ -572,10 +572,8 @@ def test_cli_runs_each_flag(tmp_path, extra, monkeypatch, one_torch_thread):
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import without jax,
     flax, optax or chex, and without any module of the JAX package
-    (``ssl_cr_histo_tpu``, even its numpy-only ones); the port's bench tools
-    (``tools/bench.py``, ``bench_suite.py``, ``bench_scaling.py``,
-    ``reference_baseline.py``) load neither the repo's ``bench.py`` nor
-    any of its ``tools/``; nor do they load cv2,
+    (``ssl_cr_histo_tpu``, even its numpy-only ones); they load neither
+    the repo's ``bench.py`` nor any of its ``tools/``; nor do they load cv2,
     h5py, matplotlib or scikit-learn, which the GPU machine may lack (the
     functions that read images or .h5 files, or draw, import them), nor
     msgpack, which it lacks (the reader of the JAX package's checkpoints,
@@ -597,8 +595,6 @@ def test_port_imports_no_jax():
         "assert not [k for k in sys.modules if k.split('.')[0] == 'msgpack'], 'msgpack'\n"
         "for name in ('cli.convert_checkpoint', 'utils.flax_msgpack'):\n"
         "    assert 'ssl_cr_histo_tpu_torch.' + name in sys.modules, name\n"
-        "for name in ('bench', 'bench_suite', 'bench_scaling', 'reference_baseline'):\n"
-        "    assert 'ssl_cr_histo_tpu_torch.tools.' + name in sys.modules, name\n"
         "jax_tools = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "                   ('bench', 'tools', 'bench_suite', 'bench_scaling', 'measure_reference_baseline'))\n"
         "assert not jax_tools, jax_tools\n"

@@ -255,14 +255,14 @@ def test_step_graph_prologue_is_a_span(prologue):
 
 
 def test_epoch_line_reads_the_counters():
-    """``counters_line``: the feed's counters as they stand and the step's
-    since ``before``."""
+    """``StretchCounters``: the feed's and the step's counters since the
+    reader was made, and nothing of models that keep no counter."""
     counters = TP.FeedCounters(sources=2, pinners=1)
-    counters.starved, counters.starved_s, counters.reads, counters.pins = 3, 0.25, [0.5, 0.25], [0.125]
     feed = TC.Feed(iter(()), counters)
     step = _runner(prologue=False)
-    before = step.counts()
+    stretch = TC.StretchCounters(feed, step)
+    counters.starved, counters.starved_s, counters.reads, counters.pins = 3, 0.25, [0.5, 0.25], [0.125]
     step.eager_steps, step.replays, step.captures, step.capture_s = 1, 7, 2, 0.75
-    assert TC.counters_line(feed, step, before) == (
+    assert stretch.line() == (
         "feed starved 0.250 s in 3 waits, read 0.750 s, pin 0.125 s; "
         "step 1 eager, 7 replays, 2 captures (0.750 s)")

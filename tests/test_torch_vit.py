@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 import torch_vit_reference as R
 from ssl_cr_histo_tpu_torch.cli import common as C
+from ssl_cr_histo_tpu_torch.data.pipeline import FeedCounters
 from ssl_cr_histo_tpu_torch.models import TripletNet, nets, vit
 from ssl_cr_histo_tpu_torch.ops import batch as aug_batch
 from ssl_cr_histo_tpu_torch.parallel import steps as S
@@ -316,14 +317,19 @@ def test_spans_and_counter_in_profile_step(monkeypatch, tmp_path, capsys):
 
 
 def test_attention_line(tiny):
-    """The epoch line's attention calls since a reading, empty for a
-    ResNet."""
+    """The epoch line's attention calls since the reader was made
+    (``cli.common.StretchCounters``), none for a ResNet."""
+    def stretch(net):
+        step = S.StepGraph("t", dict, None, dict, lambda: None, 1, CPU)
+        return C.StretchCounters(C.Feed(iter(()), FeedCounters(1, 1)), step, net)
+
+    idle = "feed starved 0.000 s in 0 waits, read 0.000 s, pin 0.000 s; step 0 eager, 0 replays, 0 captures (0.000 s)"
     net = TripletNet(tiny)
-    before = vit.attention_calls(net)
+    before = stretch(net)
     net.encode_single(torch.zeros(2, 3, 56, 56))
-    assert vit.attention_line(net, before) == "; attention calls math 2"
-    assert vit.attention_line(net, vit.attention_calls(net)) == "; attention calls math 0"
-    assert vit.attention_line(TripletNet("resnet18"), before) == ""
+    assert before.line() == idle + "; attention calls math 2"
+    assert stretch(net).line() == idle + "; attention calls math 0"
+    assert "attention calls" not in stretch(TripletNet("resnet18")).line()
 
 
 # --- on the card ----------------------------------------------------------------
